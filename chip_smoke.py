@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's retrieve-then-rerank path on one GPU.
+"""Drive the PyTorch/CUDA port's retrieve-then-rerank path on one GPU, in
+bf16 and with the int8 serving knobs on.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card, ``nvcc`` and the port package beside this file; imports no JAX.
@@ -8,24 +9,41 @@ Phases, each printing one JSON line with its elapsed seconds:
   0. the card (name and power limit as ``nvidia-smi`` gives them);
   1. build the CUDA kernels (``nvcc`` -> shared library -> ``ctypes``);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes in bf16, and time kernel, plain version and (for K2)
-     ``scaled_dot_product_attention`` as a yardstick the port never calls;
+     main path's shapes (K1 and K2 in bf16, K3 on int8 codes, masked and
+     unmasked, plus crafted codes that must match bitwise), and time kernel,
+     plain version and (for K2) ``scaled_dot_product_attention`` as a
+     yardstick the port never calls;
   3. retrieve: full-width FLMR (BERT-base, ViT-B/32, dim 128, 32-token
      prefix, 1-layer mapping network; random bf16 weights from a seed)
      encodes 1,024 docs into a TokenIndex padded with random unit vectors to
      100,000 x 256 x 128 bf16, encodes 8 queries (32 tokens + an image) and
      serves them through RetrievalService, k = 100; the top-100 is held
      against the plain version;
+  3b. int8 retrieve: that index quantized on the card into a
+     QuantizedTokenIndex and the same 8 queries served through
+     RetrievalService(make_search_fn_int8), K3 over 32k-doc slabs; the
+     top-100 is held against the plain int8 version;
+  3c. streamed retrieve: a 262,144-doc int8 index in host RAM (the 100k
+     codes of 3b, then random unit vectors quantized on the card), streamed
+     slab by slab through StreamingSearcher; the values must equal those of
+     the device-resident int8 search bitwise;
   4. rerank: the 8 queries x their 100 candidates x 512 tokens through
      RerankService with a full-width FullContextRerankModel in bf16; logits
      are held against a CPU fp32 recomputation of four candidates;
+  4b. W8A8 rerank: the same model and weights with ``quantize_int8`` in both
+     BERT configs (every BERT dense layer through ``torch._int_mm``); logits
+     held against a CPU fp32 W8A8 recomputation of four candidates, and each
+     dense layer's first rows against the same layer on the CPU, bitwise
+     (a bf16 layer in its place would not match);
   5. the ``kernels`` line, then the result line.
 
-The launch counters are set to 0 just before each main-path phase (3 and 4)
-and read just after it. Any failed check raises and the script exits
-non-zero; without a CUDA card it exits non-zero before printing anything.
+The launch counters are set to 0 just before each main-path phase (3, 3b,
+3c, 4 and 4b) and read just after it. Any failed check raises and the script
+exits non-zero; without a CUDA card it exits non-zero before printing
+anything.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,12 +53,19 @@ import numpy as np
 import torch
 
 SEED = 0
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores and HBM3 bandwidth
+# H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
+# bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 # K1: fp32 dot products of unit vectors, fp32 sums of <= 113 maxima in a
 # different order than the plain version's matmul
 K1_TOL = 2e-3
+# phase 3c: a host index of 262,144 docs (16 slabs of 16,384)
+STREAM_DOCS, STREAM_SLAB = 262_144, 16_384
+# K3: the int32 maxima are exact on both sides; only the order of the fp32
+# sums of at most 113 scaled maxima (totals below ~40) differs
+K3_TOL = 2e-3
 # K2: bf16 outputs of order 1; the kernel rounds unnormalised probabilities
 # to bf16 where the plain version rounds normalised ones, and sums in
 # another order: a few bf16 spacings
@@ -49,6 +74,8 @@ K2_TOL = 3e-2
 # 1 BERT layers and the ViT: bf16 keeps 8 mantissa bits, about 0.4% per
 # rounding, which the residual stream accumulates to a few percent
 RERANK_ATOL, RERANK_RTOL = 0.05, 0.05
+# phase 4b: rows of each dense layer's first input recomputed on the CPU
+W8A8_LAYER_ROWS = 64
 
 
 def emit(obj):
@@ -74,14 +101,334 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def unit(gen, *shape):
-    x = torch.randn(*shape, device="cuda", generator=gen)
+    x = torch.randn(*shape, device=gen.device, generator=gen)
     return (x / x.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+
+
+def _counters():
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import fused_self_attention
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import maxsim_scores
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_int8_cuda import maxsim_scores_int8
+
+    return {"K1": maxsim_scores, "K2": fused_self_attention, "K3": maxsim_scores_int8}
+
+
+def reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def check_k3(Q, D, M):
+    """K3 against its plain version on the codes of the K1 check's unit
+    vectors, quantized as the int8 index and queries are (with the mask and
+    without), and on crafted codes with unit scales, whose totals are
+    integers below 2^24 and must match bitwise. Returns K3's line."""
+    from reranking_multimodal_retrievers_tpu_torch.engine.index import quantize_docs
+    from reranking_multimodal_retrievers_tpu_torch.engine.search import quantize_queries
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_int8_cuda import (
+        maxsim_scores_int8, maxsim_scores_int8_reference)
+
+    B, LQ, DIM = Q.shape
+    N, LD, _ = D.shape
+    Qq, qs = quantize_queries(Q.float())
+    Dq, ds = quantize_docs(D, M)
+    valid = M.any(dim=1)
+    errs = {}
+    for name, m in (("masked", M), ("unmasked", None)):
+        got = maxsim_scores_int8(Qq, qs, Dq, ds, m)
+        ref = maxsim_scores_int8_reference(Qq, qs, Dq, ds, m)
+        real = valid if m is not None else torch.ones_like(valid)
+        errs[name] = (got - ref)[:, real].abs().max().item()
+        check(errs[name] <= K3_TOL, f"K3 {name}: max |diff| {errs[name]} > {K3_TOL}")
+        if m is not None:  # whole-padding docs total about -2^25 * sum(qs) * ds
+            pad_rel = ((got - ref)[:, ~valid].abs() / ref[:, ~valid].abs()).max().item()
+            check(pad_rel <= 1e-5 and ref[:, ~valid].max().item() < 0,
+                  f"K3 whole-padding docs: relative diff {pad_rel}")
+    gen = torch.Generator(device=Q.device).manual_seed(SEED + 1)
+    Cq = torch.randint(-8, 9, (B, LQ, DIM), dtype=torch.int8, device=Q.device, generator=gen)
+    Cd = torch.randint(-8, 9, (N, LD, DIM), dtype=torch.int8, device=Q.device, generator=gen)
+    lens = torch.randint(1, LD + 1, (N,), device=Q.device, generator=gen)
+    Cm = torch.arange(LD, device=Q.device)[None, :] < lens[:, None]
+    ones_q, ones_d = torch.ones(B, LQ, device=Q.device), torch.ones(N, device=Q.device)
+    crafted = torch.equal(maxsim_scores_int8(Cq, ones_q, Cd, ones_d, Cm),
+                          maxsim_scores_int8_reference(Cq, ones_q, Cd, ones_d, Cm))
+    check(crafted, "K3 on crafted codes: not bitwise equal to the plain version")
+    b_ms, b_by = bound(2 * B * LQ * N * LD * DIM,
+                       Qq.numel() + qs.numel() * 4 + Dq.numel() + ds.numel() * 4 + M.numel()
+                       + B * N * 4, PEAK_INT8_OPS)
+    return dict(shape=[[B, LQ, DIM], [N, LD, DIM]], max_abs_err=max(errs.values()),
+                max_abs_err_unmasked=errs["unmasked"], crafted_bitwise=crafted, tol=K3_TOL,
+                ms=cuda_ms(lambda: maxsim_scores_int8(Qq, qs, Dq, ds, M), 20),
+                plain_ms=cuda_ms(lambda: maxsim_scores_int8_reference(Qq, qs, Dq, ds, M), 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def int8_retrieve(index, Qm, k, bf16_ids):
+    """Phase 3b: quantize ``index`` on its device and serve the query
+    matrices ``Qm`` through RetrievalService over the int8 program; hold the
+    top-k against the plain int8 version. Returns (QuantizedTokenIndex, the
+    phase's line)."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import (
+        QuantizedTokenIndex, make_search_fn_int8)
+    from reranking_multimodal_retrievers_tpu_torch.engine.index import quantize_docs
+    from reranking_multimodal_retrievers_tpu_torch.engine.search import quantize_queries
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_int8_cuda import (
+        maxsim_scores_int8_reference)
+    from reranking_multimodal_retrievers_tpu_torch.serving import RetrievalService
+
+    t0 = time.perf_counter()
+    BQ, LQ, _ = Qm.shape
+    reset_counts()
+    qindex = QuantizedTokenIndex.from_token_index(index)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    N, LD, DIM = qindex.codes.shape
+    # the codes and scales made on the card are the CPU quantizer's, bitwise
+    # (the CPU tests hold that one bitwise to the JAX package's)
+    n_cpu = min(N, 2048)
+    cpu_codes, cpu_scales = quantize_docs(index.embeddings[:n_cpu].cpu(), index.mask[:n_cpu].cpu())
+    check(torch.equal(cpu_codes, qindex.codes[:n_cpu].cpu())
+          and torch.equal(cpu_scales, qindex.scales[:n_cpu].cpu()),
+          "int8 codes or scales made on the card differ from the CPU's")
+    svc = RetrievalService(make_search_fn_int8(N, k=k), qindex, batch_queries=BQ, max_wait_ms=50)
+    try:
+        t1 = time.perf_counter()
+        results = [f.result(timeout=600) for f in [svc.search(Qm[i]) for i in range(BQ)]]
+        search_s = time.perf_counter() - t1
+    finally:
+        svc.close()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches["K3"] > 0 and launches["K1"] == 0, f"int8 retrieve launches {launches}")
+
+    # the search program alone, after the counts were read
+    Qf = Qm.float()
+    search_ms = cuda_ms(lambda: make_search_fn_int8(N, k=k)(Qf, *qindex.search_arrays), 3)
+    b_ms, b_by = bound(2 * BQ * LQ * N * LD * DIM,
+                       Qf.numel() * 4 + qindex.codes.numel() + N * 4 + qindex.mask.numel()
+                       + BQ * N * 4, PEAK_INT8_OPS)
+    ref = maxsim_scores_int8_reference(*quantize_queries(Qf), qindex.codes, qindex.scales,
+                                       qindex.mask)
+    ref_vals, ref_idx = torch.topk(ref, k, dim=1)
+    identical, worst, overlap = 0, 0.0, []
+    for i, (ids, vals) in enumerate(results):
+        got_idx = torch.as_tensor([int(x) for x in ids], device=ref.device)
+        check(len(ids) == k and bool(np.isfinite(vals).all()), f"int8 query {i}: {len(ids)} results")
+        identical += int(torch.equal(got_idx, ref_idx[i]))
+        # ranks may differ only between docs whose plain scores lie within
+        # the K3 tolerance; the served values match the plain scores
+        swap = (ref[i, got_idx] - ref_vals[i]).abs().max().item()
+        served = (torch.as_tensor(vals, device=ref.device) - ref[i, got_idx]).abs().max().item()
+        worst = max(worst, swap, served)
+        overlap.append(len({int(x) for x in ids} & set(bf16_ids[i])) / k)
+    check(worst <= K3_TOL, f"int8 retrieval top-{k} off the plain version by {worst}")
+    return qindex, {
+        "phase": "retrieve_int8", "index": [N, LD, DIM], "index_bytes": qindex.codes.numel()
+        + N * 4 + qindex.mask.numel(), "queries": BQ, "k": k, "quantize_seconds": quantize_s,
+        "codes_bitwise_vs_cpu_docs": n_cpu,
+        "search_seconds": search_s, "search_ms": search_ms, "search_bound_ms": b_ms,
+        "search_bound_by": b_by, "identical_rankings": identical, "max_abs_err": worst,
+        "overlap_with_bf16_topk": {"min": min(overlap), "mean": float(np.mean(overlap))},
+        "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def host_docs_that_fit(per_doc_bytes, want, slab):
+    """The largest multiple of ``slab`` docs, at most ``want``, whose host
+    index fits in half of ``MemAvailable``; and ``MemAvailable`` in bytes."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    return min(want, avail // 2 // per_doc_bytes // slab * slab), avail
+
+
+def streamed_retrieve(qindex, Qm, k, gen, n_want=STREAM_DOCS, slab=STREAM_SLAB):
+    """Phase 3c: a host-RAM int8 index of ``n_want`` docs (the codes of
+    ``qindex``, then random unit vectors quantized on the device) streamed
+    through StreamingSearcher, twice; the values must equal the
+    device-resident int8 search's bitwise. Returns the phase's line."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import (
+        HostQuantizedTokenIndex, StreamingSearcher, make_search_fn_int8)
+    from reranking_multimodal_retrievers_tpu_torch.engine.index import quantize_docs
+    from reranking_multimodal_retrievers_tpu_torch.engine.search import quantize_queries
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_int8_cuda import maxsim_scores_int8
+
+    t0 = time.perf_counter()
+    n_res, LD, DIM = qindex.codes.shape
+    n_host, avail = host_docs_that_fit(LD * DIM + 4 + LD, n_want, slab)
+    check(n_host >= slab, f"host RAM holds {n_host} docs, less than one slab")
+    dev = qindex.codes.device
+    codes = torch.empty(n_host, LD, DIM, dtype=torch.int8, device=dev)
+    scales = torch.empty(n_host, dtype=torch.float32, device=dev)
+    mask = torch.ones(n_host, LD, dtype=torch.bool, device=dev)
+    n_q = min(n_host, n_res)
+    codes[:n_q], scales[:n_q], mask[:n_q] = (qindex.codes[:n_q], qindex.scales[:n_q],
+                                             qindex.mask[:n_q])
+    for s in range(n_q, n_host, slab):
+        e = min(n_host, s + slab)
+        codes[s:e], scales[s:e] = quantize_docs(unit(gen, e - s, LD, DIM), mask[s:e])
+    host = HostQuantizedTokenIndex(codes=np.empty((n_host, LD, DIM), np.int8),
+                                   scales=np.empty(n_host, np.float32),
+                                   mask=np.empty((n_host, LD), bool))
+    for s in range(0, n_host, slab):
+        for h, d in ((host.codes, codes), (host.scales, scales), (host.mask, mask)):
+            torch.from_numpy(h[s:s + slab]).copy_(d[s:s + slab])
+    build_s = time.perf_counter() - t0
+
+    Qf = Qm.float()
+    searcher = StreamingSearcher(host, k=k, slab_docs=slab, device=dev)
+    n_slabs = -(-n_host // slab)
+    reset_counts()
+    pass_s, fill_s = [], []
+    for _ in range(2):  # the first pass also allocates the pinned staging buffers
+        t1 = time.perf_counter()
+        vals, idx = searcher.search(Qf)
+        pass_s.append(time.perf_counter() - t1)
+        fill_s.append(searcher.last_fill_seconds)
+    launches = read_counts()
+    check(launches["K3"] == 2 * n_slabs, f"streamed launches {launches}, {n_slabs} slabs")
+
+    res_v, res_i = make_search_fn_int8(n_host, k=k)(Qf, codes, scales, mask)
+    res_v, res_i = res_v.cpu().numpy(), res_i.cpu().numpy()
+    check(np.array_equal(vals, res_v), "streamed values differ from the resident search: "
+          f"max |diff| {np.abs(vals - res_v).max()}")
+    moved = list(zip(*np.nonzero(idx != res_i)))
+    check(all((vals[b] == vals[b, p]).sum() > 1 for b, p in moved),
+          "streamed ids differ from the resident search outside exact ties")
+    Qq, qs = quantize_queries(Qf)
+    k3_s = cuda_ms(lambda: [maxsim_scores_int8(Qq, qs, codes[s:s + slab], scales[s:s + slab],
+                                               mask[s:s + slab])
+                            for s in range(0, n_host, slab)], 2) / 1e3
+    host_bytes = host.codes.nbytes + host.scales.nbytes + host.mask.nbytes
+    return {"phase": "retrieve_streamed", "host_docs": n_host, "host_docs_wanted": n_want,
+            "mem_available_bytes": avail, "host_index_bytes": host_bytes, "slab_docs": slab,
+            "slabs": n_slabs, "queries": Qm.shape[0], "k": k, "build_seconds": build_s,
+            "pass_seconds": pass_s, "host_fill_seconds": fill_s,
+            "host_to_device_gb_per_s": host_bytes / pass_s[-1] / 1e9,
+            "k3_seconds_alone": k3_s, "values_bitwise_equal": True,
+            "ids_differing_within_ties": len(moved), "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def keep_first_rows(seen, name):
+    """A forward hook that keeps, in ``seen[name]``, the first
+    ``W8A8_LAYER_ROWS`` rows of a layer's first input and output."""
+    def hook(module, args, out):
+        if name not in seen:
+            x = args[0]
+            seen[name] = (x.reshape(-1, x.shape[-1])[:W8A8_LAYER_ROWS].clone(),
+                          out.reshape(-1, out.shape[-1])[:W8A8_LAYER_ROWS].clone())
+    return hook
+
+
+def check_int8_layers(layers, seen):
+    """Every ``Int8Linear`` of the served model ran W8A8 on the card: its
+    output on the kept rows is bitwise that of the same layer on the CPU
+    (``_int_mm`` is exact there and the quantizers are the CPU's), where a
+    bf16 ``nn.Linear`` in its place gives another result. Returns the number
+    of layers checked and the smallest max |bf16 - W8A8| over them."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.quant import Int8Linear
+
+    check(layers and set(seen) == set(layers),
+          f"W8A8 layers run: {len(seen)} of {len(layers)}")
+    gaps = []
+    with torch.inference_mode():
+        for name, (x, y) in seen.items():
+            mod = layers[name]
+            cpu = Int8Linear(mod.in_features, mod.out_features, bias=mod.bias is not None,
+                             device="meta")
+            cpu.load_state_dict({k: v.cpu() for k, v in mod.state_dict().items()}, assign=True)
+            check(torch.equal(y.cpu(), cpu(x.cpu())), f"{name}: W8A8 on the card != CPU")
+            bf16 = torch.nn.functional.linear(x, mod.weight, mod.bias)
+            check(not torch.equal(bf16, y), f"{name}: bf16 gives the W8A8 result")
+            gaps.append(float((bf16.float() - y.float()).abs().max()))
+    return len(seen), min(gaps)
+
+
+def w8a8_rerank(reranker, rcfg, ids, am, tt, pix, bf16_logits, cpu_state):
+    """Phase 4b: the rerank model ``reranker`` with ``quantize_int8`` in both
+    BERT configs and the same weights, through RerankService; logits held
+    against a CPU fp32 W8A8 recomputation of four candidates (``cpu_state``:
+    the weights in fp32 on the CPU), and every dense layer's first rows of
+    the first batch against the same layer on the CPU, bitwise
+    (``check_int8_layers``). Returns the phase's line."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import make_chunked_rerank_fn
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import (
+        FullContextRerankModel)
+    from reranking_multimodal_retrievers_tpu_torch.ops.quant import Int8Linear
+    from reranking_multimodal_retrievers_tpu_torch.serving import RerankService
+
+    t0 = time.perf_counter()
+    q8 = lambda cfg: dataclasses.replace(cfg, quantize_int8=True)  # noqa: E731
+    rcfg8 = dataclasses.replace(
+        rcfg, flmr=dataclasses.replace(rcfg.flmr, text_config=q8(rcfg.flmr.text_config)),
+        cross_encoder=q8(rcfg.cross_encoder))
+    model = FullContextRerankModel(rcfg8, device="meta")  # the bf16 model's weights
+    model.load_state_dict(reranker.state_dict(), assign=True)
+    model.eval()
+    BQ, K, L = ids.shape
+    dev = next(reranker.parameters()).device
+    rsvc = RerankService(make_chunked_rerank_fn(model, nway=K, chunk_size=100), nway=K,
+                         max_batch=BQ, max_wait_ms=50, device=dev)
+    layers = {name: m for name, m in model.named_modules() if isinstance(m, Int8Linear)}
+    seen = {}
+    hooks = [m.register_forward_hook(keep_first_rows(seen, name)) for name, m in layers.items()]
+    reset_counts()
+    try:
+        batch_s = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            futs = [rsvc.rerank(ids[i], am[i], tt, pix[i]) for i in range(BQ)]
+            logits = np.stack([f.result(timeout=600) for f in futs])
+            batch_s.append(time.perf_counter() - t1)
+            for h in hooks:  # the first batch, which warms up, feeds the layer check
+                h.remove()
+    finally:
+        for h in hooks:
+            h.remove()
+        rsvc.close()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(logits.shape == (BQ, K) and bool(np.isfinite(logits).all()), f"logits {logits.shape}")
+    check(launches["K2"] > 0, f"W8A8 rerank launches {launches}")
+
+    t1 = time.perf_counter()
+    layers_checked, layer_gap = check_int8_layers(layers, seen)
+    cpu_model = FullContextRerankModel(rcfg8, device="meta")
+    cpu_model.load_state_dict(cpu_state, assign=True)
+    want = make_chunked_rerank_fn(cpu_model, nway=4, chunk_size=4)(
+        torch.as_tensor(ids[0, :4]), torch.as_tensor(am[0, :4]), torch.as_tensor(tt[:4]),
+        pix[:1].float())[0].numpy()
+    err = float(np.abs(logits[0, :4] - want).max())
+    check(np.allclose(logits[0, :4], want, atol=RERANK_ATOL, rtol=RERANK_RTOL),
+          f"W8A8 rerank logits {logits[0, :4]} vs CPU fp32 W8A8 {want}")
+    # information: phase 4's bf16 logits of the same candidates against the
+    # W8A8 recomputation (at this tolerance the logits alone cannot tell
+    # the two apart; the layer check above does)
+    bf16_gap = float(np.abs(bf16_logits[0, :4] - want).max())
+
+    def ranks(x):
+        return np.argsort(np.argsort(x))
+
+    rho = [float(np.corrcoef(ranks(a), ranks(b))[0, 1]) for a, b in zip(logits, bf16_logits)]
+    top1 = int(sum(np.argmax(a) == np.argmax(b) for a, b in zip(logits, bf16_logits)))
+    return {"phase": "rerank_w8a8", "queries": BQ, "candidates": K, "seq_len": L,
+            "batch_seconds": batch_s, "candidates_per_s": BQ * K / batch_s[-1],
+            "max_abs_err_vs_cpu_fp32_w8a8": err, "max_abs_gap_bf16_vs_cpu_fp32_w8a8": bf16_gap,
+            "int8_layers_bitwise": layers_checked, "min_layer_gap_bf16": layer_gap,
+            "logit_std": float(logits.std()),
+            "spearman_vs_bf16": rho, "top1_agreement_vs_bf16": top1,
+            "cpu_check_seconds": time.perf_counter() - t1, "launches": launches,
+            "seconds": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -94,7 +441,8 @@ def main() -> int:
         BertConfig, CLIPVisionConfig, FLMRConfig, FLMRModelForRetrieval)
     from reranking_multimodal_retrievers_tpu_torch.models.rerankers import (
         FullContextRerankModel, RerankConfig)
-    from reranking_multimodal_retrievers_tpu_torch.ops import _build, attention_cuda, maxsim_cuda
+    from reranking_multimodal_retrievers_tpu_torch.ops import (
+        _build, attention_cuda, maxsim_cuda, maxsim_int8_cuda)
     from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
         fused_self_attention, fused_self_attention_reference)
     from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import (
@@ -116,8 +464,9 @@ def main() -> int:
     # ---- 1. build
     t0 = time.perf_counter()
     build_s = _build.build_all()
-    maxsim_cuda._lib()  # load both libraries
+    maxsim_cuda._lib()  # load the three libraries
     attention_cuda._lib()
+    maxsim_int8_cuda._lib()
     emit({"phase": "build", "nvcc_seconds": build_s, "seconds": time.perf_counter() - t0})
 
     # ---- 2. each kernel against its plain version, at main-path shapes
@@ -145,6 +494,8 @@ def main() -> int:
               ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
               library_ms=None)
     emit({"phase": "kernel_check", "kernel": "K1 maxsim_scores", **k1})
+    k3 = check_k3(Q, D, M)
+    emit({"phase": "kernel_check", "kernel": "K3 maxsim_scores_int8", **k3})
     del D, M, got, ref
 
     k2 = {}
@@ -196,7 +547,7 @@ def main() -> int:
     pix = torch.as_tensor(rng.normal(size=(BQ, 3, 224, 224)).astype(np.float32)).to(torch.bfloat16)
     setup_s = time.perf_counter() - t0
 
-    maxsim_scores.launches = fused_self_attention.launches = 0
+    reset_counts()
     t1 = time.perf_counter()
 
     def doc_fn(batch):
@@ -232,7 +583,7 @@ def main() -> int:
     finally:
         svc.close()
     torch.cuda.synchronize()
-    retrieve_launches = {"K1": maxsim_scores.launches, "K2": fused_self_attention.launches}
+    retrieve_launches = read_counts()
     check(retrieve_launches["K1"] > 0 and retrieve_launches["K2"] > 0,
           f"retrieve launches {retrieve_launches}")
 
@@ -260,7 +611,19 @@ def main() -> int:
           "identical_rankings": identical, "max_abs_err": worst,
           "launches": retrieve_launches, "seconds": time.perf_counter() - t0})
     candidates = [[int(x) for x in ids] for ids, _ in results]
-    del index, emb, mask, ref_scores, flmr
+    del ref_scores, flmr
+
+    # ---- 3b. int8 retrieve over the same index, quantized on the card (main path)
+    qindex, line = int8_retrieve(index, Qm, K, candidates)
+    int8_launches = line["launches"]
+    emit(line)
+    del index, emb, mask
+
+    # ---- 3c. the int8 index streamed from host RAM (main path)
+    line = streamed_retrieve(qindex, Qm, K, wgen)
+    stream_launches = line["launches"]
+    emit(line)
+    del qindex
 
     # ---- 4. rerank (main path)
     t0 = time.perf_counter()
@@ -283,7 +646,7 @@ def main() -> int:
     tt[:, LQT:] = 1
     rsvc = RerankService(make_chunked_rerank_fn(reranker, nway=K, chunk_size=100), nway=K,
                          max_batch=BQ, max_wait_ms=50, device="cuda")
-    maxsim_scores.launches = fused_self_attention.launches = 0
+    reset_counts()
     try:
         batch_s = []
         for _ in range(2):  # the first batch also warms up cuBLAS
@@ -294,14 +657,14 @@ def main() -> int:
     finally:
         rsvc.close()
     torch.cuda.synchronize()
-    rerank_launches = {"K1": maxsim_scores.launches, "K2": fused_self_attention.launches}
+    rerank_launches = read_counts()
     check(logits.shape == (BQ, K) and bool(np.isfinite(logits).all()), f"logits {logits.shape}")
     check(rerank_launches["K2"] > 0, f"rerank launches {rerank_launches}")
 
     t1 = time.perf_counter()
     cpu_model = FullContextRerankModel(rcfg, device="meta")  # weights come below
-    cpu_model.load_state_dict({k: v.float().cpu() for k, v in reranker.state_dict().items()},
-                              assign=True)
+    cpu_state = {k: v.float().cpu() for k, v in reranker.state_dict().items()}
+    cpu_model.load_state_dict(cpu_state, assign=True)
     want = make_chunked_rerank_fn(cpu_model, nway=4, chunk_size=4)(
         torch.as_tensor(ids[0, :4]), torch.as_tensor(am[0, :4]), torch.as_tensor(tt[:4]),
         pix[:1].float())[0].numpy()
@@ -314,21 +677,35 @@ def main() -> int:
           "cpu_check_seconds": time.perf_counter() - t1, "launches": rerank_launches,
           "seconds": time.perf_counter() - t0})
 
+    # ---- 4b. the same rerank with every BERT dense layer W8A8 (main path)
+    line = w8a8_rerank(reranker, rcfg, ids, am, tt, pix, logits, cpu_state)
+    w8a8_launches = line["launches"]
+    emit({**line, "card": smi})
+
     # ---- 5. the kernels line and the result
     torch.cuda.synchronize()
+    phases = (retrieve_launches, int8_launches, stream_launches, rerank_launches, w8a8_launches)
+
+    def launches(name):
+        return sum(p[name] for p in phases)
+
+    attention = "reranking_multimodal_retrievers_tpu/ops/attention_pallas.py:95"
     emit({"kernels": [
         dict(name="maxsim_scores", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
              replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:67",
-             launches=retrieve_launches["K1"] + rerank_launches["K1"], **k1),
+             launches=launches("K1"), **k1),
         dict(name="fused_self_attention", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/attention.cu",
-             replaces="reranking_multimodal_retrievers_tpu/ops/attention_pallas.py:95",
-             launches=retrieve_launches["K2"] + rerank_launches["K2"], **k2[512],
-             at_593=k2[593]),
+             replaces=attention, launches=launches("K2"), **k2[512], at_593=k2[593]),
+        dict(name="maxsim_scores_int8", route="cuda",
+             source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim_int8.cu",
+             replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183",
+             launches=launches("K3"), **k3),
     ], "not_ported": [
-        dict(name="maxsim_scores_int8",
-             replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183"),
+        dict(name="fused_self_attention head_bias (T5 relative positions)", replaces=attention),
+        dict(name="fused_self_attention causal (OPT)", replaces=attention),
+        dict(name="fused_self_attention head_dim 80 (OPT-2.7b)", replaces=attention),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -3,9 +3,12 @@
 HuggingFace ``BertModel`` structure and parameter names (post-LayerNorm
 residual blocks, learned absolute positions, optional cross-attention), with
 the JAX package's serving knobs: ``attention_scores_bf16``,
-``gelu_approximate`` and ``use_pallas_attention``. Under the last, the
-self-attention core of a layer that sees only a padding mask goes through
-kernel K2 (``ops/attention_cuda.py``) on CUDA tensors.
+``gelu_approximate``, ``use_pallas_attention`` and ``quantize_int8``. Under
+``use_pallas_attention``, the self-attention core of a layer that sees only a
+padding mask goes through kernel K2 (``ops/attention_cuda.py``) on CUDA
+tensors. Under ``quantize_int8`` every dense layer (query/key/value,
+attention output, intermediate, output, pooler) is an ``Int8Linear``
+(``ops/quant.py``): W8A8 with the same parameters.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from torch import nn
 
 from ..device import DeviceLike
 from ..ops.attention_cuda import fused_self_attention
+from ..ops.quant import Int8Linear
 from .init import materialize_
 
 ATTN_MASK_BIAS = -1e9
@@ -46,7 +50,8 @@ class BertConfig:
     attention_scores_bf16: bool = False
     # tanh-approximate GELU instead of the exact erf GELU
     gelu_approximate: bool = False
-    # W8A8 projections in the reference; not ported yet
+    # every dense layer W8A8 (ops/quant.py); embeddings, LayerNorm and the
+    # attention core stay in the activation dtype
     quantize_int8: bool = False
 
     @property
@@ -76,23 +81,27 @@ def additive_mask(attention_mask: torch.Tensor, dtype=torch.float32) -> torch.Te
 def _check_supported(cfg: BertConfig) -> None:
     if cfg.use_flash_attention:
         raise NotImplementedError("use_flash_attention is not ported yet")
-    if cfg.quantize_int8:
-        raise NotImplementedError("quantize_int8 is not ported yet")
+
+
+def _dense(cfg: BertConfig, in_features: int, out_features: int) -> nn.Linear:
+    """The layers the JAX package builds with its ``_dense``: W8A8 under
+    ``quantize_int8``, else a plain ``nn.Linear``."""
+    return (Int8Linear if cfg.quantize_int8 else nn.Linear)(in_features, out_features)
 
 
 class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         H = cfg.hidden_size
-        self.query = nn.Linear(H, H)
-        self.key = nn.Linear(H, H)
-        self.value = nn.Linear(H, H)
+        self.query = _dense(cfg, H, H)
+        self.key = _dense(cfg, H, H)
+        self.value = _dense(cfg, H, H)
 
 
 class BertSelfOutput(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.dense = _dense(cfg, cfg.hidden_size, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
 
@@ -146,13 +155,13 @@ class BertAttention(nn.Module):
 class BertIntermediate(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.dense = _dense(cfg, cfg.hidden_size, cfg.intermediate_size)
 
 
 class BertOutput(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.dense = _dense(cfg, cfg.intermediate_size, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
 
@@ -241,7 +250,7 @@ class BertEmbeddings(nn.Module):
 class BertPooler(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.dense = _dense(cfg, cfg.hidden_size, cfg.hidden_size)
 
 
 class BertModel(nn.Module):

@@ -9,7 +9,8 @@
   pads the group to ``max_batch`` queries and runs one chunked
   ``[B*K, L]`` rerank forward (``engine/rerank_eval.py``).
 - :class:`RetrievalService`: one query's token matrix per request; the
-  worker batches them into the exact-MaxSim search program.
+  worker batches them into the exact-MaxSim search program over a bf16
+  ``TokenIndex`` or an int8 ``QuantizedTokenIndex``.
 
 Every service owns a worker thread: call ``close()`` when done, or the
 thread keeps polling.
@@ -180,9 +181,11 @@ class RerankService:
 class RetrievalService:
     """Exact-MaxSim retrieval behind a micro-batcher.
 
-    ``search_fn(Q, D, M) -> (values, indices)`` is the search program for the
-    index (``engine.make_search_fn``); requests are one query's
-    ``[L_q, dim]`` token matrix, batched up to ``batch_queries``."""
+    ``search_fn(Q, *index.search_arrays) -> (values, indices)`` is the
+    index's search program: ``engine.make_search_fn`` for a ``TokenIndex``,
+    ``engine.make_search_fn_int8`` for a ``QuantizedTokenIndex``. Requests
+    are one query's ``[L_q, dim]`` token matrix, batched up to
+    ``batch_queries`` and cast to ``index.query_dtype``."""
 
     def __init__(self, search_fn, index, batch_queries: int = 8,
                  max_wait_ms: float = 2.0):
@@ -198,11 +201,12 @@ class RetrievalService:
 
     def _run(self, items):
         n = len(items)
-        emb = self.index.embeddings
-        Q = torch.stack([q.to(device=emb.device, dtype=emb.dtype) for q in items])
+        index = self.index
+        Q = torch.stack([q.to(device=index.mask.device, dtype=index.query_dtype)
+                         for q in items])
         if n < self.B:
             Q = torch.cat([Q, Q.new_zeros((self.B - n,) + tuple(Q.shape[1:]))])
-        vals, idx = self.search_fn(Q, emb, self.index.mask)
+        vals, idx = self.search_fn(Q, *index.search_arrays)
         vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         n_docs = len(self.index.doc_ids)
         return [([self.index.doc_ids[j] for j in idx[i] if j < n_docs], vals[i])

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 ragged shapes the main path does not reach (odd dims, query rows spanning
-the kernel's row groups, any L, strided q/k/v).
+the kernel's row groups, any L, strided q/k/v), and the int8 serving path
+on the card: streamed search against the device-resident one, and
+``Int8Linear`` (``torch._int_mm``) against its CPU result.
 
 Marked ``cuda``; every test skips without a CUDA device. This file imports
 no JAX, so it runs on a GPU machine that has none. There, from the
@@ -21,6 +23,10 @@ from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (  # no
 from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import (  # noqa: E402
     maxsim_scores,
     maxsim_scores_reference,
+)
+from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_int8_cuda import (  # noqa: E402
+    maxsim_scores_int8,
+    maxsim_scores_int8_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -131,3 +137,128 @@ def test_bert_kernel_path_matches_plain_path(gen):
     assert fused_self_attention.launches == launches + 2  # one per layer
     # two bf16 layers of LayerNorm'd activations of order 1
     torch.testing.assert_close(a, b, atol=6e-2, rtol=0)
+
+
+def _codes(gen, *shape, lo=-127, hi=128):
+    return torch.randint(lo, hi, shape, device="cuda", generator=gen, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("B,LQ,N,LD,DIM,masked", [
+    (3, 7, 37, 50, 32, True),     # ragged token tiles, the smallest dim
+    (3, 7, 37, 50, 64, False),    # unpadded corpus: no mask
+    (2, 300, 19, 33, 128, True),  # one query spans three row groups
+    (8, 113, 300, 256, 128, True),  # the main path's query batch
+])
+def test_k3_matches_plain(gen, B, LQ, N, LD, DIM, masked):
+    Qq, Dq = _codes(gen, B, LQ, DIM), _codes(gen, N, LD, DIM)
+    qs = torch.rand(B, LQ, device="cuda", generator=gen) / 127
+    ds = torch.rand(N, device="cuda", generator=gen) / 127
+    mask = None
+    if masked:
+        lens = torch.randint(1, LD + 1, (N,), device="cuda", generator=gen)
+        mask = torch.arange(LD, device="cuda")[None, :] < lens[:, None]
+        mask[N // 2] = False  # a whole-padding doc
+    launches = maxsim_scores_int8.launches
+    got = maxsim_scores_int8(Qq, qs, Dq, ds, mask)
+    torch.cuda.synchronize()
+    assert maxsim_scores_int8.launches == launches + 1
+    ref = maxsim_scores_int8_reference(Qq, qs, Dq, ds, mask)
+    # exact int32 maxima; fp32 sums of <= 300 scaled maxima in another order
+    # (1e-5 relative), the whole-padding doc included
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
+
+
+def test_k3_bitwise_on_crafted_codes(gen):
+    """Small codes and unit scales: the totals are integers below 2^24, so
+    the kernel and the plain version agree bitwise."""
+    B, LQ, N, LD, DIM = 8, 113, 500, 256, 128
+    Qq, Dq = _codes(gen, B, LQ, DIM, lo=-8, hi=9), _codes(gen, N, LD, DIM, lo=-8, hi=9)
+    qs = torch.ones(B, LQ, device="cuda")
+    ds = torch.ones(N, device="cuda")
+    lens = torch.randint(1, LD + 1, (N,), device="cuda", generator=gen)
+    mask = torch.arange(LD, device="cuda")[None, :] < lens[:, None]
+    for m in (mask, None):
+        assert torch.equal(maxsim_scores_int8(Qq, qs, Dq, ds, m),
+                           maxsim_scores_int8_reference(Qq, qs, Dq, ds, m))
+
+
+def test_k3_rejects_bad_inputs(gen):
+    Qq, Dq = _codes(gen, 2, 5, 48), _codes(gen, 4, 6, 48)
+    qs, ds = torch.ones(2, 5, device="cuda"), torch.ones(4, device="cuda")
+    with pytest.raises(ValueError):
+        maxsim_scores_int8(Qq, qs, Dq, ds)  # dim 48: not a multiple of 32
+    Qq, Dq = _codes(gen, 2, 5, 64), _codes(gen, 4, 6, 64)
+    with pytest.raises(TypeError):
+        maxsim_scores_int8(Qq.float(), qs, Dq.float(), ds)
+    with pytest.raises(ValueError):
+        maxsim_scores_int8(Qq, qs.double(), Dq, ds)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+def test_streamed_search_equals_resident_search(gen, quantized):
+    """The pinned, double-buffered stream over a host index gives the
+    device-resident search's values bitwise (each doc scores the same in any
+    slab), with a partial last slab."""
+    import numpy as np
+
+    from reranking_multimodal_retrievers_tpu_torch.engine import (
+        HostQuantizedTokenIndex, HostTokenIndex, QuantizedTokenIndex, StreamingSearcher,
+        TokenIndex, make_search_fn, make_search_fn_int8)
+
+    n, LD, DIM, slab = 5000, 64, 128, 1024
+    emb = _unit(gen, n, LD, DIM)
+    lens = torch.randint(1, LD + 1, (n,), device="cuda", generator=gen)
+    mask = torch.arange(LD, device="cuda")[None, :] < lens[:, None]
+    Q = _unit(gen, 4, 40, DIM).float()
+    ids = [str(i) for i in range(n)]
+    if quantized:
+        index = QuantizedTokenIndex.from_arrays(emb, mask, ids)
+        host = HostQuantizedTokenIndex(codes=index.codes.cpu().numpy(),
+                                       scales=index.scales.cpu().numpy(),
+                                       mask=mask.cpu().numpy(), doc_ids=ids)
+        want_v, want_i = make_search_fn_int8(n, k=50)(Q, index.codes, index.scales, index.mask)
+        counter = maxsim_scores_int8
+    else:
+        index = TokenIndex.from_arrays(emb, mask, ids)
+        host = HostTokenIndex(embeddings=emb.cpu().half().numpy(), mask=mask.cpu().numpy(),
+                              doc_ids=ids)
+        want_v, want_i = make_search_fn(n, k=50)(Q.bfloat16(), index.embeddings, index.mask)
+        counter = maxsim_scores
+    searcher = StreamingSearcher(host, k=50, slab_docs=slab)
+    for _ in range(2):  # the second pass reuses the staging buffers
+        launches = counter.launches
+        vals, idx = searcher.search(Q)
+        assert counter.launches == launches + 5
+        np.testing.assert_array_equal(vals, want_v.cpu().numpy())
+        # ids may differ only between docs of exactly equal value
+        for b, p in zip(*np.nonzero(idx != want_i.cpu().numpy())):
+            assert (vals[b] == vals[b, p]).sum() > 1
+
+
+def test_int8_linear_on_card_equals_cpu(gen):
+    """``_int_mm`` on the card (with its row, k and n padding) gives the CPU's
+    exact int32 product, so the layer's output matches bitwise."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.quant import Int8Linear
+
+    for rows, k, n in ((3, 20, 13), (40, 768, 3072), (17, 64, 8)):
+        lin = Int8Linear(k, n, device="cuda")
+        x = torch.randn(rows, k, device="cuda", generator=gen)
+        with torch.no_grad():
+            got = lin(x).cpu()
+            want = lin.cpu()(x.cpu())
+        assert torch.equal(got, want), (rows, k, n)
+
+
+def test_quantizers_on_card_equal_cpu(gen):
+    """Per-row and per-doc int8 codes and scales made on the card are bitwise
+    the CPU's (which the CPU tests hold bitwise to the JAX package's)."""
+    from reranking_multimodal_retrievers_tpu_torch.engine.index import quantize_docs
+    from reranking_multimodal_retrievers_tpu_torch.ops.quant import quantize_rows
+
+    x = torch.randn(512, 3072, device="cuda", generator=gen) * 3
+    for a, b in zip(quantize_rows(x), quantize_rows(x.cpu())):
+        assert torch.equal(a.cpu(), b)
+    emb = _unit(gen, 300, 64, 128)
+    mask = torch.rand(300, 64, device="cuda", generator=gen) > 0.2
+    for a, b in zip(quantize_docs(emb, mask), quantize_docs(emb.cpu(), mask.cpu())):
+        assert torch.equal(a.cpu(), b)

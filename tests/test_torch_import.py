@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -62,7 +63,8 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
 def test_default_device_entry_points_refuse_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
-    from reranking_multimodal_retrievers_tpu_torch.engine import TokenIndex, encode_corpus
+    from reranking_multimodal_retrievers_tpu_torch.engine import (
+        HostTokenIndex, QuantizedTokenIndex, StreamingSearcher, TokenIndex, encode_corpus)
     from reranking_multimodal_retrievers_tpu_torch.models import (
         BertConfig, BertModel, CLIPVisionConfig, CLIPVisionModel, FLMRConfig,
         FLMRModelForRetrieval)
@@ -78,6 +80,9 @@ def test_default_device_entry_points_refuse_without_cuda():
         lambda: TokenIndex.from_arrays(torch.zeros(2, 3, 8), torch.ones(2, 3, dtype=torch.bool),
                                        ["a", "b"]),
         lambda: encode_corpus(lambda b: b, [], []),
+        lambda: QuantizedTokenIndex.from_arrays(np.zeros((2, 3, 32)), np.ones((2, 3), bool),
+                                                ["a", "b"]),
+        lambda: StreamingSearcher(HostTokenIndex(np.zeros((2, 3, 32), np.float16), None)),
         lambda: RerankService(lambda *a: None, nway=2),
     ]
     for call in calls:

@@ -174,6 +174,6 @@ def test_flmr_doc_matches_jax(multimodal_docs):
 
 
 def test_unported_bert_options_raise():
-    for kw in (dict(use_flash_attention=True), dict(quantize_int8=True)):
-        with pytest.raises(NotImplementedError):
-            tbert.BertModel(tbert.BertConfig.tiny(**kw), device="cpu")
+    # quantize_int8 is ported (tests/test_torch_quant.py); flash is not
+    with pytest.raises(NotImplementedError):
+        tbert.BertModel(tbert.BertConfig.tiny(use_flash_attention=True), device="cpu")
