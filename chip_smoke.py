@@ -35,15 +35,40 @@ Phases, each printing one JSON line with its elapsed seconds:
      held against a CPU fp32 W8A8 recomputation of four candidates, and each
      dense layer's first rows against the same layer on the CPU, bitwise
      (a bf16 layer in its place would not match);
-  5. the ``kernels`` line, then the result line.
+  5. monoBLIP2-Flan-T5: Blip2DecoderRerankModel at full width (ViT-g 39 x
+     1408, the BERT-base Q-Former, 32 query tokens, Flan-T5-XL 24 + 24 x
+     2048, 32 heads x 64) in bf16 with ``use_pallas_attention`` and
+     ``position_bias_bf16``, random weights from a seed; one image and 100
+     prompts of 512 tokens (544 with the prefix, a few right-padded) through
+     ``make_decoder_rerank_fn``: the prefix once, the encoder in chunks of
+     10 rows (K2 with the relative-position bias as its bf16 head bias), one
+     decode of all 100. The relative-position tables are drawn at std 1 so
+     that the head bias moves attention. p(yes) of four candidates is held
+     against the same weights in fp32 on the card without the kernel, and
+     the same K2 run with the encoder's head bias zeroed must miss fp32 by
+     more than the tolerance; K2's head-bias variant against its plain
+     version at the encoder's launch shape, at scores of order 1 and of
+     std 8 (unscaled q, as T5 runs);
+  6. monoBLIP2-Opt: the same vision side with OPT-2.7b (32 x 2560, 32 heads
+     x 80), chunks of 5 rows (K2 with the causal mask at head_dim 80), the
+     last real prompt position of each row through the 50k vocabulary; the
+     same checks;
+  7. the ``kernels`` line, then the result line.
+
+``python3 chip_smoke.py --probe-t5-init`` instead builds the kernels and
+runs phase 5's model once with every weight at std 0.02 (none of HF T5's
+scales): p(yes) of four candidates through K2 and through the plain path in
+bf16, and in fp32, as information.
 
 The launch counters are set to 0 just before each main-path phase (3, 3b,
-3c, 4 and 4b) and read just after it. Any failed check raises and the script
-exits non-zero; without a CUDA card it exits non-zero before printing
-anything.
+3c, 4, 4b, 5 and 6) and read just after it. Each decoder family is built,
+run and freed before the next (about 8 GB each in bf16). Any failed check
+raises and the script exits non-zero; without a CUDA card it exits non-zero
+before printing anything.
 """
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -70,12 +95,32 @@ K3_TOL = 2e-3
 # to bf16 where the plain version rounds normalised ones, and sums in
 # another order: a few bf16 spacings
 K2_TOL = 3e-2
+# K2 at scores of std 8 (T5's unscaled q): near-argmax rows output about one
+# row of v, up to |v| ~ 5, where one bf16 spacing is 2^-5 > K2_TOL; K2_TOL
+# plus half a bf16 spacing of the output
+K2_RTOL_BIG = 2 ** -8
 # rerank logits in bf16 on the card against fp32 on the CPU through 12 + 1 +
 # 1 BERT layers and the ViT: bf16 keeps 8 mantissa bits, about 0.4% per
 # rounding, which the residual stream accumulates to a few percent
 RERANK_ATOL, RERANK_RTOL = 0.05, 0.05
 # phase 4b: rows of each dense layer's first input recomputed on the CPU
 W8A8_LAYER_ROWS = 64
+# phases 5 and 6: 100 prompts of 512 tokens for one image; p(yes) of the
+# first DECODER_CHECK candidates recomputed in fp32 on the card
+DECODER_K, DECODER_L, DECODER_CHECK = 100, 512, 4
+# p(yes) in bf16 through ViT-g (39 layers), the Q-Former (12) and Flan-T5-XL
+# (24 + 24) or OPT-2.7b (32) against fp32 on the same weights: bf16 keeps 8
+# mantissa bits (0.4% a rounding), which ~100 residual layers accumulate to a
+# few percent of the final hidden state, a few hundredths of the yes-no logit
+# gap; p(yes) moves at most a quarter of that
+P_YES_TOL = 0.05
+# phase 5 draws T5's relative-position tables at std 1, not HF's d_model^-1/2
+# (0.022): at HF's scales the attention scores are of order 1, so a 0.022
+# head bias would hardly move attention and the p(yes) check could not see
+# K2's head-bias path; at std 1 the bias moves attention as much as q.k
+REL_BIAS_STD = 1.0
+ENC_REL_BIAS = "model.language_model.encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+T5_YES_NO, OPT_YES_NO = (4273, 150), (4763, 117)
 
 
 def emit(obj):
@@ -431,6 +476,258 @@ def w8a8_rerank(reranker, rcfg, ids, am, tt, pix, bf16_logits, cpu_state):
             "seconds": time.perf_counter() - t0}
 
 
+def k2_variant(name, q, k, v, bias, head_bias, *, heads, scale, causal, sdpa_mask, flops):
+    """One K2 variant against its plain version on the card at a phase's
+    launch shape, timed beside the plain version and
+    ``scaled_dot_product_attention`` with ``sdpa_mask`` (a yardstick the
+    port never calls). Returns the variant's line."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention, fused_self_attention_reference)
+
+    kw = dict(num_heads=heads, sm_scale=scale, causal=causal)
+    got = fused_self_attention(q, k, v, bias, head_bias, **kw)
+    ref = fused_self_attention_reference(q, k, v, bias, head_bias, **kw)
+    err = (got.float() - ref.float()).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and err <= K2_TOL,
+          f"K2 {name}: max |diff| {err} > {K2_TOL}")
+    B, L, HD = q.shape
+    qh, kh, vh = (x.view(B, L, heads, HD // heads).transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes = 4 * q.numel() * 2 + bias.numel() * 4
+    if head_bias is not None:
+        nbytes += head_bias.numel() * head_bias.element_size()
+    b_ms, b_by = bound(flops, nbytes)
+    return dict(variant=name, shape=[B, L, HD], heads=heads, max_abs_err=err, tol=K2_TOL,
+                ms=cuda_ms(lambda: fused_self_attention(q, k, v, bias, head_bias, **kw), 10),
+                plain_ms=cuda_ms(lambda: fused_self_attention_reference(q, k, v, bias,
+                                                                        head_bias, **kw), 3),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=sdpa_mask, scale=scale), 10))
+
+
+def _decoder_config(text_config, yes_no):
+    from reranking_multimodal_retrievers_tpu_torch.models import (
+        Blip2Config, Blip2QFormerConfig, Blip2VisionConfig)
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import Blip2RerankConfig
+
+    return Blip2RerankConfig(
+        blip2=Blip2Config(vision_config=Blip2VisionConfig(), qformer_config=Blip2QFormerConfig(),
+                          text_config=text_config, num_query_tokens=32),
+        yes_token_id=yes_no[0], no_token_id=yes_no[1])
+
+
+def _decoder_inputs(is_opt, vocab_hi):
+    """DECODER_K prompts of DECODER_L tokens from the seed, a few of them
+    right-padded, and one image: (ids, mask, padded rows, pixels)."""
+    rng = np.random.default_rng(SEED)
+    K, L = DECODER_K, DECODER_L
+    ids = torch.as_tensor(rng.integers(10, vocab_hi, size=(K, L))).cuda()
+    am = torch.ones(K, L, dtype=torch.long, device="cuda")
+    padded = list(range(3, K, 7))  # right-padded prompts, the 4th of them among the checked
+    for r in padded:
+        n = int(rng.integers(L // 2, L))
+        am[r, n:] = 0
+        ids[r, n:] = 1 if is_opt else 0
+    pix = torch.as_tensor(rng.normal(size=(1, 3, 224, 224)).astype(np.float32)).cuda()
+    return ids, am, padded, pix
+
+
+def _plain_p_yes(model, ids, am, pix):
+    """p(yes) of ``ids`` on ``model``'s weights without the kernel: in bf16,
+    sharing the tensors, and in fp32."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import make_decoder_rerank_fn
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import Blip2DecoderRerankModel
+
+    cfg = model.config
+    tc = dataclasses.replace(cfg.blip2.text_config, use_pallas_attention=False)
+    cfg = dataclasses.replace(cfg, blip2=dataclasses.replace(cfg.blip2, text_config=tc))
+    plain = Blip2DecoderRerankModel(cfg, device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    n = ids.shape[0]
+    p_bf16 = make_decoder_rerank_fn(plain.eval(), chunk_size=n)(ids, am, pix.to(torch.bfloat16))
+    plain.load_state_dict({k: t.float() for k, t in model.state_dict().items()}, assign=True)
+    return p_bf16, make_decoder_rerank_fn(plain, chunk_size=n)(ids, am, pix)
+
+
+def t5_init_probe(smi):
+    """``python3 chip_smoke.py --probe-t5-init``, not part of the main run:
+    phase 5's model with every weight at std 0.02 (none of HF T5's scales,
+    so T5's unscaled attention scores have std ~6.5). p(yes) of
+    DECODER_CHECK candidates through K2 in bf16, through the plain path in
+    bf16 and through the plain path in fp32, as information: how far bf16
+    alone, with and without the kernel, lands from fp32 at that init."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import make_decoder_rerank_fn
+    from reranking_multimodal_retrievers_tpu_torch.models import T5Config
+    from reranking_multimodal_retrievers_tpu_torch.models.init import materialize_
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import Blip2DecoderRerankModel
+
+    t0 = time.perf_counter()
+    cfg = _decoder_config(T5Config.flan_t5_xl(use_pallas_attention=True,
+                                              position_bias_bf16=True), T5_YES_NO)
+    model = Blip2DecoderRerankModel(cfg, device="meta")
+    for m in model.modules():
+        m.__dict__.pop("init_std", None)
+    materialize_(model, "cuda", torch.bfloat16,
+                 torch.Generator(device="cuda").manual_seed(SEED), 0.02)
+    ids, am, _, pix = _decoder_inputs(False, 30000)
+    n = DECODER_CHECK
+    p_k2 = make_decoder_rerank_fn(model.eval(), chunk_size=n)(ids[:n], am[:n],
+                                                              pix.to(torch.bfloat16))
+    p_bf16, p_fp32 = _plain_p_yes(model, ids[:n], am[:n], pix)
+    return {"phase": "probe_t5_init_std_0.02", "card": smi, "p_yes_k2_bf16": p_k2.tolist(),
+            "p_yes_plain_bf16": p_bf16.tolist(), "p_yes_fp32": p_fp32.tolist(),
+            "max_abs_gap_k2_bf16": (p_k2.float() - p_fp32).abs().max().item(),
+            "max_abs_gap_plain_bf16": (p_bf16.float() - p_fp32).abs().max().item(),
+            "seconds": time.perf_counter() - t0}
+
+
+def decoder_rerank(family, text_config, chunk, yes_no, vocab_hi, smi):
+    """Phases 5 and 6: a full-width Blip2DecoderRerankModel over
+    ``text_config`` (Flan-T5-XL or OPT-2.7b) in bf16 with random weights from
+    a seed scores DECODER_K prompts of one image through
+    ``make_decoder_rerank_fn`` in chunks of ``chunk`` rows; p(yes) of
+    DECODER_CHECK candidates is held against the same weights in fp32 on the
+    card without the kernel, and K2's variant against its plain version at
+    the LM's launch shape. For T5 the same K2 run with the encoder's head
+    bias zeroed must miss fp32 by more than the tolerance (the check sees
+    the head bias). Returns (the phase's line, K2's line for the kernels
+    line). Frees the models before it returns."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import make_decoder_rerank_fn
+    from reranking_multimodal_retrievers_tpu_torch.models import OPTConfig
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import Blip2DecoderRerankModel
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention, fused_self_attention_reference)
+
+    t0 = time.perf_counter()
+    is_opt = isinstance(text_config, OPTConfig)
+    cfg = _decoder_config(text_config, yes_no)
+    wgen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = Blip2DecoderRerankModel(cfg, device="cuda", dtype=torch.bfloat16,
+                                    generator=wgen).eval()
+    if not is_opt:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("relative_attention_bias.weight"):
+                    p.copy_(torch.randn(p.shape, device="cuda", generator=wgen) * REL_BIAS_STD)
+    n_params = sum(p.numel() for p in model.parameters())
+    K, L = DECODER_K, DECODER_L
+    ids, am, padded, pix = _decoder_inputs(is_opt, vocab_hi)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    fn = make_decoder_rerank_fn(model, chunk_size=chunk)
+    reset_counts()
+    run_s = []
+    for _ in range(2):  # the first run also warms up cuBLAS
+        t1 = time.perf_counter()
+        p_yes = fn(ids, am, pix.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        run_s.append(time.perf_counter() - t1)
+    launches = read_counts()
+    layers = text_config.num_hidden_layers if is_opt else text_config.num_layers
+    want_k2 = 2 * layers * (K // chunk)
+    check(launches["K2"] == want_k2 and launches["K1"] == launches["K3"] == 0,
+          f"{family} launches {launches}, want K2 = {want_k2}")
+    check(tuple(p_yes.shape) == (K,) and bool(torch.isfinite(p_yes).all())
+          and bool(((p_yes > 0) & (p_yes < 1)).all()), f"{family} p(yes) {p_yes}")
+
+    # K2's variant at the LM's launch shape, and its isolations
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    Lp = L + cfg.blip2.num_query_tokens
+    H = text_config.num_attention_heads if is_opt else text_config.num_heads
+    hd = text_config.head_dim if is_opt else text_config.d_kv
+    q, k, v = (torch.randn(chunk, Lp, H * hd, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.randint(Lp // 2, Lp + 1, (chunk,), device="cuda", generator=gen)
+    lens[0] = Lp
+    keep = torch.arange(Lp, device="cuda")[None, :] < lens[:, None]
+    bias = torch.where(keep, 0.0, -1e9)
+    pairs = Lp * Lp
+    lines = []
+    if is_opt:
+        causal = torch.ones(Lp, Lp, dtype=torch.bool, device="cuda").tril()
+        pairs_causal = Lp * (Lp + 1) // 2
+        lines.append(k2_variant(
+            "causal, head_dim 80 (OPT-2.7b)", q, k, v, bias, None, heads=H, scale=hd ** -0.5,
+            causal=True, sdpa_mask=causal[None, None] & keep[:, None, None, :],
+            flops=4 * chunk * H * pairs_causal * hd))
+        lines.append(k2_variant(
+            "head_dim 80 alone (not on the path)", q, k, v, bias, None, heads=H,
+            scale=hd ** -0.5, causal=False, sdpa_mask=keep[:, None, None, :],
+            flops=4 * chunk * H * pairs * hd))
+        q64, k64, v64 = (x[..., :H * 64] for x in (q, k, v))
+        q64, k64, v64 = (x.contiguous() for x in (q64, k64, v64))
+        lines.append(k2_variant(
+            "causal at head_dim 64 alone (not on the path)", q64, k64, v64, bias, None, heads=H,
+            scale=0.125, causal=True, sdpa_mask=causal[None, None] & keep[:, None, None, :],
+            flops=4 * chunk * H * pairs_causal * 64))
+    else:
+        head_bias = torch.randn(H, Lp, Lp, device="cuda", generator=gen).to(torch.bfloat16)
+        # T5 takes sm_scale 1: unscaled q gives scores of std 8, near-argmax
+        # attention; checked here, timed below at scores of order 1
+        got = fused_self_attention(q, k, v, bias, head_bias, num_heads=H, sm_scale=1.0)
+        ref = fused_self_attention_reference(q, k, v, bias, head_bias, num_heads=H, sm_scale=1.0)
+        diff = (got.float() - ref.float()).abs()
+        err_big = diff.max().item()
+        over = (diff - K2_TOL - K2_RTOL_BIG * ref.float().abs()).max().item()
+        check(bool(torch.isfinite(got).all()) and over <= 0,
+              f"K2 head_bias at scores of std 8: max |diff| {err_big} over "
+              f"{K2_TOL} + {K2_RTOL_BIG} |ref| by {over}")
+        del got, ref, diff
+        q = q * 0.125
+        lines.append(k2_variant(
+            "head_bias bf16 (Flan-T5-XL)", q, k, v, bias, head_bias, heads=H, scale=1.0,
+            causal=False, sdpa_mask=(bias[:, None, None, :] + head_bias[None].float()
+                                     ).to(torch.bfloat16),
+            flops=4 * chunk * H * pairs * hd))
+        lines.append(k2_variant(
+            "head_bias fp32 (not on the path)", q, k, v, bias, head_bias.float(), heads=H,
+            scale=1.0, causal=False, sdpa_mask=(bias[:, None, None, :] + head_bias[None].float()
+                                                ).to(torch.bfloat16),
+            flops=4 * chunk * H * pairs * hd))
+        lines[0]["max_abs_err_scores_std_8"] = err_big
+    for line in lines:
+        emit({"phase": "kernel_check", "kernel": "K2 fused_self_attention", "card": smi, **line})
+    k2 = lines[0]
+    del q, k, v
+    # the same weights without the kernel: in fp32 (the check) and, sharing
+    # the bf16 tensors, in bf16 (information: the kernel's share of the gap)
+    t1 = time.perf_counter()
+    n = DECODER_CHECK
+    p_bf16_plain, want = _plain_p_yes(model, ids[:n], am[:n], pix)
+    err = (p_yes[:n].float() - want).abs().max().item()
+    nobias_err = None
+    if not is_opt:  # the check's power: K2 without the head bias must miss fp32
+        with torch.no_grad():
+            model.get_parameter(ENC_REL_BIAS).zero_()
+        p_nobias = make_decoder_rerank_fn(model, chunk_size=n)(ids[:n], am[:n],
+                                                               pix.to(torch.bfloat16))
+        nobias_err = (p_nobias.float() - want).abs().max().item()
+    check_s = time.perf_counter() - t1
+    del model, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    k2_share = launches["K2"] / 2 * k2["ms"] / 1e3 / run_s[-1]
+    line = {"phase": f"rerank_{family}", "card": smi, "params": n_params, "candidates": K,
+            "seq_len": L, "prefix": cfg.blip2.num_query_tokens, "chunk_rows": chunk,
+            "padded_prompts": len(padded),
+            "setup_seconds": setup_s, "run_seconds": run_s, "candidates_per_s": K / run_s[-1],
+            "p_yes_checked": p_yes[:n].tolist(), "p_yes_fp32": want.tolist(),
+            "max_abs_err_vs_fp32": err, "tol": P_YES_TOL,
+            "p_yes_bf16_without_kernel": p_bf16_plain.tolist(),
+            "max_abs_err_vs_fp32_without_head_bias": nobias_err,
+            "p_yes_spread": [p_yes.min().item(), p_yes.max().item()],
+            "k2_launches_per_run": launches["K2"] // 2, "k2_ms": k2["ms"],
+            "k2_share_of_run": k2_share, "fp32_check_seconds": check_s, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+    blind = nobias_err is not None and nobias_err <= P_YES_TOL
+    if err > P_YES_TOL or blind:
+        emit(line)
+    check(err <= P_YES_TOL, f"{family} p(yes) {p_yes[:n].tolist()} vs fp32 {want.tolist()}")
+    check(not blind, f"{family} p(yes) without the head bias within {nobias_err} of fp32")
+    return line, {**k2, "launches": launches["K2"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -438,7 +735,7 @@ def main() -> int:
     from reranking_multimodal_retrievers_tpu_torch.engine import (
         TokenIndex, encode_corpus, make_chunked_rerank_fn, make_search_fn)
     from reranking_multimodal_retrievers_tpu_torch.models import (
-        BertConfig, CLIPVisionConfig, FLMRConfig, FLMRModelForRetrieval)
+        BertConfig, CLIPVisionConfig, FLMRConfig, FLMRModelForRetrieval, OPTConfig, T5Config)
     from reranking_multimodal_retrievers_tpu_torch.models.rerankers import (
         FullContextRerankModel, RerankConfig)
     from reranking_multimodal_retrievers_tpu_torch.ops import (
@@ -468,6 +765,9 @@ def main() -> int:
     attention_cuda._lib()
     maxsim_int8_cuda._lib()
     emit({"phase": "build", "nvcc_seconds": build_s, "seconds": time.perf_counter() - t0})
+    if "--probe-t5-init" in sys.argv[1:]:
+        emit(t5_init_probe(smi))
+        return 0
 
     # ---- 2. each kernel against its plain version, at main-path shapes
     t0 = time.perf_counter()
@@ -682,12 +982,35 @@ def main() -> int:
     w8a8_launches = line["launches"]
     emit({**line, "card": smi})
 
-    # ---- 5. the kernels line and the result
+    del reranker, cpu_model, cpu_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 5. monoBLIP2-Flan-T5 (main path)
+    line, k2_t5 = decoder_rerank(
+        "blip2_flan_t5_xl", T5Config.flan_t5_xl(use_pallas_attention=True, position_bias_bf16=True),
+        chunk=10, yes_no=T5_YES_NO, vocab_hi=30000, smi=smi)
+    emit(line)
+
+    # ---- 6. monoBLIP2-Opt (main path)
+    line, k2_opt = decoder_rerank(
+        "blip2_opt_2_7b", OPTConfig.opt_2_7b(use_pallas_attention=True), chunk=5,
+        yes_no=OPT_YES_NO, vocab_hi=50000, smi=smi)
+    emit(line)
+
+    # ---- 7. the kernels line and the result
     torch.cuda.synchronize()
     phases = (retrieve_launches, int8_launches, stream_launches, rerank_launches, w8a8_launches)
 
     def launches(name):
         return sum(p[name] for p in phases)
+
+    def k2_line(variant, k2_line):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "shape", "tol", "launches")
+        return dict(name=f"fused_self_attention {variant}", route="cuda",
+                    source="reranking_multimodal_retrievers_tpu_torch/csrc/attention.cu",
+                    replaces=attention, **{key: k2_line[key] for key in keys})
 
     attention = "reranking_multimodal_retrievers_tpu/ops/attention_pallas.py:95"
     emit({"kernels": [
@@ -698,15 +1021,13 @@ def main() -> int:
         dict(name="fused_self_attention", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/attention.cu",
              replaces=attention, launches=launches("K2"), **k2[512], at_593=k2[593]),
+        k2_line("head_bias bf16 (Flan-T5-XL encoder)", k2_t5),
+        k2_line("causal, head_dim 80 (OPT-2.7b)", k2_opt),
         dict(name="maxsim_scores_int8", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim_int8.cu",
              replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183",
              launches=launches("K3"), **k3),
-    ], "not_ported": [
-        dict(name="fused_self_attention head_bias (T5 relative positions)", replaces=attention),
-        dict(name="fused_self_attention causal (OPT)", replaces=attention),
-        dict(name="fused_self_attention head_dim 80 (OPT-2.7b)", replaces=attention),
-    ]})
+    ], "not_ported": []})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

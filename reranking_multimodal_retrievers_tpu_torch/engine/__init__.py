@@ -1,5 +1,5 @@
 from .index import QuantizedTokenIndex, TokenIndex, encode_corpus
-from .rerank_eval import make_chunked_rerank_fn
+from .rerank_eval import make_chunked_rerank_fn, make_decoder_rerank_fn
 from .search import Searcher, make_search_fn, make_search_fn_int8, search_exhaustive
 from .streaming import HostQuantizedTokenIndex, HostTokenIndex, StreamingSearcher
 
@@ -12,6 +12,7 @@ __all__ = [
     "make_search_fn_int8",
     "search_exhaustive",
     "make_chunked_rerank_fn",
+    "make_decoder_rerank_fn",
     "HostTokenIndex",
     "HostQuantizedTokenIndex",
     "StreamingSearcher",

@@ -1,5 +1,6 @@
 """Chunked rerank forward, the throughput path (port of
-``engine/rerank_eval.py::make_chunked_rerank_fn`` on one device).
+``engine/rerank_eval.py::make_chunked_rerank_fn`` on one device, and the
+decoder rerankers' program of the JAX package's ``bench.py``).
 
 One ``[B*K, L]`` cross-encoder forward per batch of B queries x K candidates:
 the query image is ViT-encoded once per image and its features broadcast over
@@ -46,5 +47,36 @@ def make_chunked_rerank_fn(reranker, nway: int, chunk_size: Optional[int] = None
                     vision_feats=None if vis is None else (vis[0][rows], vis[1][rows]))
                 logits.append(out.logits.reshape(chunk))
         return torch.cat(logits).reshape(-1, nway)
+
+    return fn
+
+
+def make_decoder_rerank_fn(reranker, chunk_size: Optional[int] = None):
+    """``fn(input_ids, attention_mask, pixel_values) -> p_yes [K]`` for a
+    ``Blip2DecoderRerankModel`` scoring the K prompts ``[K, L]`` of one query
+    image ``[1, 3, H, W]``, the program of the JAX package's decoder rerank
+    benchmark: the vision prefix is computed once and broadcast; the LM runs
+    over ``chunk_size``-row chunks (10 by default). For T5 each chunk is
+    encoded and the decoder then scores all K rows at once
+    (``first_decode_logits``); for OPT each chunk's rows are scored at their
+    last prompt position (``first_logits``)."""
+    cfg = reranker.config
+    m = reranker.model
+
+    def fn(input_ids, attention_mask, pixel_values):
+        K = input_ids.shape[0]
+        chunk = _pick_chunk(K, chunk_size or 10)
+        with torch.inference_mode():
+            prefix = reranker.encode_vision(pixel_values).expand(chunk, -1, -1)
+            rows = [slice(r0, r0 + chunk) for r0 in range(0, K, chunk)]
+            if cfg.blip2.use_decoder_only_language_model:
+                first = torch.cat([reranker.first_logits(input_ids[r], attention_mask[r], prefix)
+                                   for r in rows])
+            else:
+                encs, masks = zip(*[m.encode_for_generation(input_ids[r], attention_mask[r],
+                                                            vision_prefix=prefix) for r in rows])
+                first = reranker.first_decode_logits(torch.cat(encs), torch.cat(masks))
+            yes_no = first[:, [cfg.yes_token_id, cfg.no_token_id]]
+            return torch.softmax(yes_no, dim=-1)[:, 0]
 
     return fn

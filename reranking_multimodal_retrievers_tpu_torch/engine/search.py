@@ -35,7 +35,8 @@ def _local_search(Q, D, M, *, k: int, score_dtype=torch.float32,
 
     ``unpadded=True`` (every real doc has exactly L_d real tokens) drops the
     per-token mask from the kernel; whole-padding docs (all-False mask rows)
-    are still kept out of the top-k by a per-doc pass."""
+    are then kept out of the top-k by a per-doc pass. With the mask, K1
+    already puts them at about ``-9999 * L_q``."""
     M_kernel = None if unpadded else M
     scores = torch.cat([
         maxsim_scores(Q, D[s:s + SLAB_DOCS],
@@ -43,14 +44,14 @@ def _local_search(Q, D, M, *, k: int, score_dtype=torch.float32,
                       score_dtype=score_dtype)
         for s in range(0, D.shape[0], SLAB_DOCS)
     ], dim=1)
-    return _top_k(scores, M, k, Q.shape[1], unpadded)
+    return _top_k(scores, M, k, Q.shape[1], guard=unpadded)
 
 
-def _top_k(scores, M, k: int, L_q: int, unpadded: bool):
-    """Top-k of ``scores [B, N]``; under ``unpadded`` whole-padding docs
-    (all-False mask rows) first get ``MASK_FILL_VALUE * L_q``, since the
-    kernel then saw no mask."""
-    if unpadded:
+def _top_k(scores, M, k: int, L_q: int, guard: bool):
+    """Top-k of ``scores [B, N]``; under ``guard`` whole-padding docs
+    (all-False mask rows) first get ``MASK_FILL_VALUE * L_q``, so that they
+    never outrank a real doc."""
+    if guard:
         scores = torch.where(M.any(dim=1)[None, :], scores,
                              torch.tensor(MASK_FILL_VALUE * L_q, device=scores.device))
     return torch.topk(scores, k, dim=1)
@@ -59,14 +60,19 @@ def _top_k(scores, M, k: int, L_q: int, unpadded: bool):
 def _local_search_int8(Qq, qs, Dq, ds, M, *, k: int, unpadded: bool = False):
     """Int8 variant of :func:`_local_search` over a QuantizedTokenIndex:
     ``Qq [B, L_q, dim]`` int8 with ``qs [B, L_q]`` fp32 scales against
-    ``Dq [N, L_d, dim]`` int8 with ``ds [N]`` fp32 scales, through K3."""
+    ``Dq [N, L_d, dim]`` int8 with ``ds [N]`` fp32 scales, through K3.
+
+    Whole-padding docs are kept out of the top-k whatever ``unpadded`` is.
+    This departs from the JAX package, which guards them only under
+    ``unpadded``: a padding doc has zero codes, so its int8 total is about 0
+    and would outrank real docs whose totals are negative."""
     M_kernel = None if unpadded else M
     scores = torch.cat([
         maxsim_scores_int8(Qq, qs, Dq[s:s + SLAB_DOCS], ds[s:s + SLAB_DOCS],
                            None if M_kernel is None else M_kernel[s:s + SLAB_DOCS])
         for s in range(0, Dq.shape[0], SLAB_DOCS)
     ], dim=1)
-    return _top_k(scores, M, k, Qq.shape[1], unpadded)
+    return _top_k(scores, M, k, Qq.shape[1], guard=True)
 
 
 def quantize_queries(Q):
@@ -136,8 +142,11 @@ class Searcher:
     def __post_init__(self):
         self._search = _program(self.index, self.k)
 
-    def search(self, Q):
-        """Returns (doc_ids list[list[str]], scores [B, k] numpy)."""
+    def search(self, Q, remove_zero_rows: bool = False):
+        """Returns (doc_ids list[list[str]], scores [B, k] numpy).
+
+        ``remove_zero_rows`` is accepted and ignored, as in the JAX package:
+        all-zero query rows score 0 against every doc and move no ranking."""
         vals, idx = self._search(Q)
         vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         n = self.index.num_docs

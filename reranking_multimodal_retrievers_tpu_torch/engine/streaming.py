@@ -209,10 +209,8 @@ class StreamingSearcher:
                 done()
             vals, idx = best_v.cpu().numpy(), best_i.cpu().numpy()
         # positions past num_docs (tail padding, or k > num_docs) get the
-        # -inf / -1 convention. A bf16 tail doc totals -9999 * L_q and only
-        # follows real docs; an int8 one (scale 0) totals about 0 and can
-        # outrank a real doc whose total is negative, leaving -inf / -1 amid
-        # the list, as in the JAX package (ROADMAP queue C)
+        # -inf / -1 convention. A tail doc (all-False mask) totals about
+        # -9999 * L_q, bf16 or int8, and only follows real docs
         bad = (idx < 0) | (idx >= self.index.num_docs)
         return np.where(bad, -np.inf, vals).astype(np.float32), np.where(bad, -1, idx)
 

@@ -18,16 +18,22 @@ from ..device import DeviceLike, resolve_device
 
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator, std: float) -> None:
-    """LayerNorms to (1, 0), every ``bias`` to 0, every other parameter to
-    N(0, std) drawn from ``generator``."""
+    """LayerNorms to (1, 0), the ``weight`` of a module that sets
+    ``weight_init_ones`` (T5's RMS norm) to 1, every ``bias`` and LoRA
+    ``lora_b`` to 0 (a fresh adapter is a no-op), every other parameter to
+    N(0, std) drawn from ``generator``, or N(0, m.init_std) for a module
+    ``m`` that sets ``init_std`` (T5's scaled initialisation)."""
     for m in module.modules():
+        m_std = getattr(m, "init_std", std)
         for name, p in m.named_parameters(recurse=False):
             if isinstance(m, nn.LayerNorm):
                 p.fill_(1.0 if name == "weight" else 0.0)
-            elif name == "bias":
+            elif name == "weight" and getattr(m, "weight_init_ones", False):
+                p.fill_(1.0)
+            elif name in ("bias", "lora_b"):
                 p.zero_()
             else:
-                p.normal_(0.0, std, generator=generator)
+                p.normal_(0.0, m_std, generator=generator)
 
 
 def materialize_(module: nn.Module, device: DeviceLike, dtype: torch.dtype,

@@ -1,12 +1,13 @@
-"""Reranker logits/labels preparation (port of ``models/rerankers/losses.py``,
-the parts inference needs: ``prepare_logits_labels`` and ``primary_logits``).
-The losses themselves wait for the training slice."""
+"""Reranker loss construction (port of ``models/rerankers/losses.py``):
+``prepare_logits_labels``, ``rerank_loss`` (forward only) and
+``primary_logits``."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def default_group_labels(batch_size: int, num_negative_examples: int,
@@ -42,6 +43,27 @@ def prepare_logits_labels(loss_fn_name: str, logits: torch.Tensor,
     else:
         raise ValueError(f"Unknown loss function {loss_fn_name}")
     return logits, labels
+
+
+def rerank_loss(loss_fn_name: str, logits: torch.Tensor, labels: torch.Tensor,
+                pos_weight: Optional[float] = None) -> torch.Tensor:
+    """Reference `utils.py:208-224`: BCE with logits, weighted 2-class CE, or
+    CE over each (1 + N) group. Returns a 0-d fp32 tensor."""
+    if loss_fn_name == "BCE":
+        logits = logits.float().reshape(-1)
+        labels = labels.float().reshape(-1)
+        w_pos = pos_weight if pos_weight is not None else 1.0
+        per = -(w_pos * labels * F.logsigmoid(logits) + (1.0 - labels) * F.logsigmoid(-logits))
+        return per.mean()
+    if loss_fn_name in ("2H_BCE", "negative_sampling"):
+        logits = logits.float()
+        labels = labels.long().reshape(-1)
+        per = torch.logsumexp(logits, dim=-1) - logits.gather(1, labels[:, None])[:, 0]
+        if loss_fn_name == "2H_BCE" and pos_weight is not None:
+            w = torch.where(labels == 1, pos_weight, 1.0)
+            return (per * w).sum() / w.sum().clamp_min(1e-9)
+        return per.mean()
+    raise ValueError(f"Unknown loss function {loss_fn_name}")
 
 
 def primary_logits(loss_fn_name: str, logits: torch.Tensor) -> torch.Tensor:

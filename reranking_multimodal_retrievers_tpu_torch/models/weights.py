@@ -152,3 +152,186 @@ def rerank_state_dict(params: Tree) -> StateDict:
     _dense(sd, "reranker.classifier1", ce["classifier1"])
     _dense(sd, "reranker.classifier2", ce["classifier2"])
     return sd
+
+
+# ---- the decoder rerankers: LoRA, T5, OPT, BLIP-2 ---------------------------
+
+def _linear(sd: StateDict, name: str, p: Tree) -> None:
+    """A flax ``Dense``, or a ``LoRADense`` (``base`` + ``lora_a [in, r]`` +
+    ``lora_b [r, out]``) -> ``Linear`` / ``LoRALinear`` weights, the adapters
+    stored as linear weights ``lora_a [r, in]`` and ``lora_b [out, r]``."""
+    _dense(sd, name, p.get("base", p))
+    if "lora_a" in p:
+        sd[f"{name}.lora_a"] = _t(np.asarray(p["lora_a"]).T)
+        sd[f"{name}.lora_b"] = _t(np.asarray(p["lora_b"]).T)
+
+
+def _t5_stack(sd: StateDict, prefix: str, p: Tree, is_decoder: bool) -> None:
+    i = 0
+    while f"block_{i}" in p:
+        bp, b = p[f"block_{i}"], f"{prefix}.block.{i}"
+        sub = [("self_attn", "layer.0.SelfAttention", "self_attn_norm")]
+        if is_decoder:
+            sub.append(("cross_attn", "layer.1.EncDecAttention", "cross_attn_norm"))
+        for jname, hname, norm in sub:
+            for n in ("q", "k", "v", "o"):
+                _linear(sd, f"{b}.{hname}.{n}", bp[jname][n])
+            if "relative_attention_bias" in bp[jname]:
+                _embed(sd, f"{b}.{hname}.relative_attention_bias",
+                       bp[jname]["relative_attention_bias"])
+            sd[f"{b}.{hname.rsplit('.', 1)[0]}.layer_norm.weight"] = _t(bp[norm]["weight"])
+        ff = f"{b}.layer.{2 if is_decoder else 1}"
+        for n, w in bp["ff"].items():
+            _linear(sd, f"{ff}.DenseReluDense.{n}", w)
+        sd[f"{ff}.layer_norm.weight"] = _t(bp["ff_norm"]["weight"])
+        i += 1
+    sd[f"{prefix}.final_layer_norm.weight"] = _t(p["final_norm"]["weight"])
+
+
+def _t5(sd: StateDict, prefix: str, p: Tree) -> None:
+    _embed(sd, f"{prefix}shared", p["shared"])
+    _t5_stack(sd, f"{prefix}encoder", p["encoder"], is_decoder=False)
+    _t5_stack(sd, f"{prefix}decoder", p["decoder"], is_decoder=True)
+    if "lm_head" in p:
+        _linear(sd, f"{prefix}lm_head", p["lm_head"])
+
+
+def t5_state_dict(params: Tree) -> StateDict:
+    """Flax ``T5ForConditionalGeneration`` params -> the port's
+    ``T5ForConditionalGeneration`` state dict (HF names; the inverse of
+    ``hf_bridge.t5_params``, LoRA adapters included)."""
+    sd: StateDict = {}
+    _t5(sd, "", params)
+    return sd
+
+
+def _opt(sd: StateDict, prefix: str, p: Tree) -> None:
+    d = f"{prefix}model.decoder"
+    _embed(sd, f"{d}.embed_tokens", p["embed_tokens"])
+    _embed(sd, f"{d}.embed_positions", p["embed_positions"])
+    for n in ("final_layer_norm",):
+        if n in p:
+            _layernorm(sd, f"{d}.{n}", p[n])
+    for n in ("project_in", "project_out"):
+        if n in p:
+            _linear(sd, f"{d}.{n}", p[n])
+    i = 0
+    while f"layer_{i}" in p:
+        lp, lpre = p[f"layer_{i}"], f"{d}.layers.{i}"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, f"{lpre}.self_attn.{n}", lp["self_attn"][n])
+        for n in ("self_attn_layer_norm", "final_layer_norm"):
+            _layernorm(sd, f"{lpre}.{n}", lp[n])
+        _linear(sd, f"{lpre}.fc1", lp["fc1"])
+        _linear(sd, f"{lpre}.fc2", lp["fc2"])
+        i += 1
+
+
+def opt_state_dict(params: Tree) -> StateDict:
+    """Flax ``OPTForCausalLM`` params -> the port's ``OPTForCausalLM`` state
+    dict (HF names under ``model.decoder``; the head is tied to
+    ``embed_tokens``; the inverse of ``hf_bridge.opt_params``)."""
+    sd: StateDict = {}
+    _opt(sd, "", params)
+    return sd
+
+
+def _blip2_attention(sd: StateDict, prefix: str, p: Tree) -> None:
+    for n in ("query", "key", "value"):
+        _dense(sd, f"{prefix}.attention.{n}", p[n])
+    _dense(sd, f"{prefix}.output.dense", p["out"])
+    _layernorm(sd, f"{prefix}.output.LayerNorm", p["layernorm"])
+
+
+def _blip2(sd: StateDict, prefix: str, p: Tree) -> None:
+    v, vp = f"{prefix}vision_model", p["vision_model"]
+    emb = vp["embeddings"]
+    sd[f"{v}.embeddings.class_embedding"] = _t(emb["class_embedding"])
+    sd[f"{v}.embeddings.position_embedding"] = _t(emb["position_embedding"])
+    sd[f"{v}.embeddings.patch_embedding.weight"] = _t(
+        np.asarray(emb["patch_embedding"]["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{v}.embeddings.patch_embedding.bias"] = _t(emb["patch_embedding"]["bias"])
+    _layernorm(sd, f"{v}.post_layernorm", vp["post_layernorm"])
+    i = 0
+    while f"layer_{i}_attn" in vp:
+        lpre = f"{v}.encoder.layers.{i}"
+        _dense(sd, f"{lpre}.self_attn.qkv", vp[f"layer_{i}_attn"]["qkv"])
+        _dense(sd, f"{lpre}.self_attn.projection", vp[f"layer_{i}_attn"]["projection"])
+        _layernorm(sd, f"{lpre}.layer_norm1", vp[f"layer_{i}_norm1"])
+        _layernorm(sd, f"{lpre}.layer_norm2", vp[f"layer_{i}_norm2"])
+        _dense(sd, f"{lpre}.mlp.fc1", vp[f"layer_{i}_fc1"])
+        _dense(sd, f"{lpre}.mlp.fc2", vp[f"layer_{i}_fc2"])
+        i += 1
+    q, qp = f"{prefix}qformer", p["qformer"]
+    sd[f"{prefix}query_tokens"] = _t(qp["query_tokens"])
+    _layernorm(sd, f"{q}.layernorm", qp["layernorm"])
+    i = 0
+    while f"layer_{i}_attention" in qp:
+        lpre = f"{q}.encoder.layer.{i}"
+        _blip2_attention(sd, f"{lpre}.attention", qp[f"layer_{i}_attention"])
+        if f"layer_{i}_crossattention" in qp:
+            _blip2_attention(sd, f"{lpre}.crossattention", qp[f"layer_{i}_crossattention"])
+        _dense(sd, f"{lpre}.intermediate_query.dense", qp[f"layer_{i}_intermediate_query"])
+        _dense(sd, f"{lpre}.output_query.dense", qp[f"layer_{i}_output_query"])
+        _layernorm(sd, f"{lpre}.output_query.LayerNorm", qp[f"layer_{i}_output_query_norm"])
+        i += 1
+    _dense(sd, f"{prefix}language_projection", p["language_projection"])
+    lm = p["language_model"]
+    (_opt if "embed_tokens" in lm else _t5)(sd, f"{prefix}language_model.", lm)
+
+
+def blip2_state_dict(params: Tree) -> StateDict:
+    """Flax ``Blip2ForConditionalGeneration`` params (T5 or OPT language
+    model) -> the port's ``Blip2ForConditionalGeneration`` state dict (HF
+    names; the inverse of ``hf_bridge.blip2_params``)."""
+    sd: StateDict = {}
+    _blip2(sd, "", params)
+    return sd
+
+
+def blip2_rerank_state_dict(params: Tree) -> StateDict:
+    """Flax ``Blip2DecoderRerankModel`` / ``Blip2DecoderHeadRerankModel``
+    params -> the port's state dict (``model.*``, and the two heads)."""
+    sd: StateDict = {}
+    _blip2(sd, "model.", params["model"])
+    for n in ("classifier1", "classifier2"):
+        if n in params:
+            _dense(sd, n, params[n])
+    return sd
+
+
+def _bert_layer(sd: StateDict, lpre: str, lp: Tree) -> None:
+    _bert_attention(sd, f"{lpre}.attention", lp["attention"])
+    _dense(sd, f"{lpre}.intermediate.dense", lp["intermediate"])
+    _dense(sd, f"{lpre}.output.dense", lp["output"])
+    _layernorm(sd, f"{lpre}.output.LayerNorm", lp["layernorm"])
+
+
+def decoder_rerank_state_dict(params: Tree) -> StateDict:
+    """Flax ``DecoderRerankModel`` / ``DecoderHeadRerankModel`` params (the
+    compact ``VisionSeq2SeqLM`` backbone) -> the port's state dict."""
+    sd: StateDict = {}
+    mp = params["model"]
+    _clip(sd, "model.vision_encoder.vision_model.", mp["vision_encoder"])
+    _dense(sd, "model.vision_projection", mp["vision_projection"])
+    _embed(sd, "model.embed", mp["embed"])
+    _embed(sd, "model.pos_embed", mp["pos_embed"])
+    i = 0
+    while f"encoder_layer_{i}" in mp:
+        _bert_layer(sd, f"model.encoder_layers.{i}", mp[f"encoder_layer_{i}"])
+        i += 1
+    i = 0
+    while f"decoder_layer_{i}" in mp:
+        lp, lpre = mp[f"decoder_layer_{i}"], f"model.decoder_layers.{i}"
+        _bert_attention(sd, f"{lpre}.self_attention", lp["self_attention"])
+        _bert_attention(sd, f"{lpre}.cross_attention", lp["cross_attention"])
+        _linear(sd, f"{lpre}.intermediate", lp["intermediate"])
+        _linear(sd, f"{lpre}.output", lp["output"])
+        _layernorm(sd, f"{lpre}.layernorm", lp["layernorm"])
+        i += 1
+    _layernorm(sd, "model.final_norm", mp["final_norm"])
+    _dense(sd, "model.lm_head", mp["lm_head"])
+    for n in ("classifier1", "classifier2"):
+        if n in params:
+            _dense(sd, n, params[n])
+    return sd

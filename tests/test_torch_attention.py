@@ -94,12 +94,16 @@ def test_plain_k2_chunks_over_batch(monkeypatch):
 
 
 def test_unported_arguments_raise():
+    """head_bias and causal are ported (tests/test_torch_attention_variants.py);
+    a head bias of another shape, and a device that is neither CPU nor CUDA,
+    raise."""
     x = torch.zeros(1, 8, 128)
-    with pytest.raises(NotImplementedError):
-        fused_self_attention(x, x, x, head_bias=torch.zeros(2, 8, 8),
+    with pytest.raises(ValueError):
+        fused_self_attention(x, x, x, head_bias=torch.zeros(2, 8, 9),
                              num_heads=2, sm_scale=SCALE)
-    with pytest.raises(NotImplementedError):
-        fused_self_attention(x, x, x, causal=True, num_heads=2, sm_scale=SCALE)
+    with pytest.raises(ValueError):
+        fused_self_attention(x, x, x, head_bias=torch.zeros(1, 8, 8),
+                             num_heads=2, sm_scale=SCALE, causal=True)
     m = torch.empty(1, 8, 128, device="meta")  # neither CPU nor CUDA
     with pytest.raises(ValueError):
         fused_self_attention(m, m, m, num_heads=2, sm_scale=SCALE)

@@ -109,12 +109,116 @@ def test_k2_matches_plain(gen, B, L, H, masked, strided):
 
 
 def test_k2_rejects_other_head_dims_and_dtypes(gen):
-    x = torch.randn(1, 8, 160, device="cuda", generator=gen).to(torch.bfloat16)
+    x = torch.randn(1, 8, 192, device="cuda", generator=gen).to(torch.bfloat16)
     with pytest.raises(NotImplementedError):
-        fused_self_attention(x, x, x, num_heads=2, sm_scale=0.1)  # head_dim 80
+        fused_self_attention(x, x, x, num_heads=2, sm_scale=0.1)  # head_dim 96
     y = torch.randn(1, 8, 128, device="cuda", generator=gen)
     with pytest.raises(TypeError):
         fused_self_attention(y, y, y, num_heads=2, sm_scale=0.125)  # fp32
+    z = y.to(torch.bfloat16)
+    for hb, err in ((torch.zeros(2, 8, 8, device="cuda", dtype=torch.float16), TypeError),
+                    (torch.zeros(2, 8, 9, device="cuda"), ValueError),
+                    (torch.zeros(2, 8, 8), ValueError),  # on the CPU
+                    (torch.zeros(2, 8, 16, device="cuda")[:, :, :8], ValueError)):
+        with pytest.raises(err):
+            fused_self_attention(z, z, z, head_bias=hb, num_heads=2, sm_scale=1.0)
+
+
+@pytest.mark.parametrize("B,L,H,HD,bias_dtype,causal,padded", [
+    (2, 37, 2, 64, torch.bfloat16, False, True),   # T5: bf16 head bias, L below one tile
+    (3, 130, 4, 64, torch.float32, False, True),   # fp32 head bias, ragged last tiles
+    (2, 200, 2, 64, None, True, False),            # causal
+    (3, 130, 2, 64, None, True, True),             # causal with right padding
+    (2, 100, 3, 80, None, False, True),            # head_dim 80, key padding
+    (3, 150, 4, 80, None, True, True),             # OPT: head_dim 80, causal, padding
+    (2, 70, 2, 80, torch.bfloat16, True, True),    # every option at once
+])
+def test_k2_variants_match_plain(gen, B, L, H, HD, bias_dtype, causal, padded):
+    q, k, v = (torch.randn(B, L, H * HD, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    bias = None
+    if padded:  # right padding, as the rerankers' prompts are padded
+        lens = torch.randint(L // 2, L + 1, (B,), device="cuda", generator=gen)
+        bias = torch.where(torch.arange(L, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
+    hb = None
+    if bias_dtype is not None:
+        hb = torch.randn(H, L, L, device="cuda", generator=gen).to(bias_dtype)
+    kw = dict(num_heads=H, sm_scale=HD ** -0.5, causal=causal)
+    launches = fused_self_attention.launches
+    got = fused_self_attention(q, k, v, bias, hb, **kw)
+    torch.cuda.synchronize()
+    assert fused_self_attention.launches == launches + 1
+    ref = fused_self_attention_reference(q, k, v, bias, hb, **kw)
+    # bf16 outputs of order 1: the kernel rounds unnormalised probabilities
+    # to bf16 and sums in another order (a few bf16 spacings)
+    torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+def test_k2_head_bias_at_large_scores(gen):
+    """T5's launch shape with unscaled q (T5 takes sm_scale 1): scores of
+    std 8, near-argmax attention, plus a bf16 head bias and padded keys."""
+    B, L, H, HD = 10, 544, 32, 64
+    q, k, v = (torch.randn(B, L, H * HD, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.randint(L // 2, L + 1, (B,), device="cuda", generator=gen)
+    bias = torch.where(torch.arange(L, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
+    hb = torch.randn(H, L, L, device="cuda", generator=gen).to(torch.bfloat16)
+    got = fused_self_attention(q, k, v, bias, hb, num_heads=H, sm_scale=1.0)
+    ref = fused_self_attention_reference(q, k, v, bias, hb, num_heads=H, sm_scale=1.0)
+    # near-argmax rows output about one row of v, up to |v| ~ 5, where one
+    # bf16 spacing is 2^-5 > 3e-2: the bound at scores of order 1 plus half
+    # a bf16 spacing of the output (2^-8 relative)
+    torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=2 ** -8)
+
+
+@pytest.mark.parametrize("L,heads,hd", [(45, 2, 80), (37, 3, 64)])
+def test_opt_kernel_path_at_any_length_and_head_grouping(gen, L, heads, hd):
+    """OPT on the card fuses every masked self-attention, also at an L that
+    is not a multiple of 8 and at head counts the TPU kernel cannot pack
+    into 128 lanes; the same weights without use_pallas_attention take the
+    plain path."""
+    from reranking_multimodal_retrievers_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
+
+    kw = dict(hidden_size=heads * hd, num_attention_heads=heads, ffn_dim=256)
+    fused = OPTForCausalLM(OPTConfig.tiny(use_pallas_attention=True, **kw),
+                           dtype=torch.bfloat16, generator=gen)
+    plain = OPTForCausalLM(OPTConfig.tiny(**kw), dtype=torch.bfloat16)
+    plain.load_state_dict(fused.state_dict())
+    ids = torch.randint(2, 64, (3, L), device="cuda", generator=gen)
+    am = torch.ones_like(ids)
+    am[1, L - 9:] = 0
+    launches = fused_self_attention.launches
+    with torch.inference_mode():
+        a = fused.hidden_states(ids, am).float()
+        b = plain.hidden_states(ids, am).float()
+    assert fused_self_attention.launches == launches + 2  # one per layer
+    # two bf16 pre-LN layers and the final LayerNorm: activations of order 1
+    torch.testing.assert_close(a, b, atol=6e-2, rtol=0)
+
+
+def test_t5_kernel_path_at_odd_head_count(gen):
+    """T5's encoder on the card fuses at 3 heads x 64, which the TPU kernel
+    cannot pack; the plain path on the same weights agrees."""
+    from reranking_multimodal_retrievers_tpu_torch.models.t5 import (
+        T5Config, T5ForConditionalGeneration)
+
+    kw = dict(vocab_size=96, d_model=192, d_kv=64, d_ff=256, num_layers=2,
+              num_decoder_layers=1, num_heads=3)
+    fused = T5ForConditionalGeneration(
+        T5Config(use_pallas_attention=True, position_bias_bf16=True, **kw),
+        dtype=torch.bfloat16, generator=gen)
+    plain = T5ForConditionalGeneration(T5Config(**kw), dtype=torch.bfloat16)
+    plain.load_state_dict(fused.state_dict())
+    ids = torch.randint(2, 96, (3, 45), device="cuda", generator=gen)
+    am = torch.ones_like(ids)
+    am[2, 30:] = 0
+    launches = fused_self_attention.launches
+    with torch.inference_mode():
+        a = fused.encode(ids, am).float()
+        b = plain.encode(ids, am).float()
+    assert fused_self_attention.launches == launches + 2  # one per encoder layer
+    # two bf16 blocks and the final RMS norm (the bias in bf16 on one side)
+    torch.testing.assert_close(a, b, atol=6e-2, rtol=0)
 
 
 def test_bert_kernel_path_matches_plain_path(gen):

@@ -68,7 +68,12 @@ def test_default_device_entry_points_refuse_without_cuda():
     from reranking_multimodal_retrievers_tpu_torch.models import (
         BertConfig, BertModel, CLIPVisionConfig, CLIPVisionModel, FLMRConfig,
         FLMRModelForRetrieval)
+    from reranking_multimodal_retrievers_tpu_torch.models import (
+        Blip2Config, Blip2ForConditionalGeneration, OPTConfig, OPTForCausalLM, T5Config,
+        T5ForConditionalGeneration)
     from reranking_multimodal_retrievers_tpu_torch.models.rerankers import (
+        Blip2DecoderHeadRerankModel, Blip2DecoderRerankModel, Blip2RerankConfig,
+        DecoderHeadRerankModel, DecoderRerankConfig, DecoderRerankModel,
         FullContextRerankModel, RerankConfig)
     from reranking_multimodal_retrievers_tpu_torch.serving import RerankService
 
@@ -84,6 +89,13 @@ def test_default_device_entry_points_refuse_without_cuda():
                                                 ["a", "b"]),
         lambda: StreamingSearcher(HostTokenIndex(np.zeros((2, 3, 32), np.float16), None)),
         lambda: RerankService(lambda *a: None, nway=2),
+        lambda: T5ForConditionalGeneration(T5Config.tiny()),
+        lambda: OPTForCausalLM(OPTConfig.tiny()),
+        lambda: Blip2ForConditionalGeneration(Blip2Config.tiny()),
+        lambda: DecoderRerankModel(DecoderRerankConfig.tiny()),
+        lambda: DecoderHeadRerankModel(DecoderRerankConfig.tiny()),
+        lambda: Blip2DecoderRerankModel(Blip2RerankConfig.tiny()),
+        lambda: Blip2DecoderHeadRerankModel(Blip2RerankConfig.tiny()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
