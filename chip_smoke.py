@@ -7,12 +7,16 @@ card, ``nvcc`` and the port package beside this file; imports no JAX.
 
 Phases, each printing one JSON line with its elapsed seconds:
   0. the card (name and power limit as ``nvidia-smi`` gives them);
-  1. build the CUDA kernels (``nvcc`` -> shared library -> ``ctypes``);
+  1. build the CUDA kernels (``nvcc`` -> shared library -> ``ctypes``), and
+     report each library's registers, static shared memory and spill bytes
+     from its ``-Xptxas -v`` log;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes (K1 and K2 in bf16, K3 on int8 codes, masked and
      unmasked, plus crafted codes that must match bitwise), and time kernel,
      plain version and (for K2) ``scaled_dot_product_attention`` as a
-     yardstick the port never calls;
+     yardstick the port never calls, K2 and the yardstick in turns (kernel,
+     library, kernel, library), with K2's ratio to it, share of its bound
+     and achieved TFLOP/s;
   3. retrieve: full-width FLMR (BERT-base, ViT-B/32, dim 128, 32-token
      prefix, 1-layer mapping network; random bf16 weights from a seed)
      encodes 1,024 docs into a TokenIndex padded with random unit vectors to
@@ -144,6 +148,39 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def k2_timed(kernel, library, flops, bound_ms, reps=10):
+    """K2 and its library yardstick timed in turns (kernel, library, kernel,
+    library) on the same inputs; ms and library_ms are the means of the two
+    turns. Adds the ratio to the library, the share of the bound and the
+    achieved TFLOP/s."""
+    turns = [cuda_ms(fn, reps) for fn in (kernel, library, kernel, library)]
+    ms, lib_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
+    return dict(ms=ms, library_ms=lib_ms, ms_turns=turns[0::2], library_ms_turns=turns[1::2],
+                x_library=ms / lib_ms, share_of_bound=bound_ms / ms,
+                tflops=flops / (ms * 1e-3) / 1e12)
+
+
+def ptxas_report(name):
+    """Registers, static shared memory and spill bytes of each kernel of the
+    library ``name``, parsed from the ``-Xptxas -v`` log its build wrote."""
+    import re
+
+    from reranking_multimodal_retrievers_tpu_torch.ops import _build
+
+    text = _build._target(name).with_suffix(".log").read_text(errors="replace")
+    entries = []
+    for block in text.split("Compiling entry function")[1:]:
+        ent = re.match(r" '([^']+)'", block).group(1)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        entries.append(dict(entry=ent, registers=int(regs.group(1)),
+                            static_smem_bytes=int(smem.group(1)) if smem else 0,
+                            spill_bytes=int(spill.group(1)) + int(spill.group(2))))
+    return dict(kernels=len(entries), max_registers=max(e["registers"] for e in entries),
+                spill_bytes=sum(e["spill_bytes"] for e in entries), entries=entries)
 
 
 def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
@@ -497,12 +534,12 @@ def k2_variant(name, q, k, v, bias, head_bias, *, heads, scale, causal, sdpa_mas
     if head_bias is not None:
         nbytes += head_bias.numel() * head_bias.element_size()
     b_ms, b_by = bound(flops, nbytes)
+    times = k2_timed(lambda: fused_self_attention(q, k, v, bias, head_bias, **kw),
+                     lambda: sdpa(qh, kh, vh, attn_mask=sdpa_mask, scale=scale), flops, b_ms)
     return dict(variant=name, shape=[B, L, HD], heads=heads, max_abs_err=err, tol=K2_TOL,
-                ms=cuda_ms(lambda: fused_self_attention(q, k, v, bias, head_bias, **kw), 10),
                 plain_ms=cuda_ms(lambda: fused_self_attention_reference(q, k, v, bias,
                                                                         head_bias, **kw), 3),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=sdpa_mask, scale=scale), 10))
+                bound_ms=b_ms, bound_by=b_by, flops=flops, **times)
 
 
 def _decoder_config(text_config, yes_no):
@@ -764,7 +801,9 @@ def main() -> int:
     maxsim_cuda._lib()  # load the three libraries
     attention_cuda._lib()
     maxsim_int8_cuda._lib()
-    emit({"phase": "build", "nvcc_seconds": build_s, "seconds": time.perf_counter() - t0})
+    emit({"phase": "build", "nvcc_seconds": build_s,
+          "ptxas": {name: ptxas_report(name) for name in _build.SOURCES},
+          "seconds": time.perf_counter() - t0})
     if "--probe-t5-init" in sys.argv[1:]:
         emit(t5_init_probe(smi))
         return 0
@@ -818,12 +857,13 @@ def main() -> int:
         qh, kh, vh = (x.view(BA, L, H, HD).transpose(1, 2) for x in (q, k, v))
         amask = keep[:, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=amask), 10)
-        b_ms, b_by = bound(4 * BA * H * L * L * HD, 4 * q.numel() * 2 + bias.numel() * 4)
+        flops = 4 * BA * H * L * L * HD
+        b_ms, b_by = bound(flops, 4 * q.numel() * 2 + bias.numel() * 4)
+        times = k2_timed(lambda: fused_self_attention(q, k, v, bias, **kw),
+                         lambda: sdpa(qh, kh, vh, attn_mask=amask), flops, b_ms)
         k2[L] = dict(shape=[BA, L, H * HD], max_abs_err=err, tol=K2_TOL,
-                     ms=cuda_ms(lambda: fused_self_attention(q, k, v, bias, **kw), 10),
                      plain_ms=cuda_ms(lambda: fused_self_attention_reference(q, k, v, bias, **kw), 3),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                     bound_ms=b_ms, bound_by=b_by, flops=flops, **times)
         emit({"phase": "kernel_check", "kernel": "K2 fused_self_attention", **k2[L]})
         del q, k, v, got, ref
     emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0})
@@ -1007,7 +1047,7 @@ def main() -> int:
 
     def k2_line(variant, k2_line):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "shape", "tol", "launches")
+                "x_library", "share_of_bound", "tflops", "shape", "tol", "launches")
         return dict(name=f"fused_self_attention {variant}", route="cuda",
                     source="reranking_multimodal_retrievers_tpu_torch/csrc/attention.cu",
                     replaces=attention, **{key: k2_line[key] for key in keys})

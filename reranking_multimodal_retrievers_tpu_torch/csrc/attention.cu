@@ -2,7 +2,8 @@
 // bf16.
 //
 // Replaces reranking_multimodal_retrievers_tpu/ops/attention_pallas.py::
-// fused_self_attention (bodies _attn_kernel / _dispatch_kernel). It computes
+// fused_self_attention (pallas_call at :175, body _attn_kernel at :36). It
+// computes
 //     out = softmax(Q K^T * sm_scale + key_bias [+ head_bias] [+ causal]) V
 // per (batch row, head), reading Q/K/V in the projection layout
 // [B, L, heads * hd] through strides (no transposes), taking the padding
@@ -13,283 +14,729 @@
 // accumulation are fp32.
 //
 // What bounds it on an H100: at the BERT rerank shape [100, 512, 12 x 64] it
-// does 4*B*H*L*L*64 = 80.5 GFLOP (0.08 ms of bf16 tensor-core time) and must
+// does 4*B*H*L*L*64 = 80.5 GFLOP (0.081 ms of bf16 tensor-core time) and must
 // move q, k, v and out once, 315 MB (0.094 ms at 3.35 TB/s): bytes, narrowly.
 // The T5 encoder shape [10, 544, 32 x 64] adds a bf16 head bias of 18.9 MB;
 // the OPT shape [5, 544, 32 x 80] under the causal mask needs about half the
-// operations: both are bound by bytes as well.
-// Design: FlashAttention-style online softmax, so the [B, H, L, L] scores
-// never reach device memory and q/k/v are each read once per query tile. One
-// block of 4 warps owns 64 query rows of one (batch row, head); each warp owns
-// 16 rows. The block walks 64-key tiles of K and V staged in shared memory
-// (and, with a head bias, that head's 64 x 64 bias tile, converted to fp32);
-// each warp computes its 16x64 score tile on the tensor cores (WMMA, bf16 ->
-// fp32, hd/16 k-steps), updates the running row max and row sum in fp32,
-// rescales its fp32 output rows (hd wide) and adds P.V (P rounded to bf16)
-// on the tensor cores (hd/16 output tiles). Any L is taken: keys past L get
-// -inf and bias reads past L are skipped; query rows past L are computed and
-// not stored. Under the causal mask, key tiles wholly above the diagonal are
-// skipped: each of their entries would be exp(-1e9 - m) = 0. Tiles are
-// walked from 0 upward, so every tile visited holds a key < L and the
-// running max stays finite.
-// This is the simple first version: synchronous staging, score and output
-// tiles round-trip through shared memory. wgmma and TMA are later work.
+// operations: both are bound by bytes as well. Near either bound, the
+// tensor cores must run at their Hopper rate (wgmma) while the next tiles
+// arrive, and the [B, H, L, L] scores must never leave the SM.
+//
+// Design (FlashAttention-3-like):
+// - Work items are 128 query rows of one (batch row, head). One persistent
+//   block per SM walks items blockIdx.x, + gridDim.x, ...; under the causal
+//   mask the heaviest items (the last query blocks) come first. A block has
+//   384 threads: two consumer warpgroups of 64 rows each and a producer
+//   warpgroup, which gives its registers to the consumers (setmaxnreg: 40
+//   and 232 a thread) and of which one warp works.
+// - The producer warp loads each item's Q once, into one of two Q buffers
+//   (items alternate), and walks its 128-key tiles: one lane issues TMA
+//   copies (cp.async.bulk.tensor over 3-D maps [B, L, heads * hd] with the
+//   caller's strides) of K, V and, for a bf16 head bias with L % 8 == 0, the
+//   128 x 128 bias tile into a 2-stage ring with full/empty mbarriers, and
+//   the warp writes the tile's key bias (times log2 e; -inf past L) beside
+//   it. It runs ahead into the next item, so one item's last tiles and
+//   output overlap the next one's loads. TMA zero-fills rows past L, so the
+//   ragged edge needs no branches; the -inf key bias keeps those keys out of
+//   the softmax. A warpgroup whose rows all lie past L only takes part in
+//   the handshakes.
+// - Rows are 128-byte-swizzled 64-column boxes; head_dim 80 adds a
+//   32-byte-swizzled 16-column box (160-byte rows fit no 128-byte swizzle).
+// - S = Q K^T is wgmma m64n128k16 (hd/16 k-steps, Q and K from shared
+//   memory), S stays in registers; the key bias, the head bias (from the
+//   swizzled tile in shared memory, conflict-free, or, for an fp32 bias or
+//   an L % 8 != 0, loaded from global memory straight into the score
+//   registers) and the causal -1e9 (only on tiles that cross the diagonal)
+//   are added there; the row max and row sum take two quad shuffles; O is
+//   rescaled in registers.
+// - P, rounded to bf16 in registers, is wgmma's A operand for O += P V
+//   (m64n64k16, plus m64n16k16 at head_dim 80; V from shared memory through
+//   the transposed-B form). O stays in fp32 registers across all key tiles,
+//   is normalised once, staged bf16 in the warpgroup's rows of the item's Q
+//   buffer and written by one TMA store, which drops rows past L.
+// - The -1e9 semantics are the TPU kernel's: -1e9 is added, not -inf, so a
+//   row whose keys are all masked averages V uniformly, as JAX and the plain
+//   version do. Every visited tile holds a key < L, so the running max
+//   stays finite. exp is exp2 of log2-scaled scores; the max is subtracted
+//   before the exp2, so -1e9-sized scores cancel exactly.
+// - Its limit on the card: the two warpgroups reach their softmax together,
+//   so the tensor cores idle while both share the exp2 units. FA3's
+//   ping-pong (one warpgroup's products under the other's softmax, P V of
+//   one tile issued beside Q K^T of the next) was slower here, with
+//   128-key tiles (it spilled) and with 64-key tiles (it did not); see
+//   PERF.md.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int kBM = 64;           // query rows per block
-constexpr int kBN = 64;           // keys per tile
-constexpr int kWarps = kBM / 16;  // 4
-constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kBN + 4;     // fp32 score / head-bias row stride
-constexpr int kLdp = kBN + 8;     // bf16 probability row stride (16-byte skew)
-constexpr float kNegInf = -1e9f;  // the TPU kernel's causal mask value
+constexpr int kBM = 128;                   // query rows per block
+constexpr int kWGRows = 64;                // query rows per consumer warpgroup
+constexpr int kBN = 128;                   // keys per tile
+constexpr int kStages = 2;                 // depth of the K/V (and head-bias) ring
+constexpr int kConsumerWarps = kBM / 16;   // 8: two warpgroups
+constexpr int kThreads = (kConsumerWarps + 4) * 32;  // + a producer warpgroup
+// registers a thread after setmaxnreg: the producer warpgroup gives up what
+// the consumers take (40 * 128 + 232 * 256 = 168 * 384, the launch's share)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf = -1e9f;           // the TPU kernel's causal mask value
+constexpr uint64_t kSw128 = 1, kSw32 = 3;  // wgmma descriptor layout types
 
-template <int HD>
-struct Layout {
-  static_assert(HD % 16 == 0, "head_dim is a whole number of 16-wide MMA steps");
-  static constexpr int kLdh = HD + 8;  // bf16 Q/K/V row stride (16-byte skew)
-  static constexpr int kLdo = HD + 4;  // fp32 output row stride
-  static constexpr int kOC = HD / 2;   // output columns per lane
-  static_assert(kOC % 8 == 0, "each lane stores its output columns in 16-byte chunks");
-  static constexpr size_t kQs = 0;
-  static constexpr size_t kKs = kQs + (size_t)kBM * kLdh * 2;
-  static constexpr size_t kVs = kKs + (size_t)kBN * kLdh * 2;
-  static constexpr size_t kS = kVs + (size_t)kBN * kLdh * 2;
-  static constexpr size_t kP = kS + (size_t)kWarps * 16 * kLds * 4;
-  static constexpr size_t kO = kP + (size_t)kWarps * 16 * kLdp * 2;
-  static constexpr size_t kBias = kO + (size_t)kWarps * 16 * kLdo * 4;
-  static constexpr size_t kHs = kBias + (size_t)kBN * 4;
-  static constexpr size_t kBytes = kHs;                              // no head bias
-  static constexpr size_t kBytesHB = kHs + (size_t)kBM * kLds * 4;   // with head bias
-  // WMMA pointers must be 32-byte aligned: every region starts on one
-  static_assert(kKs % 32 == 0 && kVs % 32 == 0 && kS % 32 == 0 && kP % 32 == 0 &&
-                kO % 32 == 0 && kHs % 32 == 0, "shared-memory regions 32-byte aligned");
+struct NoHeadBias {};
+
+// Shared-memory layout (bytes from a 1024-aligned base). Every swizzled box
+// starts on a 1024-byte boundary, where the swizzle pattern starts.
+template <int HD, bool kHBTma>
+struct Smem {
+  static_assert(HD == 64 || HD == 80, "head_dim 64 or 80");
+  static constexpr bool kTail = HD == 80;  // columns 64..79 in a second box
+  static constexpr uint32_t kRow = 128;    // 64 bf16 columns, 128-byte swizzle
+  static constexpr uint32_t kTailRow = 32; // 16 bf16 columns, 32-byte swizzle
+  // two Q buffers (items alternate between them; each also stages its
+  // item's output), then the ring
+  static constexpr uint32_t kQTail = kBM * kRow;  // offsets within a Q buffer
+  static constexpr uint32_t kQBuf = kQTail + (kTail ? kBM * kTailRow : 0);
+  static constexpr uint32_t kStage0 = 2 * kQBuf;
+  static constexpr uint32_t kK = 0;  // offsets within a stage
+  static constexpr uint32_t kKTail = kK + kBN * kRow;
+  static constexpr uint32_t kV = kKTail + (kTail ? kBN * kTailRow : 0);
+  static constexpr uint32_t kVTail = kV + kBN * kRow;
+  static constexpr uint32_t kHB = kVTail + (kTail ? kBN * kTailRow : 0);  // two 64-key halves
+  static constexpr uint32_t kHBHalf = kBM * kRow;
+  static constexpr uint32_t kKB = kHB + (kHBTma ? 2 * kHBHalf : 0);  // fp32 key bias
+  static constexpr uint32_t kStageBytes = (kKB + kBN * 4 + 1023) / 1024 * 1024;
+  static constexpr uint32_t kBar = kStage0 + kStages * kStageBytes;
+  static constexpr uint32_t kBytes = kBar + 64 + 1024;  // barriers, alignment slack
+  static constexpr uint32_t kQTx = kBM * (kRow + (kTail ? kTailRow : 0));
+  static constexpr uint32_t kTileTx = 2 * kBN * (kRow + (kTail ? kTailRow : 0)) +
+                                      (kHBTma ? 2 * kHBHalf : 0);
+  static_assert(kQBuf % 1024 == 0 && kStage0 % 1024 == 0 && kKTail % 1024 == 0 &&
+                kV % 1024 == 0 && kVTail % 1024 == 0 && kHB % 1024 == 0,
+                "swizzled boxes 1024-aligned");
 };
+
+struct Params {
+  CUtensorMap q, q_tail, k, k_tail, v, v_tail, o, o_tail, hb;
+  const float* bias;      // [B, L] key bias or null
+  const void* head_bias;  // [H, L, L] (read directly unless it comes by TMA)
+  int L, H, B, nm;        // nm: query blocks per (batch row, head)
+  int items;              // nm * H * B work items, walked by the persistent blocks
+  float scale_log2;       // sm_scale * log2(e)
+};
+
+// ---- PTX wrappers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed. A
+// wait of 2^30 polls (seconds) traps: a fault then shows as a launch error,
+// not as a hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 30)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle layout type
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving register reads or writes across an
+// asynchronous wgmma (its operands are read and written until the wait).
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 16] += A[64 x 16] B[16 x 16], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xFFFF0000u); }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// Stage 64 rows x HD columns of one head into shared memory (zero rows past L).
-template <int HD>
-__device__ __forceinline__ void stage_head(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long row_stride, int row0, int L) {
-  constexpr int kLdh = Layout<HD>::kLdh;
-  for (int c = threadIdx.x; c < kBM * (HD / 8); c += blockDim.x) {
-    const int r = c / (HD / 8);
-    const int k = (c % (HD / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < L) {
-      v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + k);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLdh + k) = v;
+// ---- the kernel
+
+// Work item -> (first query row, head, batch row). Under the causal mask the
+// heaviest query blocks (the last) come first.
+template <bool CAUSAL>
+__device__ __forceinline__ void decode_item(const Params& p, int item, int& m0, int& h, int& b) {
+  int mb;
+  if (CAUSAL) {
+    mb = p.nm - 1 - item / (p.H * p.B);
+    item %= p.H * p.B;
+  } else {
+    mb = item % p.nm;
+    item /= p.nm;
   }
+  h = item % p.H;
+  b = item / p.H;
+  m0 = mb * kBM;
 }
 
-// Stage the 64 x 64 tile of one head's [L, L] bias at (m0, n0) as fp32;
-// nothing is read at or past L (those entries are never used unmasked).
-template <typename HB>
-__device__ __forceinline__ void stage_head_bias(float* dst, const HB* src, int m0, int n0,
-                                                int L) {
-  for (int c = threadIdx.x; c < kBM * kBN; c += blockDim.x) {
-    const int r = c / kBN;
-    const int j = c % kBN;
-    float x = 0.0f;
-    if (m0 + r < L && n0 + j < L) x = to_float(src[(long long)(m0 + r) * L + n0 + j]);
-    dst[r * kLds + j] = x;
-  }
+__device__ __forceinline__ int tiles_of(int m0, int L, bool causal) {
+  const int n_end = causal ? min(L, m0 + kBM) : L;
+  return (n_end + kBN - 1) / kBN;
 }
 
-struct Args {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const float* bias;      // [B, L] key bias or null
-  const void* head_bias;  // [H, L, L], its type set by the kernel's HB
-  __nv_bfloat16* out;
-  int L, H;
-  long long sqb, sql, skb, skl, svb, svl;
-  float sm_scale;
-};
-
-// HB: the head bias's type (NoHeadBias, float or __nv_bfloat16); CAUSAL: the
-// in-kernel causal mask. Both are compile-time, so the BERT variant pays
-// for neither.
-struct NoHeadBias {};
-
-template <int HD, typename HB, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads) attention_kernel(const Args a) {
+// HB: the head bias's type (NoHeadBias, float or __nv_bfloat16); kHBTma: a
+// bf16 head bias with L % 8 == 0 comes by TMA through the ring, any other is
+// read from global memory into the score registers; CAUSAL: the in-kernel
+// causal mask. All are compile-time, so the BERT variant pays for none.
+template <int HD, typename HB, bool kHBTma, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1) attention_kernel(__grid_constant__ const Params p) {
+  using S = Smem<HD, kHBTma>;
   constexpr bool kHB = !std::is_same<HB, NoHeadBias>::value;
-  using Lay = Layout<HD>;
-  constexpr int kLdh = Lay::kLdh;
-  constexpr int kLdo = Lay::kLdo;
-  constexpr int kOC = Lay::kOC;
-  const int L = a.L;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::kQs);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + Lay::kKs);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::kVs);
-  float* S = reinterpret_cast<float*>(smem + Lay::kS);
-  __nv_bfloat16* P = reinterpret_cast<__nv_bfloat16*>(smem + Lay::kP);
-  float* O = reinterpret_cast<float*>(smem + Lay::kO);
-  float* bias_s = reinterpret_cast<float*>(smem + Lay::kBias);
-  float* Hs = reinterpret_cast<float*>(smem + Lay::kHs);  // only with a head bias
-
+  static_assert(kHB || !kHBTma, "TMA head bias without a head bias");
+  constexpr bool kTail = S::kTail;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_q_full = base + S::kBar;         // + 8 * Q buffer
+  const uint32_t bar_q_empty = bar_q_full + 16;       // + 8 * Q buffer
+  const uint32_t bar_full = bar_q_empty + 16;         // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
+  const int L = p.L;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int m0 = blockIdx.x * kBM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  float* Sw = S + warp * 16 * kLds;
-  __nv_bfloat16* Pw = P + warp * 16 * kLdp;
-  float* Ow = O + warp * 16 * kLdo;
-  // each lane owns half of one of the warp's 16 rows: 32 score columns and
-  // HD/2 output columns
-  const int r = lane >> 1;
-  const int c0 = (lane & 1) * 32;
-  const int o0 = (lane & 1) * kOC;
-  const int row = m0 + warp * 16 + r;
-  const float* Hw = Hs + (warp * 16 + r) * kLds + c0;
 
-  stage_head<HD>(Qs, a.q + b * a.sqb + h * HD, a.sql, m0, L);
-  for (int j = 0; j < kOC; ++j) Ow[r * kLdo + o0 + j] = 0.0f;
-  float m_i = -INFINITY;
-  float l_i = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(bar_q_full + 8 * i, 1);   // the producer's expect_tx
+      mbar_init(bar_q_empty + 8 * i, 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);               // every producer lane
+      mbar_init(bar_empty + 8 * s, kConsumerWarps);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qa[HD / 16];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    wmma::load_matrix_sync(qa[kk], Qs + warp * 16 * kLdh + kk * 16, kLdh);
-  }
-
-  // under the causal mask, the last key tile with a key <= the block's last row
-  const int n_end = CAUSAL ? min(L, m0 + kBM) : L;
-  for (int n0 = 0; n0 < n_end; n0 += kBN) {
-    __syncthreads();  // previous K/V/bias tile no longer read
-    stage_head<HD>(Ks, a.k + b * a.skb + h * HD, a.skl, n0, L);
-    stage_head<HD>(Vs, a.v + b * a.svb + h * HD, a.svl, n0, L);
-    for (int j = threadIdx.x; j < kBN; j += blockDim.x) {
-      bias_s[j] = (n0 + j < L) ? (a.bias ? a.bias[(long long)b * L + n0 + j] : 0.0f)
-                               : -INFINITY;
-    }
-    if constexpr (kHB) {
-      stage_head_bias(Hs, static_cast<const HB*>(a.head_bias) + (long long)h * L * L, m0, n0,
-                      L);
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
-#pragma unroll
-    for (int ct = 0; ct < kBN / 16; ++ct) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, Ks + ct * 16 * kLdh + kk * 16, kLdh);
-        wmma::mma_sync(acc, qa[kk], kb, acc);
+  if (warp >= kConsumerWarps) {
+    // ---- producer warpgroup: its first warp walks the block's items; per
+    // item Q into the item's Q buffer, then K, V, [head bias] and key bias
+    // per tile into the ring, running ahead into the next item
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp != kConsumerWarps) return;
+    int it = 0;  // tiles issued so far, over all items
+    for (int item = blockIdx.x, j = 0; item < p.items; item += gridDim.x, ++j) {
+      int m0, h, b;
+      decode_item<CAUSAL>(p, item, m0, h, b);
+      const int c0 = h * HD;
+      const int qb = j & 1;
+      if (j >= 2) mbar_wait(bar_q_empty + 8 * qb, ((j >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        const uint32_t qs = base + qb * S::kQBuf;
+        mbar_expect_tx(bar_q_full + 8 * qb, S::kQTx);
+        tma_load(qs, &p.q, bar_q_full + 8 * qb, c0, m0, b);
+        if (kTail) tma_load(qs + S::kQTail, &p.q_tail, bar_q_full + 8 * qb, c0 + 64, m0, b);
       }
-      wmma::store_matrix_sync(Sw + ct * 16, acc, kLds, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // scale, biases and masks, then the online softmax over this tile
-    float mx = -INFINITY;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      float s = Sw[r * kLds + c0 + j] * a.sm_scale + bias_s[c0 + j];
-      if constexpr (kHB) s += Hw[j];
-      if constexpr (CAUSAL) {
-        if (n0 + c0 + j > row) s += kNegInf;
+      const float* brow = p.bias ? p.bias + (long long)b * L : nullptr;
+      const int ntiles = tiles_of(m0, L, CAUSAL);
+      for (int t = 0; t < ntiles; ++t, ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(bar_empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        const uint32_t st = base + S::kStage0 + s * S::kStageBytes;
+        const uint32_t full = bar_full + 8 * s;
+        const int n0 = t * kBN;
+        float* kb = reinterpret_cast<float*>(smem + S::kStage0 + s * S::kStageBytes + S::kKB);
+        for (int jj = lane; jj < kBN; jj += 32) {
+          const int n = n0 + jj;
+          kb[jj] = n < L ? (brow ? brow[n] * kLog2e : 0.0f) : -INFINITY;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full, S::kTileTx);
+          tma_load(st + S::kK, &p.k, full, c0, n0, b);
+          tma_load(st + S::kV, &p.v, full, c0, n0, b);
+          if (kTail) {
+            tma_load(st + S::kKTail, &p.k_tail, full, c0 + 64, n0, b);
+            tma_load(st + S::kVTail, &p.v_tail, full, c0 + 64, n0, b);
+          }
+          if (kHBTma) {
+            tma_load(st + S::kHB, &p.hb, full, n0, m0, h);
+            tma_load(st + S::kHB + S::kHBHalf, &p.hb, full, n0 + 64, m0, h);
+          }
+        } else {
+          mbar_arrive(full);
+        }
       }
-      Sw[r * kLds + c0 + j] = s;
-      mx = fmaxf(mx, s);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);  // finite: every tile holds a key < L
-    const float alpha = __expf(m_i - m_new);
-    float sum = 0.0f;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const float p = __expf(Sw[r * kLds + c0 + j] - m_new);
-      Pw[r * kLdp + c0 + j] = __float2bfloat16(p);
-      sum += p;
-      if constexpr (kOC == 32) Ow[r * kLdo + o0 + j] *= alpha;  // hd 64: same columns
-    }
-    if constexpr (kOC != 32) {
-#pragma unroll 8
-      for (int j = 0; j < kOC; ++j) Ow[r * kLdo + o0 + j] *= alpha;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_i = l_i * alpha + sum;
-    m_i = m_new;
-    __syncwarp();
-
-    // O += P V
-#pragma unroll
-    for (int ct = 0; ct < HD / 16; ++ct) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Ow + ct * 16, kLdo, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vb;
-        wmma::load_matrix_sync(pa, Pw + kk * 16, kLdp);
-        wmma::load_matrix_sync(vb, Vs + kk * 16 * kLdh + ct * 16, kLdh);
-        wmma::mma_sync(acc, pa, vb, acc);
+  } else {
+    // ---- consumer warpgroups: 64 query rows each of every item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int wg = warp / 4;
+    const int g = lane / 4;  // this thread holds rows r and r + 8 of the block
+    const int c = lane % 4;  // and columns 8j + 2c, 8j + 2c + 1 of every 8
+    const int r = wg * kWGRows + (warp % 4) * 16 + g;
+    const float sl2 = p.scale_log2;
+    int it = 0;  // tiles consumed so far, over all items
+    for (int item = blockIdx.x, j = 0; item < p.items; item += gridDim.x, ++j) {
+      int m0, h, b;
+      decode_item<CAUSAL>(p, item, m0, h, b);
+      const int qb = j & 1;
+      const int ntiles = tiles_of(m0, L, CAUSAL);
+      const bool active = m0 + wg * kWGRows < L;  // this warpgroup owns a row < L
+      const int row0 = m0 + r;
+      const int row1 = row0 + 8;
+      const uint32_t qs = base + qb * S::kQBuf;
+      const uint64_t dq = make_desc(qs + wg * kWGRows * S::kRow, 16, 1024, kSw128);
+      const uint64_t dq_tail =
+          make_desc(qs + S::kQTail + wg * kWGRows * S::kTailRow, 16, 256, kSw32);
+      // the direct-load head bias: this thread's two rows (clamped inside
+      // [0, L); rows past L read nothing)
+      const HB* hb0 = nullptr;
+      const HB* hb1 = nullptr;
+      if constexpr (kHB && !kHBTma) {
+        const HB* hh = static_cast<const HB*>(p.head_bias) + (long long)h * L * L;
+        hb0 = hh + (long long)min(row0, L - 1) * L;
+        hb1 = hh + (long long)min(row1, L - 1) * L;
       }
-      wmma::store_matrix_sync(Ow + ct * 16, acc, kLdo, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
 
-  if (row < L) {
-    const float inv = 1.0f / l_i;
-    __nv_bfloat16* dst = a.out + ((long long)b * L + row) * (a.H * HD) + h * HD + o0;
+      // O columns 0..63: o[4j + e] = (r, 8j + 2c + e), o[4j + 2 + e] = (r + 8, ...);
+      // o_tail: columns 64..79 (head_dim 80), the same layout
+      float o[32];
+      float o_tail[8];
 #pragma unroll
-    for (int j = 0; j < kOC; j += 8) {
-      __align__(16) __nv_bfloat16 vals[8];
+      for (int i = 0; i < 32; ++i) o[i] = 0.0f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vals[e] = __float2bfloat16(Ow[r * kLdo + o0 + j + e] * inv);
-      *reinterpret_cast<uint4*>(dst + j) = *reinterpret_cast<const uint4*>(vals);
+      for (int i = 0; i < 8; ++i) o_tail[i] = 0.0f;
+      float m_a = -INFINITY, m_b = -INFINITY;  // running max of rows r, r + 8 (log2 units)
+      float l_a = 0.0f, l_b = 0.0f;            // this thread's part of the running sums
+
+      mbar_wait(bar_q_full + 8 * qb, (j >> 1) & 1);
+      for (int t = 0; t < ntiles; ++t, ++it) {
+        const int s = it % kStages;
+        mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
+        if (active) {
+          const uint32_t st = base + S::kStage0 + s * S::kStageBytes;
+          const unsigned char* stp = smem + S::kStage0 + s * S::kStageBytes;
+          const int n0 = t * kBN;
+
+          // S = Q K^T, overwritten by the first k-step: acc[4j + e] = (r, 8j + 2c + e),
+          // acc[4j + 2 + e] = (r + 8, 8j + 2c + e)
+          float acc[64];
+          const uint64_t dk = make_desc(st + S::kK, 16, 1024, kSw128);
+          reg_fence(acc);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128(acc, dq + 2 * kk, dk + 2 * kk, kk > 0);
+          if constexpr (kTail) {
+            wgmma_ss_n128(acc, dq_tail, make_desc(st + S::kKTail, 16, 256, kSw32), 1);
+          }
+          wg_commit();
+          wg_wait_all();
+          reg_fence(acc);
+
+          // scale and biases, in log2 units
+          const float* kb = reinterpret_cast<const float*>(stp + S::kKB);
+#pragma unroll
+          for (int jj = 0; jj < kBN / 8; ++jj) {
+            const float2 x = *reinterpret_cast<const float2*>(kb + 8 * jj + 2 * c);
+            acc[4 * jj + 0] = fmaf(acc[4 * jj + 0], sl2, x.x);
+            acc[4 * jj + 1] = fmaf(acc[4 * jj + 1], sl2, x.y);
+            acc[4 * jj + 2] = fmaf(acc[4 * jj + 2], sl2, x.x);
+            acc[4 * jj + 3] = fmaf(acc[4 * jj + 3], sl2, x.y);
+          }
+          if constexpr (kHBTma) {
+            // the 128 x 128 tile as two 64-key halves of 128-byte rows, 16-byte
+            // chunks swizzled by row % 8 (== g for both of this thread's rows)
+            const unsigned char* hb = stp + S::kHB + c * 4;
+#pragma unroll
+            for (int jj = 0; jj < kBN / 8; ++jj) {
+              const unsigned char* col = hb + (jj / 8) * S::kHBHalf + (((jj % 8) ^ g) * 16);
+              const uint32_t x = *reinterpret_cast<const uint32_t*>(col + r * S::kRow);
+              const uint32_t y = *reinterpret_cast<const uint32_t*>(col + (r + 8) * S::kRow);
+              acc[4 * jj + 0] = fmaf(bf16_lo(x), kLog2e, acc[4 * jj + 0]);
+              acc[4 * jj + 1] = fmaf(bf16_hi(x), kLog2e, acc[4 * jj + 1]);
+              acc[4 * jj + 2] = fmaf(bf16_lo(y), kLog2e, acc[4 * jj + 2]);
+              acc[4 * jj + 3] = fmaf(bf16_hi(y), kLog2e, acc[4 * jj + 3]);
+            }
+          } else if constexpr (kHB) {
+            const bool v0 = row0 < L, v1 = row1 < L;
+#pragma unroll
+            for (int jj = 0; jj < kBN / 8; ++jj) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int n = n0 + 8 * jj + 2 * c + e;
+                const float x = (v0 && n < L) ? to_float(hb0[n]) : 0.0f;
+                const float y = (v1 && n < L) ? to_float(hb1[n]) : 0.0f;
+                acc[4 * jj + e] = fmaf(x, kLog2e, acc[4 * jj + e]);
+                acc[4 * jj + 2 + e] = fmaf(y, kLog2e, acc[4 * jj + 2 + e]);
+              }
+            }
+          }
+          if constexpr (CAUSAL) {
+            if (n0 + kBN - 1 > m0 + wg * kWGRows) {  // the tile crosses this warpgroup's diagonal
+#pragma unroll
+              for (int jj = 0; jj < kBN / 8; ++jj) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int n = n0 + 8 * jj + 2 * c + e;
+                  if (n > row0) acc[4 * jj + e] += kNegInf * kLog2e;
+                  if (n > row1) acc[4 * jj + 2 + e] += kNegInf * kLog2e;
+                }
+              }
+            }
+          }
+
+          // online softmax: row max over the quad, rescale, exp2, partial sums
+          float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+          for (int jj = 0; jj < kBN / 8; ++jj) {
+            mx_a = fmaxf(mx_a, fmaxf(acc[4 * jj + 0], acc[4 * jj + 1]));
+            mx_b = fmaxf(mx_b, fmaxf(acc[4 * jj + 2], acc[4 * jj + 3]));
+          }
+          mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+          mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+          mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+          mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+          const float alpha_a = ex2(m_a - mx_a);  // 0 on the first tile (m = -inf)
+          const float alpha_b = ex2(m_b - mx_b);
+          m_a = mx_a;
+          m_b = mx_b;
+          float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+          for (int jj = 0; jj < kBN / 8; ++jj) {
+            acc[4 * jj + 0] = ex2(acc[4 * jj + 0] - mx_a);
+            acc[4 * jj + 1] = ex2(acc[4 * jj + 1] - mx_a);
+            acc[4 * jj + 2] = ex2(acc[4 * jj + 2] - mx_b);
+            acc[4 * jj + 3] = ex2(acc[4 * jj + 3] - mx_b);
+            sum_a += acc[4 * jj + 0] + acc[4 * jj + 1];
+            sum_b += acc[4 * jj + 2] + acc[4 * jj + 3];
+          }
+          l_a = l_a * alpha_a + sum_a;
+          l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            o[4 * jj + 0] *= alpha_a;
+            o[4 * jj + 1] *= alpha_a;
+            o[4 * jj + 2] *= alpha_b;
+            o[4 * jj + 3] *= alpha_b;
+          }
+          if constexpr (kTail) {
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              o_tail[4 * jj + 0] *= alpha_a;
+              o_tail[4 * jj + 1] *= alpha_a;
+              o_tail[4 * jj + 2] *= alpha_b;
+              o_tail[4 * jj + 3] *= alpha_b;
+            }
+          }
+
+          // P in bf16, in the A-operand layout of m64nNk16 (keys 16kk .. 16kk + 15)
+          uint32_t pf[kBN / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < kBN / 16; ++kk) {
+            pf[kk][0] = pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
+            pf[kk][1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+            pf[kk][2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+            pf[kk][3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
+          }
+
+          // O += P V (V MN-major: 16 keys = 16 rows of the tile per k-step)
+          const uint64_t dv = make_desc(st + S::kV, kBN * S::kRow, 1024, kSw128);
+          reg_fence(o);
+          if constexpr (kTail) reg_fence(o_tail);
+          reg_fence(pf);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBN / 16; ++kk) {
+            wgmma_rs_n64(o, pf[kk], dv + ((16 * S::kRow * kk) >> 4));
+          }
+          if constexpr (kTail) {
+            const uint64_t dvt = make_desc(st + S::kVTail, kBN * S::kTailRow, 256, kSw32);
+#pragma unroll
+            for (int kk = 0; kk < kBN / 16; ++kk) {
+              wgmma_rs_n16(o_tail, pf[kk], dvt + ((16 * S::kTailRow * kk) >> 4));
+            }
+          }
+          wg_commit();
+          wg_wait_all();
+          reg_fence(o);
+          if constexpr (kTail) reg_fence(o_tail);
+          reg_fence(pf);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+      }
+
+      // ---- epilogue: normalise, stage bf16 in this warpgroup's rows of the
+      // item's Q buffer (the TMA box layout), one TMA store per box (rows
+      // past L are not stored); then the Q buffer is free
+      if (active) {
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+        const float inv_a = 1.0f / l_a;
+        const float inv_b = 1.0f / l_b;
+        unsigned char* oq = smem + qb * S::kQBuf + c * 4;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          unsigned char* col = oq + ((jj ^ g) * 16);
+          *reinterpret_cast<uint32_t*>(col + r * S::kRow) =
+              pack_bf16(o[4 * jj + 0] * inv_a, o[4 * jj + 1] * inv_a);
+          *reinterpret_cast<uint32_t*>(col + (r + 8) * S::kRow) =
+              pack_bf16(o[4 * jj + 2] * inv_b, o[4 * jj + 3] * inv_b);
+        }
+        if constexpr (kTail) {
+          // 32-byte swizzle: the 16-byte chunk flips with bit 2 of the row
+          unsigned char* ot = smem + qb * S::kQBuf + S::kQTail + c * 4;
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            *reinterpret_cast<uint32_t*>(ot + r * S::kTailRow + ((jj ^ ((r >> 2) & 1)) * 16)) =
+                pack_bf16(o_tail[4 * jj + 0] * inv_a, o_tail[4 * jj + 1] * inv_a);
+            *reinterpret_cast<uint32_t*>(ot + (r + 8) * S::kTailRow +
+                                         ((jj ^ (((r + 8) >> 2) & 1)) * 16)) =
+                pack_bf16(o_tail[4 * jj + 2] * inv_b, o_tail[4 * jj + 3] * inv_b);
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+        if (threadIdx.x % 128 == 0) {
+          const uint32_t qs_wg = base + qb * S::kQBuf;
+          const int rows = m0 + wg * kWGRows;
+          tma_store(&p.o, qs_wg + wg * kWGRows * S::kRow, h * HD, rows, b);
+          if (kTail) {
+            tma_store(&p.o_tail, qs_wg + S::kQTail + wg * kWGRows * S::kTailRow, h * HD + 64,
+                      rows, b);
+          }
+          asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+          asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+        }
+      }
+      if (threadIdx.x % 128 == 0) mbar_arrive(bar_q_empty + 8 * qb);
     }
   }
 }
 
-template <int HD, typename HB, bool CAUSAL>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr bool kHB = !std::is_same<HB, NoHeadBias>::value;
-  const size_t smem = kHB ? Layout<HD>::kBytesHB : Layout<HD>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<HD, HB, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ---- host side: tensor maps and dispatch
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver function; the runtime hands out its
+// entry point, so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+constexpr int kErrNoEncoder = 20000;  // returned codes: see attention_bf16
+constexpr int kErrEncode = 10000;
+
+// A 3-D bf16 map over [d2, d1, d0] (d0 innermost) with the given byte
+// strides of dims 1 and 2, a box of b0 x b1 x 1 and a swizzle; zero fill
+// out of bounds.
+int make_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
+             uint64_t s1, uint64_t s2, uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return kErrNoEncoder;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kErrEncode + (int)res;
+}
+
+// One persistent block per SM (each holds one: its registers and shared
+// memory), or one per item if there are fewer items.
+template <int HD, typename HB, bool kHBTma, bool CAUSAL>
+int launch(const Params& p, cudaStream_t stream) {
+  using S = Smem<HD, kHBTma>;
+  auto kernel = attention_kernel<HD, HB, kHBTma, CAUSAL>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kBytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.L + kBM - 1) / kBM, a.H, B);
-  attention_kernel<HD, HB, CAUSAL><<<grid, kThreads, smem, stream>>>(a);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<p.items < sms ? p.items : sms, kThreads, S::kBytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int HD, typename HB>
-int launch_causal(const Args& a, int B, int causal, cudaStream_t stream) {
-  return causal ? launch<HD, HB, true>(a, B, stream) : launch<HD, HB, false>(a, B, stream);
+template <int HD, typename HB, bool kHBTma>
+int launch_causal(const Params& p, int causal, cudaStream_t stream) {
+  return causal ? launch<HD, HB, kHBTma, true>(p, stream)
+                : launch<HD, HB, kHBTma, false>(p, stream);
 }
 
 template <int HD>
-int launch_head_bias(const Args& a, int B, int head_bias_bf16, int causal,
-                     cudaStream_t stream) {
-  if (!a.head_bias) return launch_causal<HD, NoHeadBias>(a, B, causal, stream);
-  if (head_bias_bf16) return launch_causal<HD, __nv_bfloat16>(a, B, causal, stream);
-  return launch_causal<HD, float>(a, B, causal, stream);
+int launch_head_bias(const Params& p, int hb_mode, int causal, cudaStream_t stream) {
+  switch (hb_mode) {
+    case 0: return launch_causal<HD, NoHeadBias, false>(p, causal, stream);
+    case 1: return launch_causal<HD, __nv_bfloat16, true>(p, causal, stream);
+    case 2: return launch_causal<HD, __nv_bfloat16, false>(p, causal, stream);
+    default: return launch_causal<HD, float, false>(p, causal, stream);
+  }
 }
+
+#define TRY(expr)                 \
+  do {                            \
+    const int err_ = (expr);      \
+    if (err_ != 0) return err_;   \
+  } while (0)
 
 }  // namespace
 
@@ -300,18 +747,49 @@ extern "C" {
 // [B, L] fp32 contiguous or null; head_bias [H, L, L] contiguous, bf16 when
 // head_bias_bf16 is non-zero, else fp32, or null; causal 0 or 1; out
 // [B, L, H*hd] bf16 contiguous. hd is 64 or 80. Returns the cudaError_t of
-// the launch (cudaErrorInvalidValue for another hd).
+// the launch (cudaErrorInvalidValue for another hd), or 10000 + the CUresult
+// of a failed cuTensorMapEncodeTiled, or 20000 if the driver has no
+// cuTensorMapEncodeTiled.
 int attention_bf16(const void* q, const void* k, const void* v, const void* bias,
                    const void* head_bias, int head_bias_bf16, void* out, int B, int L, int H,
                    int hd, long long sqb, long long sql, long long skb, long long skl,
                    long long svb, long long svl, float sm_scale, int causal, void* stream) {
-  const Args a{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-               (const float*)bias, head_bias, (__nv_bfloat16*)out, L, H, sqb, sql, skb, skl,
-               svb, svl, sm_scale};
+  if (hd != 64 && hd != 80) return (int)cudaErrorInvalidValue;
+  Params p{};
+  const uint64_t C = (uint64_t)H * hd;
+  const auto sw128 = CU_TENSOR_MAP_SWIZZLE_128B, sw32 = CU_TENSOR_MAP_SWIZZLE_32B;
+  TRY(make_map(&p.q, q, C, L, B, sql * 2, sqb * 2, 64, kBM, sw128));
+  TRY(make_map(&p.k, k, C, L, B, skl * 2, skb * 2, 64, kBN, sw128));
+  TRY(make_map(&p.v, v, C, L, B, svl * 2, svb * 2, 64, kBN, sw128));
+  TRY(make_map(&p.o, out, C, L, B, C * 2, C * L * 2, 64, kWGRows, sw128));
+  if (hd == 80) {
+    TRY(make_map(&p.q_tail, q, C, L, B, sql * 2, sqb * 2, 16, kBM, sw32));
+    TRY(make_map(&p.k_tail, k, C, L, B, skl * 2, skb * 2, 16, kBN, sw32));
+    TRY(make_map(&p.v_tail, v, C, L, B, svl * 2, svb * 2, 16, kBN, sw32));
+    TRY(make_map(&p.o_tail, out, C, L, B, C * 2, C * L * 2, 16, kWGRows, sw32));
+  }
+  // head-bias modes: 0 none, 1 bf16 by TMA (rows of L * 2 bytes, a multiple
+  // of 16), 2 bf16 read directly, 3 fp32 read directly
+  int hb_mode = 0;
+  if (head_bias) {
+    const bool tma = head_bias_bf16 && L % 8 == 0 && (uintptr_t)head_bias % 16 == 0;
+    hb_mode = tma ? 1 : (head_bias_bf16 ? 2 : 3);
+    if (tma) {
+      TRY(make_map(&p.hb, head_bias, L, L, H, (uint64_t)L * 2, (uint64_t)L * L * 2, 64, kBM,
+                   sw128));
+    }
+  }
+  p.bias = static_cast<const float*>(bias);
+  p.head_bias = head_bias;
+  p.L = L;
+  p.H = H;
+  p.B = B;
+  p.nm = (L + kBM - 1) / kBM;
+  p.items = p.nm * H * B;
+  p.scale_log2 = sm_scale * kLog2e;
   cudaStream_t s = (cudaStream_t)stream;
-  if (hd == 64) return launch_head_bias<64>(a, B, head_bias_bf16, causal, s);
-  if (hd == 80) return launch_head_bias<80>(a, B, head_bias_bf16, causal, s);
-  return (int)cudaErrorInvalidValue;
+  if (hd == 64) return launch_head_bias<64>(p, hb_mode, causal, s);
+  return launch_head_bias<80>(p, hb_mode, causal, s);
 }
 
 }  // extern "C"

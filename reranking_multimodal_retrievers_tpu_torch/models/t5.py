@@ -206,15 +206,15 @@ class T5Attention(nn.Module):
                 position_bias = torch.zeros(1, nh, Lq, Lk, device=x.device)
             # unfused: the padding mask folds into the bias once (block 0)
             # and rides along; fused: the bias stays mask-free and the [B, L]
-            # key mask goes to the kernel in every layer
+            # key mask goes to the kernel in every layer, the bias cast to
+            # bf16 here once under position_bias_bf16 and carried as such
             if mask_bias is not None and not fuse:
                 position_bias = position_bias + mask_bias
+            if fuse and cfg.position_bias_bf16:
+                position_bias = position_bias.to(torch.bfloat16)
 
         if fuse:
-            head_bias = position_bias[0]
-            if cfg.position_bias_bf16:
-                head_bias = head_bias.to(torch.bfloat16)
-            ctx2 = fused_self_attention(q2, k2, v2, key_mask, head_bias.contiguous(),
+            ctx2 = fused_self_attention(q2, k2, v2, key_mask, position_bias[0],
                                         num_heads=nh, sm_scale=1.0)  # T5: no scaling
             return self.o(ctx2), position_bias
 

@@ -22,6 +22,9 @@ from . import _build
 NEG_INF = -1e9
 KERNEL_HEAD_DIMS = (64, 80)
 
+# the kernel's return codes from this value up: a tensor map it could not
+# build (csrc/attention.cu::attention_bf16)
+_ERR_TENSOR_MAP = 10000
 # bytes of fp32 scores the plain version materialises per batch chunk
 _PLAIN_CHUNK_BYTES = 512 << 20
 
@@ -107,9 +110,11 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
     Returns [B, L, num_heads * head_dim] in q's dtype.
 
     On CUDA, q/k/v are bf16 with head_dim 64 or 80, unit stride in the last
-    dim and row/batch strides that are multiples of 8 elements; head_bias is
-    a contiguous bf16 or fp32 tensor on the same device, passed to the kernel
-    in its own dtype; any L is taken.
+    dim and row/batch strides that are multiples of 8 elements (the kernel
+    reads them by TMA through tensor maps built per call); head_bias is a
+    contiguous bf16 or fp32 tensor on the same device, passed to the kernel
+    in its own dtype (a bf16 one at L % 8 == 0 also by TMA, any other read
+    directly); any L is taken.
     """
     if q.device.type not in ("cpu", "cuda") or k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k, v must share one CPU or CUDA device: "
@@ -149,6 +154,10 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
         B, L, num_heads, hd, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), float(sm_scale), int(bool(causal)),
         torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= _ERR_TENSOR_MAP:
+        raise RuntimeError(f"fused_self_attention: no TMA tensor map for these tensors "
+                           f"(cuTensorMapEncodeTiled: {err - _ERR_TENSOR_MAP}, where 10000 "
+                           f"means the driver has no such entry point)")
     _build.check(err, "fused_self_attention")
     fused_self_attention.launches += 1
     return out

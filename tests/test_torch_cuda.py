@@ -86,6 +86,10 @@ def test_k1_rejects_fp32_and_bad_masks(gen):
     (2, 37, 2, False, True),    # q/k/v as views of one fused projection
     (3, 130, 12, True, False),  # a ragged last tile of queries and keys
     (1, 1, 1, False, False),    # a single token
+    (2, 128, 2, True, False),   # exactly one 128-row query block and key tile
+    (2, 129, 2, True, False),   # one row past it: a second block with one row
+    (2, 256, 3, False, False),  # two whole blocks, two key tiles
+    (2, 129, 2, False, True),   # fused-projection views at the block edge
 ])
 def test_k2_matches_plain(gen, B, L, H, masked, strided):
     if strided:
@@ -132,6 +136,12 @@ def test_k2_rejects_other_head_dims_and_dtypes(gen):
     (2, 100, 3, 80, None, False, True),            # head_dim 80, key padding
     (3, 150, 4, 80, None, True, True),             # OPT: head_dim 80, causal, padding
     (2, 70, 2, 80, torch.bfloat16, True, True),    # every option at once
+    (2, 136, 2, 64, torch.bfloat16, False, True),  # bf16 head bias at L % 8 == 0: by TMA
+    (2, 256, 3, 64, torch.bfloat16, False, False), # by TMA over two blocks and two key tiles
+    (2, 136, 2, 64, torch.float32, False, True),   # fp32 head bias at L % 8 == 0: direct loads
+    (3, 136, 2, 80, torch.bfloat16, True, True),   # TMA head bias with every option
+    (2, 300, 2, 80, None, True, False),            # causal hd 80: partial diagonal, 3 key tiles
+    (3, 129, 2, 80, None, True, True),             # causal hd 80, one row past a block
 ])
 def test_k2_variants_match_plain(gen, B, L, H, HD, bias_dtype, causal, padded):
     q, k, v = (torch.randn(B, L, H * HD, device="cuda", generator=gen).to(torch.bfloat16)
@@ -151,6 +161,49 @@ def test_k2_variants_match_plain(gen, B, L, H, HD, bias_dtype, causal, padded):
     ref = fused_self_attention_reference(q, k, v, bias, hb, **kw)
     # bf16 outputs of order 1: the kernel rounds unnormalised probabilities
     # to bf16 and sums in another order (a few bf16 spacings)
+    torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("L,causal", [(45, False), (200, True)])
+def test_k2_strided_views_at_head_dim_80(gen, L, causal):
+    """q, k and v as views of one fused [B, L, 3 * H * 80] projection: the
+    kernel's tensor maps take the row stride 3 * H * 80 and the offsets."""
+    B, H, HD = 2, 2, 80
+    qkv = torch.randn(B, L, 3 * H * HD, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.split(H * HD, dim=-1)
+    lens = torch.randint(L // 2, L + 1, (B,), device="cuda", generator=gen)
+    bias = torch.where(torch.arange(L, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
+    kw = dict(num_heads=H, sm_scale=HD ** -0.5, causal=causal)
+    got = fused_self_attention(q, k, v, bias, **kw)
+    ref = fused_self_attention_reference(q, k, v, bias, **kw)
+    # bf16 outputs of order 1, as in test_k2_matches_plain
+    torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("HD,causal,bias_dtype", [
+    (64, False, None),
+    (80, True, None),
+    (64, False, torch.bfloat16),
+])
+def test_k2_row_with_every_key_masked(gen, HD, causal, bias_dtype):
+    """A batch row whose key bias is -1e9 everywhere: -1e9 swamps the scores
+    in fp32, so JAX and the plain version average V uniformly (under the
+    causal mask, over the keys up to the query); the kernel's running max
+    stays finite and it must do the same."""
+    B, L, H = 3, 200, 2
+    q, k, v = (torch.randn(B, L, H * HD, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.randint(L // 2, L + 1, (B,), device="cuda", generator=gen)
+    bias = torch.where(torch.arange(L, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
+    bias[1] = -1e9
+    hb = None
+    if bias_dtype is not None:
+        hb = torch.randn(H, L, L, device="cuda", generator=gen).to(bias_dtype)
+    kw = dict(num_heads=H, sm_scale=HD ** -0.5, causal=causal)
+    got = fused_self_attention(q, k, v, bias, hb, **kw)
+    ref = fused_self_attention_reference(q, k, v, bias, hb, **kw)
+    assert bool(torch.isfinite(got).all())
+    # bf16 outputs of order 1, as in test_k2_matches_plain
     torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
 
 
