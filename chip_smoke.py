@@ -12,11 +12,13 @@ Phases, each printing one JSON line with its elapsed seconds:
      from its ``-Xptxas -v`` log;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes (K1 and K2 in bf16, K3 on int8 codes, masked and
-     unmasked, plus crafted codes that must match bitwise), and time kernel,
-     plain version and (for K2) ``scaled_dot_product_attention`` as a
-     yardstick the port never calls, K2 and the yardstick in turns (kernel,
-     library, kernel, library), with K2's ratio to it, share of its bound
-     and achieved TFLOP/s;
+     unmasked, plus crafted codes that must match bitwise; K1 and K3 also at
+     ``bench.py``'s retrieval batch of 128 x 96 query tokens), and time
+     kernel, plain version and (for K2) ``scaled_dot_product_attention`` as
+     a yardstick the port never calls, K2 and the yardstick in turns
+     (kernel, library, kernel, library), with each kernel's share of its
+     bound and achieved TFLOP/s (TOP/s for K3) and K2's ratio to the
+     yardstick;
   3. retrieve: full-width FLMR (BERT-base, ViT-B/32, dim 128, 32-token
      prefix, 1-layer mapping network; random bf16 weights from a seed)
      encodes 1,024 docs into a TokenIndex padded with random unit vectors to
@@ -57,7 +59,9 @@ Phases, each printing one JSON line with its elapsed seconds:
      x 80), chunks of 5 rows (K2 with the causal mask at head_dim 80), the
      last real prompt position of each row through the 50k vocabulary; the
      same checks;
-  7. the ``kernels`` line, then the result line.
+  7. the ``kernels`` line (K1 and K3 with their times at ``bench.py``'s
+     batch and the 100k searches of phases 3 and 3b beside the bound), then
+     the result line.
 
 ``python3 chip_smoke.py --probe-t5-init`` instead builds the kernels and
 runs phase 5's model once with every weight at std 0.02 (none of HF T5's
@@ -90,6 +94,8 @@ PEAK_BYTES_PER_S = 3.35e12
 # K1: fp32 dot products of unit vectors, fp32 sums of <= 113 maxima in a
 # different order than the plain version's matmul
 K1_TOL = 2e-3
+# phase 2: bench.py's retrieval query batch (bench.py:560, 610)
+BENCH_QUERIES, BENCH_LQ = 128, 96
 # phase 3c: a host index of 262,144 docs (16 slabs of 16,384)
 STREAM_DOCS, STREAM_SLAB = 262_144, 16_384
 # K3: the int32 maxima are exact on both sides; only the order of the fp32
@@ -210,11 +216,38 @@ def read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
 
 
-def check_k3(Q, D, M):
+def check_k1(Q, D, M, plain_reps=3):
+    """K1 against its plain version on unit vectors with the mask ``M``
+    (which has whole-padding docs), timed beside it. Returns K1's line."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import (
+        maxsim_scores, maxsim_scores_reference)
+
+    B, LQ, DIM = Q.shape
+    N, LD, _ = D.shape
+    got = maxsim_scores(Q, D, M)
+    ref = maxsim_scores_reference(Q, D, M)
+    valid = M.any(dim=1)
+    err = (got - ref)[:, valid].abs().max().item()
+    pad_rel = ((got - ref)[:, ~valid].abs() / ref[:, ~valid].abs()).max().item()
+    check(err <= K1_TOL, f"K1 at {[B, LQ]}: max |diff| {err} > {K1_TOL}")
+    check(pad_rel <= 1e-5 and ref[:, ~valid].max().item() < -9000 * LQ,
+          f"K1 whole-padding doc at {[B, LQ]}: relative diff {pad_rel}")
+    del got, ref
+    flops = 2 * B * LQ * N * LD * DIM
+    b_ms, b_by = bound(flops, Q.numel() * 2 + D.numel() * 2 + M.numel() + B * N * 4)
+    ms = cuda_ms(lambda: maxsim_scores(Q, D, M), 20)
+    return dict(shape=[[B, LQ, DIM], [N, LD, DIM]], max_abs_err=err, tol=K1_TOL, ms=ms,
+                plain_ms=cuda_ms(lambda: maxsim_scores_reference(Q, D, M), plain_reps),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, share_of_bound=b_ms / ms,
+                tflops=flops / (ms * 1e-3) / 1e12)
+
+
+def check_k3(Q, D, M, crafted=True, plain_reps=3):
     """K3 against its plain version on the codes of the K1 check's unit
     vectors, quantized as the int8 index and queries are (with the mask and
-    without), and on crafted codes with unit scales, whose totals are
-    integers below 2^24 and must match bitwise. Returns K3's line."""
+    without), and (``crafted``) on crafted codes with unit scales, whose
+    totals are integers below 2^24 and must match bitwise. Returns K3's
+    line."""
     from reranking_multimodal_retrievers_tpu_torch.engine.index import quantize_docs
     from reranking_multimodal_retrievers_tpu_torch.engine.search import quantize_queries
     from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_int8_cuda import (
@@ -236,23 +269,28 @@ def check_k3(Q, D, M):
             pad_rel = ((got - ref)[:, ~valid].abs() / ref[:, ~valid].abs()).max().item()
             check(pad_rel <= 1e-5 and ref[:, ~valid].max().item() < 0,
                   f"K3 whole-padding docs: relative diff {pad_rel}")
-    gen = torch.Generator(device=Q.device).manual_seed(SEED + 1)
-    Cq = torch.randint(-8, 9, (B, LQ, DIM), dtype=torch.int8, device=Q.device, generator=gen)
-    Cd = torch.randint(-8, 9, (N, LD, DIM), dtype=torch.int8, device=Q.device, generator=gen)
-    lens = torch.randint(1, LD + 1, (N,), device=Q.device, generator=gen)
-    Cm = torch.arange(LD, device=Q.device)[None, :] < lens[:, None]
-    ones_q, ones_d = torch.ones(B, LQ, device=Q.device), torch.ones(N, device=Q.device)
-    crafted = torch.equal(maxsim_scores_int8(Cq, ones_q, Cd, ones_d, Cm),
-                          maxsim_scores_int8_reference(Cq, ones_q, Cd, ones_d, Cm))
-    check(crafted, "K3 on crafted codes: not bitwise equal to the plain version")
-    b_ms, b_by = bound(2 * B * LQ * N * LD * DIM,
-                       Qq.numel() + qs.numel() * 4 + Dq.numel() + ds.numel() * 4 + M.numel()
+    line = dict(shape=[[B, LQ, DIM], [N, LD, DIM]], max_abs_err=max(errs.values()),
+                max_abs_err_unmasked=errs["unmasked"], tol=K3_TOL)
+    if crafted:
+        gen = torch.Generator(device=Q.device).manual_seed(SEED + 1)
+        Cq = torch.randint(-8, 9, (B, LQ, DIM), dtype=torch.int8, device=Q.device, generator=gen)
+        Cd = torch.randint(-8, 9, (N, LD, DIM), dtype=torch.int8, device=Q.device, generator=gen)
+        lens = torch.randint(1, LD + 1, (N,), device=Q.device, generator=gen)
+        Cm = torch.arange(LD, device=Q.device)[None, :] < lens[:, None]
+        ones_q, ones_d = torch.ones(B, LQ, device=Q.device), torch.ones(N, device=Q.device)
+        line["crafted_bitwise"] = torch.equal(
+            maxsim_scores_int8(Cq, ones_q, Cd, ones_d, Cm),
+            maxsim_scores_int8_reference(Cq, ones_q, Cd, ones_d, Cm))
+        check(line["crafted_bitwise"], "K3 on crafted codes: not bitwise equal to the plain version")
+    ops = 2 * B * LQ * N * LD * DIM
+    b_ms, b_by = bound(ops, Qq.numel() + qs.numel() * 4 + Dq.numel() + ds.numel() * 4 + M.numel()
                        + B * N * 4, PEAK_INT8_OPS)
-    return dict(shape=[[B, LQ, DIM], [N, LD, DIM]], max_abs_err=max(errs.values()),
-                max_abs_err_unmasked=errs["unmasked"], crafted_bitwise=crafted, tol=K3_TOL,
-                ms=cuda_ms(lambda: maxsim_scores_int8(Qq, qs, Dq, ds, M), 20),
-                plain_ms=cuda_ms(lambda: maxsim_scores_int8_reference(Qq, qs, Dq, ds, M), 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    ms = cuda_ms(lambda: maxsim_scores_int8(Qq, qs, Dq, ds, M), 20)
+    return dict(line, ms=ms,
+                plain_ms=cuda_ms(lambda: maxsim_scores_int8_reference(Qq, qs, Dq, ds, M),
+                                 plain_reps),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, share_of_bound=b_ms / ms,
+                tops=ops / (ms * 1e-3) / 1e12)
 
 
 def int8_retrieve(index, Qm, k, bf16_ids):
@@ -779,8 +817,7 @@ def main() -> int:
         _build, attention_cuda, maxsim_cuda, maxsim_int8_cuda)
     from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
         fused_self_attention, fused_self_attention_reference)
-    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import (
-        maxsim_scores, maxsim_scores_reference)
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import maxsim_scores_reference
     from reranking_multimodal_retrievers_tpu_torch.serving import RerankService, RetrievalService
 
     # ---- 0. the card
@@ -817,25 +854,18 @@ def main() -> int:
     lens = torch.randint(1, LD + 1, (N,), device="cuda", generator=gen)
     M = torch.arange(LD, device="cuda")[None, :] < lens[:, None]
     M[7] = False  # a whole-padding doc
-    got = maxsim_scores(Q, D, M)
-    ref = maxsim_scores_reference(Q, D, M)
-    valid = M.any(dim=1)
-    k1_err = (got - ref)[:, valid].abs().max().item()
-    pad_rel = ((got - ref)[:, ~valid].abs() / ref[:, ~valid].abs()).max().item()
-    check(k1_err <= K1_TOL, f"K1 max |diff| {k1_err} > {K1_TOL}")
-    check(pad_rel <= 1e-5 and ref[:, 7].max().item() < -9000 * LQ,
-          f"K1 whole-padding doc: relative diff {pad_rel}")
-    k1_ms = cuda_ms(lambda: maxsim_scores(Q, D, M), 20)
-    k1_plain_ms = cuda_ms(lambda: maxsim_scores_reference(Q, D, M), 3)
-    k1_bound, k1_by = bound(2 * B * LQ * N * LD * DIM,
-                            Q.numel() * 2 + D.numel() * 2 + M.numel() + B * N * 4)
-    k1 = dict(shape=[[B, LQ, DIM], [N, LD, DIM]], max_abs_err=k1_err, tol=K1_TOL,
-              ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
-              library_ms=None)
-    emit({"phase": "kernel_check", "kernel": "K1 maxsim_scores", **k1})
+    k1 = check_k1(Q, D, M)
+    emit({"phase": "kernel_check", "kernel": "K1 maxsim_scores", "card": smi, **k1})
     k3 = check_k3(Q, D, M)
-    emit({"phase": "kernel_check", "kernel": "K3 maxsim_scores_int8", **k3})
-    del D, M, got, ref
+    emit({"phase": "kernel_check", "kernel": "K3 maxsim_scores_int8", "card": smi, **k3})
+    # bench.py's retrieval batch (B = 128 queries x L_q = 96, bench.py:560)
+    # over the same docs
+    Qb = unit(gen, BENCH_QUERIES, BENCH_LQ, DIM)
+    k1_bench = check_k1(Qb, D, M, plain_reps=1)
+    emit({"phase": "kernel_check", "kernel": "K1 maxsim_scores", "card": smi, **k1_bench})
+    k3_bench = check_k3(Qb, D, M, crafted=False, plain_reps=1)
+    emit({"phase": "kernel_check", "kernel": "K3 maxsim_scores_int8", "card": smi, **k3_bench})
+    del D, M, Qb
 
     k2 = {}
     for L in (512, 593):
@@ -956,6 +986,7 @@ def main() -> int:
     # ---- 3b. int8 retrieve over the same index, quantized on the card (main path)
     qindex, line = int8_retrieve(index, Qm, K, candidates)
     int8_launches = line["launches"]
+    int8_search = (line["search_ms"], line["search_bound_ms"])
     emit(line)
     del index, emb, mask
 
@@ -1052,12 +1083,21 @@ def main() -> int:
                     source="reranking_multimodal_retrievers_tpu_torch/csrc/attention.cu",
                     replaces=attention, **{key: k2_line[key] for key in keys})
 
+    def search_100k(ms, bound_ms, rate_key):
+        """The 100k search of phase 3 or 3b (kernel launches over 4 slabs
+        and the top-k) beside the kernel's bound for the same work."""
+        ops = 2 * BQ * 113 * N_ALL * LD * 128
+        return {"search_100k_ms": ms, "search_100k_bound_ms": bound_ms,
+                "search_100k_share_of_bound": bound_ms / ms,
+                f"search_100k_{rate_key}": ops / (ms * 1e-3) / 1e12}
+
     attention = "reranking_multimodal_retrievers_tpu/ops/attention_pallas.py:95"
     emit({"kernels": [
         dict(name="maxsim_scores", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
              replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:67",
-             launches=launches("K1"), **k1),
+             launches=launches("K1"), **k1, at_bench_batch=k1_bench,
+             **search_100k(search_ms, search_bound, "tflops")),
         dict(name="fused_self_attention", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/attention.cu",
              replaces=attention, launches=launches("K2"), **k2[512], at_593=k2[593]),
@@ -1066,7 +1106,8 @@ def main() -> int:
         dict(name="maxsim_scores_int8", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim_int8.cu",
              replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183",
-             launches=launches("K3"), **k3),
+             launches=launches("K3"), **k3, at_bench_batch=k3_bench,
+             **search_100k(*int8_search, "tops")),
     ], "not_ported": []})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

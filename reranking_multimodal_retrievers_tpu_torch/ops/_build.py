@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file has a plain C interface (no PyTorch headers), so it
 compiles in seconds into its own shared library under ``build/torch_kernels/``
 at the repository root (listed in ``.gitignore``). All sources are compiled
 in parallel, one ``nvcc`` per source. A library is rebuilt only when the hash
-of its source and flags changes. A failed build raises.
+of its source, the shared headers (every ``csrc/*.cuh``) and the flags
+changes. A failed build raises.
 
 Nothing here runs at import time: the first kernel launch, or an explicit
 :func:`build_all`, triggers the build.
@@ -44,9 +45,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any header
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> float:

@@ -60,8 +60,10 @@ def maxsim_scores(Q: torch.Tensor, D: torch.Tensor,
     """All-pairs MaxSim totals ``[B, N]`` fp32 (see
     :func:`maxsim_scores_reference` for the arguments).
 
-    On CUDA, Q and D must be contiguous bf16 with ``dim % 8 == 0``; the mask
-    is a contiguous bool [N, L_d]. Any B, L_q, N and L_d are taken."""
+    On CUDA, Q and D must be contiguous bf16 with ``dim % 8 == 0`` and
+    16-byte-aligned data (the kernel reads them by TMA); the mask is a
+    contiguous bool [N, L_d]. Any B, L_q, N and L_d are taken, and dims up
+    to 256 (the block keeps its query rows in shared memory)."""
     if Q.device.type == "cpu" and D.device.type == "cpu":
         return maxsim_scores_reference(Q, D, mask, score_dtype)
     if Q.device.type != "cuda" or D.device != Q.device:
@@ -78,6 +80,8 @@ def maxsim_scores(Q: torch.Tensor, D: torch.Tensor,
         raise ValueError(f"need dim % 8 == 0 and non-empty token axes: {Q.shape}, {D.shape}")
     if not (Q.is_contiguous() and D.is_contiguous()):
         raise ValueError("Q and D must be contiguous")
+    if Q.data_ptr() % 16 or D.data_ptr() % 16:
+        raise ValueError("Q and D must start on a 16-byte boundary")
     if mask is not None:
         if mask.shape != (N, L_d) or mask.dtype != torch.bool or not mask.is_contiguous():
             raise ValueError(f"mask must be a contiguous bool [N, L_d], got {mask.dtype} {tuple(mask.shape)}")
@@ -86,16 +90,18 @@ def maxsim_scores(Q: torch.Tensor, D: torch.Tensor,
     if B == 0 or N == 0:
         return torch.zeros(B, N, dtype=torch.float32, device=Q.device)
     lib = _lib()
-    groups = -(-(B * L_q) // lib.maxsim_rows_per_block())
-    partial = torch.zeros(groups, B, N, dtype=torch.float32, device=Q.device)
-    grid_x = min(N, 2048)
+    splits = lib.maxsim_splits(B, L_q, dim)
+    if splits < 1:
+        raise ValueError(f"dim {dim} is too wide for the kernel's shared memory")
+    # [S, B, N]: S > 1 only when a query has more rows than a block holds
+    out = torch.empty(splits, B, N, dtype=torch.float32, device=Q.device)
     err = lib.maxsim_scores_bf16(
         Q.data_ptr(), D.data_ptr(), None if mask is None else mask.data_ptr(),
-        partial.data_ptr(), B, L_q, N, L_d, dim, int(score_dtype == torch.bfloat16),
-        grid_x, torch.cuda.current_stream(Q.device).cuda_stream)
+        out.data_ptr(), B, L_q, N, L_d, dim, int(score_dtype == torch.bfloat16),
+        torch.cuda.current_stream(Q.device).cuda_stream)
     _build.check(err, "maxsim_scores")
     maxsim_scores.launches += 1
-    return partial[0] if groups == 1 else partial.sum(dim=0)
+    return out[0] if splits == 1 else out.sum(dim=0)
 
 
 maxsim_scores.launches = 0
@@ -104,9 +110,9 @@ maxsim_scores.launches = 0
 def _lib() -> ctypes.CDLL:
     lib = _build.load("maxsim")
     if lib.maxsim_scores_bf16.argtypes is None:
-        lib.maxsim_rows_per_block.argtypes = []
-        lib.maxsim_rows_per_block.restype = ctypes.c_int
+        lib.maxsim_splits.argtypes = [ctypes.c_int] * 3
+        lib.maxsim_splits.restype = ctypes.c_int
         lib.maxsim_scores_bf16.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.maxsim_scores_bf16.restype = ctypes.c_int
     return lib

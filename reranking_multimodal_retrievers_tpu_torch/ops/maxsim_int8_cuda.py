@@ -83,9 +83,10 @@ def maxsim_scores_int8(Qq: torch.Tensor, q_scales: torch.Tensor, Dq: torch.Tenso
     :func:`maxsim_scores_int8_reference` for the arguments).
 
     On CUDA, Qq and Dq must be contiguous int8 with ``dim % 32 == 0`` (the
-    depth of one ``m16n8k32`` tensor-core step) and 16-byte-aligned data;
-    the scales contiguous fp32; the mask a contiguous bool [N, L_d]. Any B,
-    L_q, N and L_d are taken."""
+    depth of one ``wgmma`` k-step) and 16-byte-aligned data (the kernel
+    reads them by TMA); the scales contiguous fp32; the mask a contiguous
+    bool [N, L_d]. Any B, L_q, N and L_d are taken, and dims up to 512 (the
+    block keeps its query rows in shared memory)."""
     if Qq.device.type == "cpu" and Dq.device.type == "cpu":
         return maxsim_scores_int8_reference(Qq, q_scales, Dq, d_scales, mask)
     if Qq.device.type != "cuda" or Dq.device != Qq.device:
@@ -115,15 +116,18 @@ def maxsim_scores_int8(Qq: torch.Tensor, q_scales: torch.Tensor, Dq: torch.Tenso
     if B == 0 or N == 0:
         return torch.zeros(B, N, dtype=torch.float32, device=Qq.device)
     lib = _lib()
-    groups = -(-(B * L_q) // lib.maxsim_int8_rows_per_block())
-    partial = torch.zeros(groups, B, N, dtype=torch.float32, device=Qq.device)
+    splits = lib.maxsim_int8_splits(B, L_q, dim)
+    if splits < 1:
+        raise ValueError(f"dim {dim} is too wide for the kernel's shared memory")
+    # [S, B, N]: S > 1 only when a query has more rows than a block holds
+    out = torch.empty(splits, B, N, dtype=torch.float32, device=Qq.device)
     err = lib.maxsim_scores_int8(
         Qq.data_ptr(), q_scales.data_ptr(), Dq.data_ptr(), d_scales.data_ptr(),
-        None if mask is None else mask.data_ptr(), partial.data_ptr(),
-        B, L_q, N, L_d, dim, min(N, 2048), torch.cuda.current_stream(Qq.device).cuda_stream)
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        B, L_q, N, L_d, dim, torch.cuda.current_stream(Qq.device).cuda_stream)
     _build.check(err, "maxsim_scores_int8")
     maxsim_scores_int8.launches += 1
-    return partial[0] if groups == 1 else partial.sum(dim=0)
+    return out[0] if splits == 1 else out.sum(dim=0)
 
 
 maxsim_scores_int8.launches = 0
@@ -132,9 +136,9 @@ maxsim_scores_int8.launches = 0
 def _lib() -> ctypes.CDLL:
     lib = _build.load("maxsim_int8")
     if lib.maxsim_scores_int8.argtypes is None:
-        lib.maxsim_int8_rows_per_block.argtypes = []
-        lib.maxsim_int8_rows_per_block.restype = ctypes.c_int
+        lib.maxsim_int8_splits.argtypes = [ctypes.c_int] * 3
+        lib.maxsim_int8_splits.restype = ctypes.c_int
         lib.maxsim_scores_int8.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.maxsim_scores_int8.restype = ctypes.c_int
     return lib

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 ragged shapes the main path does not reach (odd dims, query rows spanning
-the kernel's row groups, any L, strided q/k/v), and the int8 serving path
+the kernel's row groups and tiles, docs of 1 or more than 256 tokens, one
+doc, any L, strided q/k/v), at ``bench.py``'s query batch, a doc's total
+independent of the launch it falls in, and the int8 serving path
 on the card: streamed search against the device-resident one, and
 ``Int8Linear`` (``torch._int_mm``) against its CPU result.
 
@@ -50,6 +52,13 @@ def _unit(gen, *shape):
     (3, 7, 37, 50, 24, False, torch.float32),   # unpadded corpus: no mask
     (2, 300, 19, 33, 128, True, torch.float32),  # one query spans three row groups
     (8, 113, 300, 256, 128, True, torch.bfloat16),  # bf16 token scores
+    (2, 50, 40, 300, 128, True, torch.float32),  # L_d > 256: a doc spans three token tiles
+    (3, 7, 9, 1, 128, True, torch.float32),      # L_d = 1
+    (3, 7, 1, 40, 128, False, torch.float32),    # N = 1
+    (2, 32, 37, 50, 128, True, torch.float32),   # B * L_q = 64: one whole row tile
+    (1, 65, 37, 50, 128, True, torch.float32),   # B * L_q = 65: one row past it
+    (128, 96, 300, 256, 128, True, torch.float32),  # bench.py's query batch
+    (2, 600, 19, 33, 128, True, torch.float32),  # a query longer than a block's 512 rows
 ])
 def test_k1_matches_plain(gen, B, LQ, N, LD, DIM, masked, score_dtype):
     Q, D = _unit(gen, B, LQ, DIM), _unit(gen, N, LD, DIM)
@@ -305,6 +314,13 @@ def _codes(gen, *shape, lo=-127, hi=128):
     (3, 7, 37, 50, 64, False),    # unpadded corpus: no mask
     (2, 300, 19, 33, 128, True),  # one query spans three row groups
     (8, 113, 300, 256, 128, True),  # the main path's query batch
+    (2, 50, 40, 300, 128, True),   # L_d > 256: a doc spans three token tiles
+    (3, 7, 9, 1, 64, True),        # L_d = 1
+    (3, 7, 1, 40, 128, False),     # N = 1
+    (2, 32, 37, 50, 128, True),    # B * L_q = 64: one whole row tile
+    (1, 65, 37, 50, 128, True),    # B * L_q = 65: one row past it
+    (128, 96, 300, 256, 128, True),  # bench.py's query batch
+    (2, 1100, 19, 33, 128, True),  # a query longer than a block's 1,024 rows
 ])
 def test_k3_matches_plain(gen, B, LQ, N, LD, DIM, masked):
     Qq, Dq = _codes(gen, B, LQ, DIM), _codes(gen, N, LD, DIM)
@@ -349,6 +365,53 @@ def test_k3_rejects_bad_inputs(gen):
         maxsim_scores_int8(Qq.float(), qs, Dq.float(), ds)
     with pytest.raises(ValueError):
         maxsim_scores_int8(Qq, qs.double(), Dq, ds)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+def test_slab_scores_equal_whole_index_scores(gen, kernel):
+    """A doc's total does not depend on the launch it falls in: the docs
+    D[s:e] scored alone give, bitwise, the same columns as one launch over
+    all of D, at an s that is a multiple of no tile or group size."""
+    B, LQ, N, LD, DIM, s, e = 8, 113, 700, 70, 128, 37, 611
+    lens = torch.randint(1, LD + 1, (N,), device="cuda", generator=gen)
+    mask = torch.arange(LD, device="cuda")[None, :] < lens[:, None]
+    if kernel == "K1":
+        Q, D = _unit(gen, B, LQ, DIM), _unit(gen, N, LD, DIM)
+        whole = maxsim_scores(Q, D, mask)
+        part = maxsim_scores(Q, D[s:e], mask[s:e])
+    else:
+        Qq, Dq = _codes(gen, B, LQ, DIM), _codes(gen, N, LD, DIM)
+        qs = torch.rand(B, LQ, device="cuda", generator=gen) / 127
+        ds = torch.rand(N, device="cuda", generator=gen) / 127
+        whole = maxsim_scores_int8(Qq, qs, Dq, ds, mask)
+        part = maxsim_scores_int8(Qq, qs, Dq[s:e], ds[s:e], mask[s:e])
+    assert torch.equal(part, whole[:, s:e])
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+@pytest.mark.parametrize("which", ["Q", "D"])
+def test_misaligned_pointer_raises(gen, kernel, which):
+    """The kernels read Q and D by TMA, which needs 16-byte-aligned data: a
+    view that starts 2 bytes into its storage is refused, not copied."""
+    B, LQ, N, LD, DIM = 2, 5, 4, 6, 64
+    if kernel == "K1":
+        Q, D = _unit(gen, B, LQ, DIM), _unit(gen, N, LD, DIM)
+        off = 1  # one bf16 element
+    else:
+        Q, D = _codes(gen, B, LQ, DIM), _codes(gen, N, LD, DIM)
+        off = 2  # two int8 codes
+    x = Q if which == "Q" else D
+    buf = torch.empty(x.numel() + off, dtype=x.dtype, device="cuda")
+    moved = buf[off:].view(x.shape)
+    moved.copy_(x)
+    assert moved.is_contiguous() and moved.data_ptr() % 16 != 0
+    Q, D = (moved, D) if which == "Q" else (Q, moved)
+    with pytest.raises(ValueError, match="16-byte"):
+        if kernel == "K1":
+            maxsim_scores(Q, D)
+        else:
+            maxsim_scores_int8(Q, torch.ones(B, LQ, device="cuda"), D,
+                               torch.ones(N, device="cuda"))
 
 
 @pytest.mark.parametrize("quantized", [True, False])
