@@ -59,9 +59,29 @@ Phases, each printing one JSON line with its elapsed seconds:
      x 80), chunks of 5 rows (K2 with the causal mask at head_dim 80), the
      last real prompt position of each row through the 50k vocabulary; the
      same checks;
-  7. the ``kernels`` line (K1 and K3 with their times at ``bench.py``'s
-     batch and the 100k searches of phases 3 and 3b beside the bound), then
-     the result line.
+  8. FLMR training at ``bench.py:647``'s full width (BERT-base, ViT-B/32 at
+     224, dim 128, 32-token prefix, 1-layer mapping network; fp32 from a
+     seed, ``use_pallas_attention`` off as in the JAX package, so no kernel
+     runs): one step on a 2-query sub-batch against the same step on the
+     CPU in fp32 (loss, ib_loss, the gradients and updates of named
+     leaves), and the card's step again with TF32 on in cuBLAS and cuDNN
+     as a control that at least one of those limits must fail; 20 AdamW
+     steps (lr 1e-5, mapping 1e-4, 10 warmup steps of a
+     1,000-step linear schedule, vision tower frozen) on one fixed batch of
+     16 queries x (1 + 1) docs of 256 tokens, whose ib_loss must fall and
+     whose vision tower must stay bitwise; the NaN guard on a batch with one
+     NaN pixel; a checkpoint saved and restored into a fresh model that
+     takes the next step bitwise as the original; examples/s and a timer
+     breakdown of the step;
+  8b. the monoPreFLMR reranker's train step (phase 4's model in fp32, BCE
+     over 2 queries x (1 + 2) candidates of 512 tokens, AdamW at 1e-4, its
+     vision tower frozen): loss and one step's update of a cross-encoder
+     leaf against the CPU, frozen leaves bitwise, steps/s; and a W8A8
+     ``Int8Linear`` at BERT-base width, whose backward must be the fp32
+     ``x @ w`` cotangents (straight-through);
+  7. after phase 8: the ``kernels`` line (K1 and K3 with their times at
+     ``bench.py``'s batch and the 100k searches of phases 3 and 3b beside
+     the bound), then the result line.
 
 ``python3 chip_smoke.py --probe-t5-init`` instead builds the kernels and
 runs phase 5's model once with every weight at std 0.02 (none of HF T5's
@@ -69,7 +89,8 @@ scales): p(yes) of four candidates through K2 and through the plain path in
 bf16, and in fp32, as information.
 
 The launch counters are set to 0 just before each main-path phase (3, 3b,
-3c, 4, 4b, 5 and 6) and read just after it. Each decoder family is built,
+3c, 4, 4b, 5, 6 and 8's training run) and read just after it; phase 8
+must launch none. Each decoder family is built,
 run and freed before the next (about 8 GB each in bf16). Any failed check
 raises and the script exits non-zero; without a CUDA card it exits non-zero
 before printing anything.
@@ -78,9 +99,11 @@ before printing anything.
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -131,6 +154,31 @@ P_YES_TOL = 0.05
 REL_BIAS_STD = 1.0
 ENC_REL_BIAS = "model.language_model.encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"
 T5_YES_NO, OPT_YES_NO = (4273, 150), (4763, 117)
+# phase 8: bench.py:654-688's training batch; the first TRAIN_SUB queries
+# (with their docs) are recomputed on the CPU
+TRAIN_B, TRAIN_NWAY, TRAIN_LQ, TRAIN_LD, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_SUB = (
+    16, 2, 32, 256, 20, 5, 2)
+# losses, card against CPU, both fp32 (TF32 off for cuBLAS and cuDNN), as a
+# share of max(1, |loss|); and each named leaf's gradient off the CPU's, as
+# a share of the leaf's largest |g|. Round-off alone: each product sums up
+# to 3,072 terms in another order, sqrt(3072) * 2^-24 = 3e-6 relative, which
+# the backward carries through 25 layers. The same step with TF32 on (10
+# mantissa bits, 2^-11 = 5e-4 a product) runs as a control in phase 8, and
+# at least one limit must fail it. On an H100 80GB HBM3 at 700 W the fp32
+# losses read equal to the last bit (the reranker's 1.2e-7 apart) and the
+# gradients 2.6e-6 to 5.8e-6 apart; with TF32, the losses 8.2e-4 to 1.2e-3
+# and the gradients 2.1e-2 to 0.23 apart. The loss limit lies about eighty
+# times from either; the gradient limit nine times above fp32's and four
+# hundred times below TF32's.
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 5e-5
+ADAM_EPS = 1e-8
+# phase 8b: the reranker's training batch (configs/evqa_rerank_full_context.json:135,153)
+RERANK_TRAIN_B, RERANK_TRAIN_NWAY = 2, 3
+# the W8A8 backward against x @ w's fp32 cotangents: the same fp32 products
+# (TF32 off), summed by cuBLAS in the same order up to its choice of kernel
+INT8_GRAD_TOL = 1e-5
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoints"
 
 
 def emit(obj):
@@ -803,6 +851,382 @@ def decoder_rerank(family, text_config, chunk, yes_no, vocab_hi, smi):
     return line, {**k2, "launches": launches["K2"]}
 
 
+def grad_snapshots(model, names):
+    """Copies of the named leaves' gradients, taken as the backward
+    accumulates them (inside the train step). Returns (dict, hooks)."""
+    seen = {}
+
+    def keep(name):
+        return lambda p: seen.__setitem__(name, p.grad.detach().clone())
+
+    return seen, [model.get_parameter(n).register_post_accumulate_grad_hook(keep(n))
+                  for n in names]
+
+
+def loss_rel_err(card, cpu):
+    """|card - cpu| over max(1, |cpu|), the share TRAIN_LOSS_TOL limits."""
+    return abs(card - cpu) / max(1.0, abs(cpu))
+
+
+def grad_rel_err(g_card, g_cpu):
+    """The largest |card - cpu| of a leaf's gradient over the leaf's largest
+    |g| on the CPU, the share TRAIN_GRAD_TOL limits."""
+    g_cpu = g_cpu.double()
+    return ((g_card.cpu().double() - g_cpu).abs().max() / g_cpu.abs().max()).item()
+
+
+def check_first_update(name, lr, before, after_card, g_card, after_cpu, g_cpu):
+    """A named leaf after one step on the card and on the CPU from the same
+    weights ``before``. Gradients within TRAIN_GRAD_TOL of the leaf's
+    largest |g|. Adam's first step moves an element by ``-lr * g / (|g| +
+    eps)`` (weight decay 0), so each side's update must differ from the
+    other's by at most what their gradients imply, plus one fp32 rounding of
+    ``p + update`` on each side. Returns the leaf's line."""
+    rel = grad_rel_err(g_card, g_cpu)
+    check(rel <= TRAIN_GRAD_TOL, f"{name}: gradient on the card off the CPU's by {rel} of "
+          f"its largest |g| > {TRAIN_GRAD_TOL}")
+    g_card, g_cpu = g_card.cpu().double(), g_cpu.double()
+    g_err = (g_card - g_cpu).abs().max().item()
+    g_max = g_cpu.abs().max().item()
+    b = before.double()
+    u_card, u_cpu = after_card.cpu().double() - b, after_cpu.double() - b
+
+    def adam(g):
+        return -lr * g / (g.abs() + ADAM_EPS)
+
+    rounding = 2 * torch.finfo(torch.float32).eps * b.abs().max().item() + 1e-5 * lr
+    excess = ((u_card - u_cpu).abs() - (adam(g_card) - adam(g_cpu)).abs() - rounding).max()
+    check(excess.item() <= 0, f"{name}: update on the card off the CPU's by {excess.item()} "
+          "more than their gradients allow")
+    moved = (u_card - adam(g_card)).abs().max().item()
+    check(moved <= rounding, f"{name}: the card's update is not Adam's first step ({moved})")
+    du = (u_card - u_cpu).abs()
+    return {"grad_max_abs_err": g_err, "grad_max": g_max, "grad_tol": TRAIN_GRAD_TOL * g_max,
+            "update_max_abs_diff_over_lr": du.max().item() / lr,
+            "update_share_off_by_1e-3_lr": (du > 1e-3 * lr).double().mean().item()}
+
+
+def flmr_train_config():
+    from reranking_multimodal_retrievers_tpu_torch.models import (
+        BertConfig, CLIPVisionConfig, FLMRConfig)
+
+    return FLMRConfig(text_config=BertConfig(), vision_config=CLIPVisionConfig(), dim=128,
+                      mapping_network_prefix_length=32, use_transformer_mapping_network=True,
+                      transformer_mapping_num_hidden_layers=1)
+
+
+def flmr_optimizer(model, **kw):
+    """bench.py:677-682's optimizer: AdamW, lr 1e-5, the mapping group at
+    1e-4, the vision tower frozen."""
+    from reranking_multimodal_retrievers_tpu_torch.training import make_optimizer
+
+    return make_optimizer(model, optimizer_name="AdamW", lr=1e-5, mapping_network_lr=1e-4,
+                          frozen_patterns=("vision_encoder",),
+                          group_patterns=("vision_projection", "transformer_mapping"), **kw)
+
+
+FLMR_CHECKED_LEAVES = (
+    "context_text_encoder.bert_model.encoder.layer.0.attention.self.query.weight",
+    "transformer_mapping_network.layer.0.crossattention.self.query.weight",
+    "transformer_mapping_output_linear.weight",
+    "context_vision_projection.model.2.weight",
+)
+
+
+def flmr_training(smi):
+    """Phase 8. Returns the phase's line."""
+    from reranking_multimodal_retrievers_tpu_torch.models import FLMRModelForRetrieval
+    from reranking_multimodal_retrievers_tpu_torch.training import TrainState, make_train_step
+    from reranking_multimodal_retrievers_tpu_torch.training.checkpointing import (
+        CheckpointManager)
+    from reranking_multimodal_retrievers_tpu_torch.training.train_state import grads_finite
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = flmr_train_config()
+    model = FLMRModelForRetrieval(cfg, device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(SEED))
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED)
+    B, NW, LQ, LD = TRAIN_B, TRAIN_NWAY, TRAIN_LQ, TRAIN_LD
+    host = dict(
+        query_input_ids=torch.as_tensor(rng.integers(1000, 29000, size=(B, LQ))),
+        query_attention_mask=torch.ones(B, LQ, dtype=torch.long),
+        query_pixel_values=torch.as_tensor(rng.normal(size=(B, 3, 224, 224)).astype(np.float32)),
+        context_input_ids=torch.as_tensor(rng.integers(1000, 29000, size=(B * NW, LD))),
+        context_attention_mask=torch.ones(B * NW, LD, dtype=torch.long))
+    batch = {k: v.cuda() for k, v in host.items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    setup_s = time.perf_counter() - t0
+
+    # -- one step on a 2-query sub-batch, card against CPU (constant lr: no
+    # warmup, so that the step moves the weights)
+    t1 = time.perf_counter()
+    sub = {k: v[:TRAIN_SUB * (NW if k.startswith("context") else 1)] for k, v in host.items()}
+    after, grads, metrics = {}, {}, {}
+    cpu = FLMRModelForRetrieval(cfg, device="meta")
+    cpu.load_state_dict({k: v.clone() for k, v in init.items()}, assign=True)
+    labels = None
+
+    def sub_step(side, m, b):
+        nonlocal labels
+        opt, sched, labels = flmr_optimizer(m)
+        seen, hooks = grad_snapshots(m, FLMR_CHECKED_LEAVES)
+        _, met = make_train_step(m, opt, sched)(TrainState.create(m, opt, sched), b)
+        for h in hooks:
+            h.remove()
+        after[side] = {n: m.get_parameter(n).detach().clone() for n in FLMR_CHECKED_LEAVES}
+        grads[side], metrics[side] = seen, {k: float(v) for k, v in met.items()}
+
+    sub_card = {k: v.cuda() for k, v in sub.items()}
+    sub_step("card", model, sub_card)
+    sub_step("cpu", cpu, sub)
+    del cpu
+    # the control: the same card step with TF32 on in cuBLAS and cuDNN
+    model.load_state_dict(init)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        sub_step("tf32", model, sub_card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    readings = {side: {**{k: loss_rel_err(metrics[side][k], metrics["cpu"][k])
+                          for k in ("loss", "ib_loss")},
+                       **{n: grad_rel_err(grads[side][n], grads["cpu"][n])
+                          for n in FLMR_CHECKED_LEAVES}}
+                for side in ("card", "tf32")}
+    for key in ("loss", "ib_loss"):
+        check(readings["card"][key] <= TRAIN_LOSS_TOL,
+              f"step 0 {key} on the card {metrics['card'][key]} vs CPU fp32 "
+              f"{metrics['cpu'][key]}")
+    lr = {"main": 1e-5, "mapping": 1e-4}
+    leaves = {n: check_first_update(n, lr[labels[n]], init[n], after["card"][n],
+                                    grads["card"][n], after["cpu"][n], grads["cpu"][n])
+              for n in FLMR_CHECKED_LEAVES}
+    caught = [k for k, r in readings["tf32"].items()
+              if r > (TRAIN_LOSS_TOL if k in ("loss", "ib_loss") else TRAIN_GRAD_TOL)]
+    check(caught, f"the TF32 control passes every limit: {readings['tf32']}")
+    sub_s = time.perf_counter() - t1
+
+    # -- 20 steps on the fixed batch from the same initial weights
+    model.load_state_dict(init)
+    opt, sched, labels = flmr_optimizer(model, scheduler="linear", num_warmup_steps=10,
+                                        num_training_steps=1000)
+    step = make_train_step(model, opt, sched, loss_key="ib_loss")
+    state = TrainState.create(model, opt, sched)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if labels[n] == "frozen"}
+    check(frozen and all("vision_encoder" in n for n in frozen), "no frozen vision tower")
+    reset_counts()
+    ib, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, met = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        ib.append(float(met["ib_loss"]))
+        check(float(met["grads_finite"]) == 1.0 and np.isfinite(ib[-1]), f"step {state.step}: {met}")
+    launches = read_counts()
+    check(sum(launches.values()) == 0, f"training launched kernels: {launches}")
+    check(ib[-1] < ib[0], f"ib_loss did not fall over {TRAIN_STEPS} steps: {ib}")
+    check(all(torch.equal(p, frozen[n]) for n, p in model.named_parameters() if n in frozen),
+          "a frozen vision-tower leaf changed")
+    peak = torch.cuda.max_memory_allocated()
+    run_ms = float(np.mean(step_ms[TRAIN_WARMUP:]))
+
+    # -- the NaN guard: one NaN pixel
+    t1 = time.perf_counter()
+    bad = dict(batch)
+    bad["query_pixel_values"] = batch["query_pixel_values"].clone()
+    bad["query_pixel_values"][0, 0, 0, 0] = float("nan")
+    params_before = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_before = [{k: v.clone() for k, v in s.items()} for s in opt.state.values()]
+    lr_before, count_before = sched.get_last_lr(), sched.last_epoch
+    state, met = step(state, bad)
+    check(float(met["grads_finite"]) == 0.0, f"NaN batch: grads_finite {met['grads_finite']}")
+    check(all(torch.equal(v, params_before[k]) for k, v in model.state_dict().items()),
+          "NaN batch: parameters changed")
+    check(all(torch.equal(v, o[k]) for s, o in zip(opt.state.values(), opt_before)
+              for k, v in s.items()), "NaN batch: optimizer state changed")
+    check(sched.get_last_lr() == lr_before and sched.last_epoch == count_before,
+          "NaN batch: the schedule moved")
+    state, met = step(state, batch)
+    check(float(met["grads_finite"]) == 1.0
+          and any(not torch.equal(v, params_before[k]) for k, v in model.state_dict().items()),
+          f"the clean step after the NaN batch did not update: {met}")
+    del params_before, opt_before
+    nan_s = time.perf_counter() - t1
+
+    # -- checkpoint round trip: save, restore into a fresh model and
+    # optimizer, one more step from each
+    t1 = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(str(CKPT_DIR), monitor="ib_loss", mode="min")
+        path = mgr.save(state, step=state.step, metrics={"ib_loss": float(met["ib_loss"])})
+        ckpt_bytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        fresh = FLMRModelForRetrieval(
+            cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+        f_opt, f_sched, _ = flmr_optimizer(fresh, scheduler="linear", num_warmup_steps=10,
+                                           num_training_steps=1000)
+        restored = CheckpointManager.restore(mgr.resolve(),
+                                             TrainState.create(fresh, f_opt, f_sched))
+        check(restored.step == state.step, f"restored step {restored.step} != {state.step}")
+        state, _ = step(state, batch)
+        restored, _ = make_train_step(fresh, f_opt, f_sched)(restored, batch)
+        check(all(torch.equal(a, b) for a, b in zip(model.parameters(), fresh.parameters())),
+              "the step after a checkpoint round trip differs from the original's")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del fresh, f_opt, f_sched, restored
+    ckpt_s = time.perf_counter() - t1
+
+    # -- where a step's time goes (after the checks; these calls train on)
+    def fwd():
+        return model(**batch, num_negative_examples=1).in_batch_negative_loss
+
+    def fwd_bwd():
+        fwd().backward()
+        opt.zero_grad(set_to_none=True)
+
+    fwd_bwd()
+    loss = fwd()
+    loss.backward()
+    parts = {"forward_ms": cuda_ms(fwd, 3), "forward_backward_ms": cuda_ms(fwd_bwd, 3)}
+    loss = fwd()
+    loss.backward()
+    parts["nan_guard_ms"] = cuda_ms(lambda: bool(grads_finite(model, loss)), 5)
+    parts["optimizer_ms"] = cuda_ms(opt.step, 3)
+    opt.zero_grad(set_to_none=True)
+    del model, opt, sched, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "train_flmr", "card": smi, "params": n_params,
+            "batch": {"queries": B, "nway": NW, "query_tokens": LQ, "doc_tokens": LD,
+                      "image": 224},
+            "allow_tf32": {"cuda_matmul": torch.backends.cuda.matmul.allow_tf32,
+                           "cudnn": torch.backends.cudnn.allow_tf32},
+            "sub_batch_queries": TRAIN_SUB, "loss_tol": TRAIN_LOSS_TOL,
+            "grad_tol": TRAIN_GRAD_TOL,
+            "step0_vs_cpu": {k: [metrics["card"][k], metrics["cpu"][k]]
+                             for k in ("loss", "ib_loss")},
+            "rel_err_vs_cpu": readings["card"], "tf32_control_rel_err_vs_cpu": readings["tf32"],
+            "tf32_control_caught_by": caught,
+            "leaves_vs_cpu": leaves, "sub_batch_seconds": sub_s,
+            "steps": TRAIN_STEPS, "ib_loss": ib, "step_ms": step_ms,
+            "flmr_train_examples_per_sec": B / (run_ms / 1e3),
+            "step_ms_after_warmup": run_ms, "warmup_steps": TRAIN_WARMUP,
+            "step_parts": parts, "peak_memory_bytes": peak,
+            "nan_guard_checked": True, "nan_guard_seconds": nan_s,
+            "checkpoint_bytes": ckpt_bytes, "checkpoint_bitwise_resume": True,
+            "checkpoint_seconds": ckpt_s, "launches": launches,
+            "setup_seconds": setup_s, "seconds": time.perf_counter() - t0}
+
+
+def rerank_training(smi):
+    """Phase 8b: the monoPreFLMR reranker's train step. Returns the line."""
+    from reranking_multimodal_retrievers_tpu_torch.models import BertConfig
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import (
+        FullContextRerankModel, RerankConfig)
+    from reranking_multimodal_retrievers_tpu_torch.training import (
+        TrainState, make_optimizer, make_rerank_train_step)
+
+    t0 = time.perf_counter()
+    L, LQT = 512, 32
+    B, NW = RERANK_TRAIN_B, RERANK_TRAIN_NWAY
+    rcfg = RerankConfig(flmr=flmr_train_config(), cross_encoder=BertConfig(
+        num_hidden_layers=1, max_position_embeddings=768), loss_fn="BCE",
+        max_query_length=LQT, max_decoder_source_length=L)
+    model = FullContextRerankModel(rcfg, device="cuda",
+                                   generator=torch.Generator(device="cuda").manual_seed(SEED))
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED + 8)
+    ids = rng.integers(1000, 29000, size=(B * NW, L))
+    am = np.ones((B * NW, L), np.int64)
+    for r in range(B * NW):  # candidates of 100-480 tokens after the query
+        n = int(rng.integers(100, L - LQT + 1))
+        ids[r, LQT + n:], am[r, LQT + n:] = 0, 0
+    tt = np.zeros((B * NW, L), np.int64)
+    tt[:, LQT:] = 1
+    host = dict(input_ids=torch.as_tensor(ids), attention_mask=torch.as_tensor(am),
+                token_type_ids=torch.as_tensor(tt),
+                query_pixel_values=torch.as_tensor(
+                    rng.normal(size=(B, 3, 224, 224)).astype(np.float32)))
+    batch = {k: v.cuda() for k, v in host.items()}
+    leaf = "reranker.bert_model.encoder.layer.0.attention.self.query.weight"
+    after, grads, losses, labels = {}, {}, {}, None
+    cpu = FullContextRerankModel(rcfg, device="meta")
+    cpu.load_state_dict({k: v.clone() for k, v in init.items()}, assign=True)
+    t1 = time.perf_counter()
+    for side, m, b in (("card", model, batch), ("cpu", cpu, host)):
+        opt, sched, labels = make_optimizer(m, optimizer_name="AdamW", lr=1e-4,
+                                            frozen_patterns=("vision_encoder",))
+        seen, hooks = grad_snapshots(m, [leaf])
+        _, met = make_rerank_train_step(m, opt, sched, num_negative_examples=NW - 1)(
+            TrainState.create(m, opt, sched), b)
+        for h in hooks:
+            h.remove()
+        after[side], grads[side], losses[side] = (m.get_parameter(leaf).detach().clone(),
+                                                  seen[leaf], float(met["loss"]))
+    cpu_s = time.perf_counter() - t1
+    check(loss_rel_err(losses["card"], losses["cpu"]) <= TRAIN_LOSS_TOL,
+          f"rerank loss on the card {losses['card']} vs CPU fp32 {losses['cpu']}")
+    leaf_line = check_first_update(leaf, 1e-4, init[leaf], after["card"], grads["card"],
+                                   after["cpu"], grads["cpu"])
+    del cpu
+    frozen = [n for n, lab in labels.items() if lab == "frozen"]
+    check(frozen and all(torch.equal(model.get_parameter(n).cpu(), init[n]) for n in frozen),
+          "a frozen leaf of the reranker changed")
+
+    opt, sched, _ = make_optimizer(model, optimizer_name="AdamW", lr=1e-4,
+                                   frozen_patterns=("vision_encoder",))
+    step = make_rerank_train_step(model, opt, sched, num_negative_examples=NW - 1)
+    state = TrainState.create(model, opt, sched)
+    reset_counts()
+    step_ms = cuda_ms(lambda: step(state, batch), 5)
+    launches = read_counts()
+    check(sum(launches.values()) == 0, f"reranker training launched kernels: {launches}")
+    check(all(torch.equal(model.get_parameter(n).cpu(), init[n]) for n in frozen),
+          "a frozen leaf of the reranker changed over the timed steps")
+    del model, opt, sched, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "train_rerank", "card": smi, "rows": B * NW, "queries": B, "nway": NW,
+            "seq_len": L, "loss_fn": "BCE", "loss_card": losses["card"],
+            "loss_cpu": losses["cpu"], "loss_tol": TRAIN_LOSS_TOL, "leaf": leaf,
+            "leaf_vs_cpu": leaf_line, "frozen_leaves_bitwise": len(frozen),
+            "step_ms": step_ms, "steps_per_sec": 1e3 / step_ms, "cpu_seconds": cpu_s,
+            "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def int8_linear_backward(smi):
+    """Phase 8b's W8A8 check: ``Int8Linear`` at BERT-base width (768 ->
+    3072, 512 rows) on the card; its backward must be the fp32 ``x @ w``
+    cotangents. Returns the line."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.quant import Int8Linear
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    lin = Int8Linear(768, 3072, device="meta").to_empty(device="cuda")  # no draw here
+    with torch.no_grad():
+        lin.weight.normal_(0.0, 0.02, generator=gen)
+        lin.bias.zero_()
+    x = torch.randn(512, 768, device="cuda", generator=gen).requires_grad_(True)
+    g = torch.randn(512, 3072, device="cuda", generator=gen)
+    lin(x).backward(g)
+    want_dx, want_dw = g @ lin.weight, g.t() @ x.detach()
+    err_dx = (x.grad - want_dx).abs().max().item() / want_dx.abs().max().item()
+    err_dw = (lin.weight.grad - want_dw).abs().max().item() / want_dw.abs().max().item()
+    check(err_dx <= INT8_GRAD_TOL and err_dw <= INT8_GRAD_TOL,
+          f"Int8Linear backward off x @ w's: dx {err_dx}, dw {err_dw}")
+    with torch.no_grad():
+        fwd_gap = (lin(x) - x @ lin.weight.t() - lin.bias).abs().max().item()
+    check(fwd_gap > 0, "Int8Linear's forward is the fp32 product: not W8A8")
+    return {"phase": "int8_linear_backward", "card": smi, "shape": [512, 768, 3072],
+            "rel_err_dx": err_dx, "rel_err_dw": err_dw, "tol": INT8_GRAD_TOL,
+            "forward_gap_vs_fp32": fwd_gap}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1068,6 +1492,11 @@ def main() -> int:
         "blip2_opt_2_7b", OPTConfig.opt_2_7b(use_pallas_attention=True), chunk=5,
         yes_no=OPT_YES_NO, vocab_hi=50000, smi=smi)
     emit(line)
+
+    # ---- 8. FLMR training, 8b. the reranker's train step and W8A8's backward
+    emit(flmr_training(smi))
+    emit(rerank_training(smi))
+    emit(int8_linear_backward(smi))
 
     # ---- 7. the kernels line and the result
     torch.cuda.synchronize()

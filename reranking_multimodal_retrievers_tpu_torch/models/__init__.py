@@ -1,7 +1,8 @@
 from .bert import BertConfig, BertEncoder, BertModel
 from .blip2 import (Blip2Config, Blip2ForConditionalGeneration, Blip2QFormerConfig,
                     Blip2VisionConfig)
-from .flmr import FLMRConfig, FLMRContextOutput, FLMRModelForRetrieval, FLMRQueryOutput
+from .flmr import (FLMRConfig, FLMRContextOutput, FLMRForwardOutput, FLMRModelForRetrieval,
+                   FLMRQueryOutput)
 from .lora import LoRALinear
 from .opt import OPTConfig, OPTForCausalLM
 from .t5 import T5Config, T5ForConditionalGeneration
@@ -19,6 +20,7 @@ __all__ = [
     "CLIPVisionModel",
     "FLMRConfig",
     "FLMRContextOutput",
+    "FLMRForwardOutput",
     "FLMRModelForRetrieval",
     "FLMRQueryOutput",
     "LoRALinear",

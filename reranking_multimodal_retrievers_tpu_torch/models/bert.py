@@ -78,6 +78,46 @@ def additive_mask(attention_mask: torch.Tensor, dtype=torch.float32) -> torch.Te
     return ((1.0 - attention_mask.to(dtype)) * ATTN_MASK_BIAS)[:, None, None, :]
 
 
+# a table of at most this many rows (the token types) is looked up by masks
+# when a gradient is needed
+_MASKED_LOOKUP_ROWS = 4
+
+
+class _EmbeddingLookup(torch.autograd.Function):
+    """``F.embedding`` whose backward is ``index_put_`` with accumulation,
+    which on CUDA sorts the ids and adds each id's rows in a fixed order.
+    CUDA's embedding backward adds a long run of one id (a padding id over
+    thousands of tokens) in an order that changes from run to run, so that
+    one training step taken twice would differ in the last bits."""
+
+    @staticmethod
+    def forward(ctx, ids, table):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1])
+        grad = g.new_zeros(ctx.num_rows, g.shape[-1])
+        return None, grad.index_put_((ids.reshape(-1),), g, accumulate=True)
+
+
+def embedding(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``, with a backward whose sums run in a fixed order. A
+    table of a few rows (the token types, one id repeated over every token)
+    takes one mask a row when a gradient is needed: the forward adds only
+    zeros to the row it picks, and each row's gradient is a plain
+    reduction."""
+    if (table.shape[0] <= _MASKED_LOOKUP_ROWS and torch.is_grad_enabled()
+            and table.requires_grad):
+        zero = table.new_zeros(())
+        return sum(torch.where((ids == t)[..., None], table[t], zero)
+                   for t in range(table.shape[0]))
+    return _EmbeddingLookup.apply(ids, table)
+
+
 def _check_supported(cfg: BertConfig) -> None:
     if cfg.use_flash_attention:
         raise NotImplementedError("use_flash_attention is not ported yet")
@@ -241,9 +281,9 @@ class BertEmbeddings(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros(B, L, dtype=torch.long, device=device)
         if inputs_embeds is None:
-            inputs_embeds = self.word_embeddings(input_ids)
-        pe = self.position_embeddings(torch.arange(L, device=device))[None]
-        te = self.token_type_embeddings(token_type_ids)
+            inputs_embeds = embedding(input_ids, self.word_embeddings.weight)
+        pe = embedding(torch.arange(L, device=device), self.position_embeddings.weight)[None]
+        te = embedding(token_type_ids, self.token_type_embeddings.weight)
         return self.LayerNorm(inputs_embeds + pe + te)
 
 

@@ -7,11 +7,12 @@
   layer conditioned on the first text hidden states; concat, L2-normalise.
 - doc: text tokens with punctuation-skiplist masking, vision prefix tokens
   prepended for multimodal docs; L2-normalise.
+- forward (training): the CE loss of each query over its (1 positive + N
+  negatives) aligned docs, and the all-pairs in-batch-negative loss.
 
 Parameter names follow the reference ``FLMRModelForRetrieval`` checkpoint
 (``context_text_encoder.bert_model.*``,
-``context_vision_encoder.vision_model.vision_model.*``, ...). The training
-forward and its losses are not ported yet.
+``context_vision_encoder.vision_model.vision_model.*``, ...).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike
+from ..ops.maxsim import colbert_score, in_batch_maxsim_scores
 from .bert import BertConfig, BertEncoder, BertModel, additive_mask
 from .init import materialize_
 from .vit import CLIPVisionConfig, CLIPVisionModel
@@ -87,6 +89,18 @@ class FLMRContextOutput:
     pooler_output: torch.Tensor  # [B, dim]
 
 
+@dataclasses.dataclass
+class FLMRForwardOutput:
+    loss: torch.Tensor  # CE over each query's (1 + N) aligned docs
+    in_batch_negative_loss: Optional[torch.Tensor]
+    scores: torch.Tensor  # [B, 1 + num_negatives]
+    scores_raw: torch.Tensor  # [B * nway, L_d, L_q] masked token scores
+    query_late_interaction_output: torch.Tensor
+    context_late_interaction_output: torch.Tensor
+    query_mask: torch.Tensor
+    context_mask: torch.Tensor
+
+
 def token_skiplist_mask(input_ids: torch.Tensor, skiplist: Tuple[int, ...]) -> torch.Tensor:
     """True where the token is neither pad (id 0) nor in the skiplist."""
     keep = input_ids != 0
@@ -106,7 +120,10 @@ def query_instruction_mask(input_ids: torch.Tensor, instruction_token_id: int) -
 
 
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    """L2-normalise the last axis in fp32; zero rows stay zero."""
+    """L2-normalise the last axis in fp32; zero rows stay zero. The floor is
+    taken on the squared norm, whose gradient is 0 below it, so a zero row
+    (a masked token) passes its upstream gradient scaled by 1/eps and no
+    NaN: exactly 0 for a masked token, whose scores the loss never reads."""
     x32 = x.float()
     sq = (x32 * x32).sum(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(torch.clamp(sq, min=eps * eps))).to(x.dtype)
@@ -335,3 +352,51 @@ class FLMRModelForRetrieval(FLMRBackbone):
             context_mask=mask[..., 0].bool(),
             pooler_output=D[:, 0, :],
         )
+
+    def forward(self, query_input_ids, query_attention_mask, context_input_ids,
+                context_attention_mask, query_pixel_values=None, query_image_features=None,
+                context_pixel_values=None, context_image_features=None,
+                use_in_batch_negatives: bool = True, num_negative_examples: int = 1,
+                gather_axis_name: Optional[str] = None) -> FLMRForwardOutput:
+        """Training forward (reference `modeling_flmr.py:788-1096`).
+
+        The ``context_*`` batch has ``B * (1 + num_negative_examples)`` rows,
+        each query's positive first in its group. ``loss`` is the CE of each
+        query's aligned scores against its positive; ``in_batch_negative_loss``
+        the CE of every query against every doc of the batch, labels
+        ``arange(B) * nway``."""
+        if gather_axis_name is not None:
+            raise NotImplementedError(
+                "cross-device in-batch negatives (gather_axis_name) are not ported yet")
+        query_out = self.query(query_input_ids, query_attention_mask,
+                               pixel_values=query_pixel_values,
+                               image_features=query_image_features)
+        Q = query_out.late_interaction_output
+        context_out = self.doc(context_input_ids, context_attention_mask,
+                               pixel_values=context_pixel_values,
+                               image_features=context_image_features)
+        D, D_mask = context_out.late_interaction_output, context_out.context_mask
+
+        nway = num_negative_examples + 1
+        # each query once per doc of its group; expand's backward sums the
+        # copies in a fixed order (repeat_interleave's index_add may not)
+        Q_dup = Q[:, None].expand(-1, nway, -1, -1).reshape(-1, *Q.shape[1:])
+        scores, scores_raw = colbert_score(Q_dup, D, D_mask)
+        scores = scores.reshape(-1, nway)
+        loss = _softmax_ce(scores, torch.zeros(scores.shape[0], dtype=torch.long,
+                                               device=scores.device))
+        ib_loss = None
+        if use_in_batch_negatives:
+            ib_scores = in_batch_maxsim_scores(Q, D, D_mask)
+            ib_labels = torch.arange(Q.shape[0], device=Q.device) * nway
+            ib_loss = _softmax_ce(ib_scores, ib_labels)
+        return FLMRForwardOutput(
+            loss=loss, in_batch_negative_loss=ib_loss, scores=scores, scores_raw=scores_raw,
+            query_late_interaction_output=Q, context_late_interaction_output=D,
+            query_mask=query_out.query_mask, context_mask=D_mask)
+
+
+def _softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean over rows of ``logsumexp(logits) - logits[label]``, in fp32."""
+    logits = logits.float()
+    return (torch.logsumexp(logits, dim=-1) - logits.gather(1, labels[:, None])[:, 0]).mean()

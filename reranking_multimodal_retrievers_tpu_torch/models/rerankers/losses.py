@@ -1,6 +1,6 @@
 """Reranker loss construction (port of ``models/rerankers/losses.py``):
-``prepare_logits_labels``, ``rerank_loss`` (forward only) and
-``primary_logits``."""
+``prepare_logits_labels``, ``rerank_loss`` (differentiable: the loss of the
+reranker's training step) and ``primary_logits``."""
 
 from __future__ import annotations
 

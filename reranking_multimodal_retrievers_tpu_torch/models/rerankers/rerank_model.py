@@ -1,13 +1,21 @@
-"""monoPreFLMR full-context cross-encoder reranker, inference (port of
-``models/rerankers/rerank_model.py``: ``RerankConfig``, ``_RerankBase`` and
-``FullContextRerankModel``).
+"""monoPreFLMR cross-encoder rerankers (port of
+``models/rerankers/rerank_model.py``).
 
-Query and candidate are tokenised jointly as a sentence pair, encoded by the
-frozen retriever's context text encoder, the query image's vision tokens
-(projection prefix + transformer mapping network) are appended, the rows are
-mapped from the late-interaction space to the cross-encoder width, and a
-shallow BERT cross-encoder scores each row. The spliced ``RerankModel`` and
-the training losses are not ported yet.
+- :class:`FullContextRerankModel`: query and candidate are tokenised jointly
+  as a sentence pair, encoded by the retriever's context text encoder, the
+  query image's vision tokens (projection prefix + transformer mapping
+  network) are appended, the rows are mapped from the late-interaction space
+  to the cross-encoder width, and a shallow BERT cross-encoder scores each
+  row.
+- :class:`RerankModel`: the spliced variant. The query's tokens replace the
+  head of the candidate's, the rows are reordered to [query, image,
+  context], and PreFLMR's token scores may bias the cross-encoder's
+  attention (``fusion_attention_adj``).
+
+Both return the ranking logits and the training loss of
+``RerankConfig.loss_fn``. The reference computes ``loss_fn(logits,
+logits)`` in ``RerankModel`` (labels ignored); ``replicate_reference_loss_bug``
+keeps that, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,8 +31,8 @@ from ..bert import BertConfig
 from ..flmr import (FLMRBackbone, FLMRConfig, _l2_normalize, query_instruction_mask,
                     token_skiplist_mask)
 from ..init import materialize_
-from .cross_encoder import CrossEncoder
-from .losses import prepare_logits_labels, primary_logits
+from .cross_encoder import CrossEncoder, fusion_attention_adj
+from .losses import prepare_logits_labels, primary_logits, rerank_loss
 
 HEAD_TOKEN_LEEWAY = 4  # reference `utils.py:72`
 
@@ -55,6 +63,7 @@ class RerankConfig:
 
 @dataclasses.dataclass
 class RerankOutput:
+    loss: torch.Tensor  # 0-d fp32, the training loss of config.loss_fn
     logits: torch.Tensor  # [rows, 1] ranking logits
 
 
@@ -129,9 +138,60 @@ class _RerankBase(FLMRBackbone):
             reranker_inputs, attention_mask=reranker_attention_mask,
             attention_adj=attention_adj, token_type_ids=token_type_ids)
         cfg = self.config
-        logits, _ = prepare_logits_labels(
+        logits, lbl = prepare_logits_labels(
             cfg.loss_fn, logits1, logits2, batch_size, num_negative_examples, labels)
-        return RerankOutput(logits=primary_logits(cfg.loss_fn, logits))
+        loss = rerank_loss(cfg.loss_fn, logits,
+                           logits if cfg.replicate_reference_loss_bug else lbl, cfg.pos_weight)
+        return RerankOutput(loss=loss, logits=primary_logits(cfg.loss_fn, logits))
+
+
+class RerankModel(_RerankBase):
+    """Spliced-query monoPreFLMR reranker (reference `rerank_model.py:171-331`).
+    ``context_*`` has ``B * (1 + num_negative_examples)`` rows;
+    ``preflmr_scores [rows, Lc, q_ret]``, if given, are the retriever's
+    token scores that bias attention."""
+
+    def forward(self, query_input_ids, query_attention_mask, query_pixel_values,
+                context_input_ids, context_attention_mask, num_negative_examples: int,
+                preflmr_scores=None, fusion_multiplier: float = 1.0, labels=None,
+                mask_instructions: Optional[bool] = None) -> RerankOutput:
+        cfg = self.config
+        batch_size = query_input_ids.shape[0]
+        nway = num_negative_examples + 1
+        expanded = batch_size * nway
+        if context_input_ids.shape[0] != expanded:
+            raise ValueError(f"{context_input_ids.shape[0]} context rows for {batch_size} "
+                             f"queries x {nway}")
+        q_ids = torch.repeat_interleave(query_input_ids, nway, dim=0)
+        q_mask = torch.repeat_interleave(query_attention_mask, nway, dim=0)
+        pix = (None if query_pixel_values is None
+               else torch.repeat_interleave(query_pixel_values, nway, dim=0))
+        Lq, Lc = q_ids.shape[1], context_input_ids.shape[1]
+        # the query replaces the context's head; its tokens [2 : Lc-Lq+2] stay
+        joint_ids = torch.cat([q_ids, context_input_ids[:, 2:Lc - Lq + 2]], dim=1)
+        joint_mask = torch.cat([q_mask, context_attention_mask[:, 2:Lc - Lq + 2]], dim=1)
+        mask_instr = cfg.flmr.mask_instruction if mask_instructions is None else mask_instructions
+        Q, text_mask = self.encode_query(joint_ids, joint_mask, pixel_values=pix,
+                                         mask_instructions=mask_instr)
+        reranker_inputs = self.cross_encoder_input_mapping(Q)
+        ctx_rows = joint_ids.shape[1]
+        img_rows = reranker_inputs.shape[1] - ctx_rows
+        reranker_attention_mask = torch.cat(
+            [text_mask.int(), torch.ones(expanded, img_rows, dtype=torch.int32,
+                                         device=Q.device)], dim=1)
+
+        def reorder(x):  # [query text, image, context]
+            return torch.cat([x[:, :Lq], x[:, ctx_rows:], x[:, Lq:ctx_rows]], dim=1)
+
+        reranker_inputs = reorder(reranker_inputs)
+        reranker_attention_mask = reorder(reranker_attention_mask)
+        attention_adj = None
+        if preflmr_scores is not None:
+            attention_adj = fusion_attention_adj(
+                preflmr_scores[:, 2:Lc - Lq + 2, :], query_rows=Lq + img_rows,
+                context_rows=ctx_rows - Lq, fusion_multiplier=fusion_multiplier)
+        return self._score(reranker_inputs, reranker_attention_mask, attention_adj,
+                           batch_size, num_negative_examples, labels)
 
 
 class FullContextRerankModel(_RerankBase):

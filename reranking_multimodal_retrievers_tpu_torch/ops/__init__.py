@@ -1,4 +1,5 @@
-from .maxsim import MASK_FILL_VALUE, colbert_score, colbert_score_reduce
+from .maxsim import (MASK_FILL_VALUE, colbert_score, colbert_score_reduce, flipr_score_reduce,
+                     in_batch_maxsim_scores, padded_maxsim, segmented_maxsim)
 from .maxsim_cuda import maxsim_scores, maxsim_scores_reference
 from .maxsim_int8_cuda import maxsim_scores_int8, maxsim_scores_int8_reference
 from .attention_cuda import fused_self_attention, fused_self_attention_reference
@@ -9,6 +10,10 @@ __all__ = [
     "MASK_FILL_VALUE",
     "colbert_score",
     "colbert_score_reduce",
+    "flipr_score_reduce",
+    "in_batch_maxsim_scores",
+    "padded_maxsim",
+    "segmented_maxsim",
     "maxsim_scores",
     "maxsim_scores_reference",
     "maxsim_scores_int8",

@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._grad import refuse_grad
 
 NEG_INF = -1e9
 KERNEL_HEAD_DIMS = (64, 80)
@@ -115,7 +116,12 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
     contiguous bf16 or fp32 tensor on the same device, passed to the kernel
     in its own dtype (a bf16 one at L % 8 == 0 also by TMA, any other read
     directly); any L is taken.
+
+    There is no backward: with grad enabled, an input that requires grad
+    raises ``NotImplementedError`` on the CPU and on CUDA alike.
     """
+    refuse_grad("fused_self_attention", q, k, v, mask_bias, head_bias,
+                hint="or train with use_pallas_attention=False, as the JAX package does")
     if q.device.type not in ("cpu", "cuda") or k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k, v must share one CPU or CUDA device: "
                          f"{q.device}, {k.device}, {v.device}")

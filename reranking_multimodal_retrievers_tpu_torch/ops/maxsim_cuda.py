@@ -16,10 +16,13 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._grad import refuse_grad
 from .maxsim import MASK_FILL_VALUE
 
 # bytes of fp32 token scores the plain version materialises per doc chunk
 _PLAIN_CHUNK_BYTES = 256 << 20
+_TRAIN_HINT = ("training scores go through ops/maxsim.py (colbert_score, "
+               "in_batch_maxsim_scores), as in the JAX package")
 
 
 def maxsim_scores_reference(Q: torch.Tensor, D: torch.Tensor,
@@ -63,7 +66,11 @@ def maxsim_scores(Q: torch.Tensor, D: torch.Tensor,
     On CUDA, Q and D must be contiguous bf16 with ``dim % 8 == 0`` and
     16-byte-aligned data (the kernel reads them by TMA); the mask is a
     contiguous bool [N, L_d]. Any B, L_q, N and L_d are taken, and dims up
-    to 256 (the block keeps its query rows in shared memory)."""
+    to 256 (the block keeps its query rows in shared memory).
+
+    There is no backward: with grad enabled, a Q or D that requires grad
+    raises ``NotImplementedError`` on the CPU and on CUDA alike."""
+    refuse_grad("maxsim_scores", Q, D, hint=_TRAIN_HINT)
     if Q.device.type == "cpu" and D.device.type == "cpu":
         return maxsim_scores_reference(Q, D, mask, score_dtype)
     if Q.device.type != "cuda" or D.device != Q.device:

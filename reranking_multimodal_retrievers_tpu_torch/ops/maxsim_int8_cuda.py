@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._grad import refuse_grad
 
 MASK_BIAS_INT8 = -(1 << 25)
 # bytes of the fp64 token-score block the plain version materialises per
@@ -86,7 +87,12 @@ def maxsim_scores_int8(Qq: torch.Tensor, q_scales: torch.Tensor, Dq: torch.Tenso
     depth of one ``wgmma`` k-step) and 16-byte-aligned data (the kernel
     reads them by TMA); the scales contiguous fp32; the mask a contiguous
     bool [N, L_d]. Any B, L_q, N and L_d are taken, and dims up to 512 (the
-    block keeps its query rows in shared memory)."""
+    block keeps its query rows in shared memory).
+
+    There is no backward: with grad enabled, an input that requires grad
+    raises ``NotImplementedError`` on the CPU and on CUDA alike."""
+    refuse_grad("maxsim_scores_int8", Qq, q_scales, Dq, d_scales,
+                hint="int8 codes serve retrieval only")
     if Qq.device.type == "cpu" and Dq.device.type == "cpu":
         return maxsim_scores_int8_reference(Qq, q_scales, Dq, d_scales, mask)
     if Qq.device.type != "cuda" or Dq.device != Qq.device:

@@ -12,9 +12,9 @@ on CUDA cuBLASLt's int8 GEMM. That call wants more than 16 rows, ``k`` and
 ``n`` multiples of 8 and a column-major second operand, so a call with fewer
 rows or other widths is zero-padded (exact) rather than routed to bf16.
 
-The straight-through backward of the JAX ``int8_dot`` (``quant.py:83-102``)
-is not ported: an input that requires grad raises ``NotImplementedError``
-instead of returning a result whose gradient would silently be zero.
+The backward is the JAX ``int8_dot``'s straight-through one: the exact fp32
+cotangents of ``x @ w``, so :class:`Int8Linear` trains (quantization-aware
+training), as the JAX ``Int8Dense`` does.
 """
 
 from __future__ import annotations
@@ -71,29 +71,45 @@ def _int_mm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     return out[:m, :n] if (pad_m or pad_n) else out
 
 
-def _check_no_grad(*tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "int8_dot has no backward in the port yet (the JAX package's "
-            "straight-through gradient); run it under torch.no_grad()")
+class _Int8Dot(torch.autograd.Function):
+    """W8A8 forward, straight-through backward (JAX ``quant.py:83-102``):
+    ``dx = g @ w.T`` and ``dw = x.T @ g`` in fp32, cast to x's and w's
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        lead, k = x.shape[:-1], x.shape[-1]
+        xq, xs = quantize_rows(x.reshape(-1, k))
+        wq, ws = quantize_rows(w.t())  # per output channel: [out, in], [out, 1]
+        y = _int_mm(xq, wq).float() * xs * ws.reshape(1, -1)
+        return y.reshape(*lead, w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g32 = g.float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g32 @ w.float().t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (x.float().reshape(-1, x.shape[-1]).t()
+                  @ g32.reshape(-1, g.shape[-1])).to(w.dtype)
+        return dx, dw
 
 
 def int8_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` W8A8 for ``x [..., in]`` and ``w [in, out]`` (the JAX
     package's contract); fp32 ``[..., out]``. ``w`` may be the transpose of
-    an ``nn.Linear`` weight, whose rows are then quantized as they lie."""
-    _check_no_grad(x, w)
-    lead, k = x.shape[:-1], x.shape[-1]
-    xq, xs = quantize_rows(x.reshape(-1, k))
-    wq, ws = quantize_rows(w.t())  # per output channel: [out, in], [out, 1]
-    acc = _int_mm(xq, wq)
-    y = acc.float() * xs * ws.reshape(1, -1)
-    return y.reshape(*lead, w.shape[1])
+    an ``nn.Linear`` weight, whose rows are then quantized as they lie. The
+    gradient is straight-through: that of the fp32 ``x @ w``."""
+    return _Int8Dot.apply(x, w)
 
 
 class Int8Linear(nn.Linear):
     """Drop-in for ``nn.Linear`` whose matmul runs W8A8. Same ``weight`` /
-    ``bias`` parameters, so an ``nn.Linear`` state dict loads unchanged.
+    ``bias`` parameters, so an ``nn.Linear`` state dict loads unchanged, and
+    trainable through the straight-through gradient of :func:`int8_dot`.
     The output dtype is that of ``x`` promoted with the weight's, as
     ``nn.Linear`` gives for matching dtypes."""
 

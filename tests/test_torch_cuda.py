@@ -482,3 +482,94 @@ def test_quantizers_on_card_equal_cpu(gen):
     mask = torch.rand(300, 64, device="cuda", generator=gen) > 0.2
     for a, b in zip(quantize_docs(emb, mask), quantize_docs(emb.cpu(), mask.cpu())):
         assert torch.equal(a.cpu(), b)
+
+
+def test_wrappers_raise_under_grad_on_card(gen):
+    """On CUDA as on the CPU, K1, K2 and K3 refuse an input that requires
+    grad while grad mode is on (they have no backward, and a kernel output
+    without a ``grad_fn`` would cut the graph silently); under no_grad they
+    launch."""
+    q, k, v = (torch.randn(2, 64, 128, device="cuda", generator=gen).to(torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    Q = _unit(gen, 2, 9, 128).requires_grad_(True)
+    D = _unit(gen, 5, 40, 128)
+    Qq = torch.randint(-127, 128, (2, 9, 128), dtype=torch.int8, device="cuda", generator=gen)
+    Dq = torch.randint(-127, 128, (5, 40, 128), dtype=torch.int8, device="cuda", generator=gen)
+    qs = torch.rand(2, 9, device="cuda", generator=gen).requires_grad_(True)
+    ds = torch.rand(5, device="cuda", generator=gen)
+    calls = [lambda: fused_self_attention(q, k, v, num_heads=2, sm_scale=0.125),
+             lambda: maxsim_scores(Q, D), lambda: maxsim_scores_int8(Qq, qs, Dq, ds)]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="no backward"):
+            call()
+    launches = (fused_self_attention.launches, maxsim_scores.launches,
+                maxsim_scores_int8.launches)
+    with torch.no_grad():
+        for call in calls:
+            assert call().grad_fn is None
+    assert (fused_self_attention.launches, maxsim_scores.launches,
+            maxsim_scores_int8.launches) == tuple(n + 1 for n in launches)
+
+
+def test_tiny_train_step_on_card_matches_cpu(gen):
+    """One FLMR train step (tiny config, fp32, TF32 off for cuBLAS and
+    cuDNN) on the card against the same step on the CPU from the same
+    weights. The loss within 1e-5; each gradient, as the step's backward
+    left it, within 1e-4 of its leaf's largest |g| (floor 1e-7 of the
+    model's largest, for leaves 0 in exact arithmetic). Adam's first step
+    moves an element by ``-lr * g / (|g| + eps)``, so each element's update
+    may differ between the two by what their gradients imply, plus one fp32
+    rounding of ``p + update`` a side; frozen leaves stay bitwise."""
+    from reranking_multimodal_retrievers_tpu_torch.models import FLMRConfig, FLMRModelForRetrieval
+    from reranking_multimodal_retrievers_tpu_torch.training import (
+        TrainState, make_optimizer, make_train_step)
+
+    torch.backends.cudnn.allow_tf32 = False  # the ViT's patch convolution in fp32
+    cfg = FLMRConfig.tiny()
+    cpu = FLMRModelForRetrieval(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in cpu.state_dict().items()}
+    card = FLMRModelForRetrieval(cfg, device="meta")
+    card.load_state_dict({k: v.cuda() for k, v in before.items()}, assign=True)
+    g = torch.Generator().manual_seed(1)
+    B, nway = 4, 2
+    batch = dict(query_input_ids=torch.randint(10, 1000, (B, 8), generator=g),
+                 query_attention_mask=torch.ones(B, 8, dtype=torch.long),
+                 query_pixel_values=torch.randn(B, 3, 32, 32, generator=g),
+                 context_input_ids=torch.randint(10, 1000, (B * nway, 12), generator=g),
+                 context_attention_mask=torch.ones(B * nway, 12, dtype=torch.long))
+    grads, metrics, labels = [], [], None
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        seen = {}
+        hooks = [p.register_post_accumulate_grad_hook(
+            lambda p, n=n: seen.__setitem__(n, p.grad.detach().cpu().clone()))
+            for n, p in model.named_parameters()]
+        opt, sched, labels = make_optimizer(model, lr=1e-3, mapping_network_lr=1e-2,
+                                            frozen_patterns=("vision_encoder",),
+                                            group_patterns=("vision_projection",))
+        _, m = make_train_step(model, opt, sched)(TrainState.create(model, opt, sched),
+                                                 {k: v.to(dev) for k, v in batch.items()})
+        for h in hooks:
+            h.remove()
+        grads.append(seen)
+        metrics.append({k: float(v) for k, v in m.items()})
+    for k, v in metrics[0].items():
+        assert metrics[1][k] == pytest.approx(v, rel=1e-5, abs=1e-5), k
+    assert set(grads[0]) == set(grads[1])
+    floor = 1e-3 * max(float(x.abs().max()) for x in grads[0].values())
+    for n, want in grads[0].items():
+        assert (grads[1][n] - want).abs().max() <= 1e-4 * max(float(want.abs().max()), floor), n
+    lrs = {"main": 1e-3, "mapping": 1e-2}
+    on_card = dict(card.named_parameters())
+    for n, p in cpu.named_parameters():
+        got, b = on_card[n].detach().cpu().double(), before[n].double()
+        if labels[n] == "frozen":
+            assert torch.equal(on_card[n].detach().cpu(), before[n])
+            assert torch.equal(p.detach(), before[n]), n
+            continue
+        lr = lrs[labels[n]]
+        zero = torch.zeros_like(b)
+        adam = [-lr * x / (x.abs() + 1e-8) for x in
+                (grads[0].get(n, zero).double(), grads[1].get(n, zero).double())]
+        rounding = 2 * torch.finfo(torch.float32).eps * b.abs().max() + 1e-5 * lr
+        excess = ((got - p.detach().double()).abs() - (adam[1] - adam[0]).abs() - rounding)
+        assert excess.max() <= 0, n

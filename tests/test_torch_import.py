@@ -1,6 +1,6 @@
-"""The port stands alone: it imports no JAX, flax, transformers, tests or the
-JAX package, it imports with those modules blocked, and its entry points
-refuse to fall back to the CPU when CUDA is absent."""
+"""The port stands alone: it imports no JAX, flax, optax, orbax, transformers,
+tests or the JAX package, it imports with those modules blocked, and its
+entry points refuse to fall back to the CPU when CUDA is absent."""
 
 import ast
 import os
@@ -17,7 +17,8 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "reranking_multimodal_retrievers_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
-FORBIDDEN = {"jax", "flax", "transformers", "tests", "reranking_multimodal_retrievers_tpu"}
+FORBIDDEN = {"jax", "flax", "optax", "orbax", "transformers", "tests",
+             "reranking_multimodal_retrievers_tpu"}
 
 
 def _sources():
@@ -47,7 +48,8 @@ def _modules():
 def test_port_and_chip_smoke_import_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'transformers', 'reranking_multimodal_retrievers_tpu'):\n"
+        "for m in ('jax', 'flax', 'optax', 'orbax', 'transformers',\n"
+        "          'reranking_multimodal_retrievers_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {_modules()!r} + ['chip_smoke']:\n"

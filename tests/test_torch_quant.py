@@ -87,15 +87,46 @@ def test_int8_dot_matches_jax(xshape):
 
 
 def test_int8_dot_raises_on_grad_requiring_input():
+    """An input that requires grad no longer raises: int8_dot now has the JAX
+    package's straight-through backward, so the W8A8 output carries a
+    ``grad_fn`` and ``Int8Linear`` trains; under no_grad nothing records."""
     x = torch.randn(3, 16, requires_grad=True)
     w = torch.randn(16, 8)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tquant.int8_dot(x, w)
+    y = tquant.int8_dot(x, w)
+    assert y.grad_fn is not None
+    y.sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.broadcast_to(w.sum(1).numpy(), (3, 16)),
+                               rtol=1e-6, atol=1e-6)
     lin = tquant.Int8Linear(16, 8)
-    with pytest.raises(NotImplementedError):
-        lin(torch.randn(3, 16))  # the weight requires grad
+    lin(torch.randn(3, 16)).sum().backward()  # the weight requires grad
+    assert lin.weight.grad is not None and lin.weight.grad.shape == (8, 16)
     with torch.no_grad():
-        assert lin(torch.randn(3, 16)).shape == (3, 8)
+        out = lin(torch.randn(3, 16))
+    assert out.shape == (3, 8) and out.grad_fn is None
+
+
+@pytest.mark.parametrize("xshape,dtype", [((4, 32), torch.float32), ((2, 3, 32), torch.float32),
+                                          ((5, 32), torch.bfloat16)])
+def test_int8_dot_grad_matches_jax(xshape, dtype):
+    """The straight-through cotangents against ``jax.grad`` of the JAX
+    ``int8_dot``: ``dx = g @ w.T`` and ``dw = x.T @ g`` in fp32, cast to x's
+    and w's dtypes. fp32 within 1e-5 (the same products summed in another
+    order); bf16 x within one bf16 rounding (2^-8 relative) of JAX's."""
+    x = _x(10, *xshape)
+    w = _x(11, 32, 24)
+    g = _x(12, *xshape[:-1], 24)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    _, vjp = jax.vjp(jquant.int8_dot, jnp.asarray(x, jdt), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(g))
+    tx = torch.tensor(x).to(dtype).requires_grad_(True)
+    tw = torch.tensor(w, requires_grad=True)
+    y = tquant.int8_dot(tx, tw)
+    y.backward(torch.tensor(g))
+    assert tx.grad.dtype == dtype and tw.grad.dtype == torch.float32
+    tol = dict(rtol=2 ** -8, atol=2 ** -8) if dtype == torch.bfloat16 else dict(rtol=1e-5,
+                                                                                atol=1e-5)
+    np.testing.assert_allclose(tx.grad.float().numpy(), np.asarray(jdx, np.float32), **tol)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), rtol=1e-5, atol=1e-4)
 
 
 def test_int8linear_loads_linear_state_dict():
