@@ -79,9 +79,26 @@ Phases, each printing one JSON line with its elapsed seconds:
      leaf against the CPU, frozen leaves bitwise, steps/s; and a W8A8
      ``Int8Linear`` at BERT-base width, whose backward must be the fp32
      ``x @ w`` cotangents (straight-through);
-  7. after phase 8: the ``kernels`` line (K1 and K3 with their times at
+  9. the interaction rerankers (bench.py:187-242's width and traffic: 8
+     queries x 100 candidates, 128 + 512 late-interaction tokens of dim 128,
+     one forward of 100 rows a query, random bf16 weights from a seed):
+     9a. ModPreFLMR-BERT, the CrossEncoder type (3 BERT-base layers over
+     the mapped rows, ``use_pallas_attention``): K2 at [100, 640, 12 x 64]
+     in each layer, exactly 24 launches; four logits against a CPU fp32
+     recomputation; K2 against its plain version at that launch shape,
+     timed beside the plain version and ``scaled_dot_product_attention``;
+     9b. the same traffic through the MORES type (cross-attention, then
+     self-attention; no kernel on this path): no launch, four logits
+     against fp32; 9c. phase 3's 8 queries (113 tokens) and their top-100
+     from the index, whose token matrices and masks are gathered from the
+     index after phase 3, reranked by 9a's model (K2 at L = 369, 24
+     launches); 9d. one MORES training step at 9b's width in fp32
+     (negative sampling over 2 queries x (1 + 2) candidates, AdamW at
+     1e-4) against the same step on the CPU, then steps/s; no launch;
+  7. after phase 9: the ``kernels`` line (K1 and K3 with their times at
      ``bench.py``'s batch and the 100k searches of phases 3 and 3b beside
-     the bound), then the result line.
+     the bound, K2 at each main-path variant's launch shape), then the
+     result line.
 
 ``python3 chip_smoke.py --probe-t5-init`` instead builds the kernels and
 runs phase 5's model once with every weight at std 0.02 (none of HF T5's
@@ -89,11 +106,11 @@ scales): p(yes) of four candidates through K2 and through the plain path in
 bf16, and in fp32, as information.
 
 The launch counters are set to 0 just before each main-path phase (3, 3b,
-3c, 4, 4b, 5, 6 and 8's training run) and read just after it; phase 8
-must launch none. Each decoder family is built,
-run and freed before the next (about 8 GB each in bf16). Any failed check
-raises and the script exits non-zero; without a CUDA card it exits non-zero
-before printing anything.
+3c, 4, 4b, 5, 6, 8's training run, 9a, 9b, 9c and 9d's timed steps) and
+read just after it; phases 8, 9b and 9d must launch none. Each decoder
+family is built, run and freed before the next (about 8 GB each in bf16).
+Any failed check raises and the script exits non-zero; without a CUDA card
+it exits non-zero before printing anything.
 """
 
 import dataclasses
@@ -179,6 +196,19 @@ RERANK_TRAIN_B, RERANK_TRAIN_NWAY = 2, 3
 # (TF32 off), summed by cuBLAS in the same order up to its choice of kernel
 INT8_GRAD_TOL = 1e-5
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoints"
+# phase 9: bench.py:187-242's interaction traffic: 8 queries x 100 candidates,
+# 128 query and 512 doc tokens of dim 128, one forward of 100 rows a query
+INTER_B, INTER_K, INTER_LQ, INTER_LD, INTER_DIM, INTER_LAYERS = 8, 100, 128, 512, 128, 3
+# interaction logits in bf16 on the card against fp32 on the CPU through the
+# mapping and 3 BERT layers: bf16 keeps 8 mantissa bits (0.4% a rounding),
+# which 3 residual layers carry into about 1% of the CLS row; the logits
+# (std ~0.5 at these random weights) move by about 0.005-0.01
+INTER_ATOL, INTER_RTOL = 0.05, 0.05
+# phase 9d: configs/evqa_rerank_interaction.json's training (negative sampling,
+# num_negative_samples 2, AdamW at 1e-4), 2 queries
+MORES_TRAIN_B, MORES_TRAIN_NWAY = 2, 3
+# its steps/s: the median of 4 windows of 5 steps each, after 3 warm-up steps
+MORES_WARMUP, MORES_WINDOWS, MORES_WINDOW_STEPS = 3, 4, 5
 
 
 def emit(obj):
@@ -190,10 +220,11 @@ def check(cond, what):
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warmup=1):
     """Mean ms of ``fn`` over ``reps`` launches, timed with CUDA events after
-    one warm-up call."""
-    fn()
+    ``warmup`` untimed calls."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1227,6 +1258,223 @@ def int8_linear_backward(smi):
             "forward_gap_vs_fp32": fwd_gap}
 
 
+def _interaction_config(interaction_type, serving=True):
+    from reranking_multimodal_retrievers_tpu_torch.models import BertConfig
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import InteractionRerankConfig
+
+    kw = dict(attention_scores_bf16=True, gelu_approximate=True,
+              use_pallas_attention=True) if serving else {}
+    return InteractionRerankConfig(
+        cross_encoder=BertConfig(num_hidden_layers=INTER_LAYERS,
+                                 max_position_embeddings=INTER_LQ + INTER_LD, **kw),
+        interaction_type=interaction_type,
+        loss_fn="BCE" if serving else "negative_sampling")
+
+
+def _rerank_queries(model, q, qm, d, dm):
+    """One forward of the K candidates of each query (``d [B, K, Ld, dim]``),
+    as bench.py's scan does: [B, K] logits."""
+    K = d.shape[1]
+    with torch.inference_mode():
+        return torch.stack([
+            model(q[i:i + 1], d[i], K - 1, qm[i:i + 1], dm[i]).logits.reshape(K)
+            for i in range(q.shape[0])])
+
+
+def _cpu_copy(model, cfg):
+    """The same weights in fp32 on the CPU."""
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import InteractionRerankModel
+
+    cpu = InteractionRerankModel(cfg, device="meta")
+    cpu.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()}, assign=True)
+    return cpu
+
+
+def interaction_rerank(name, model, cfg, q, qm, d, dm, want_k2, smi):
+    """Phases 9a-9c: ``model`` reranks each query's candidates (one warm-up
+    pass, then the counted and timed pass); the first four candidates of the
+    first query are recomputed in fp32 on the CPU. Returns the line."""
+    t0 = time.perf_counter()
+    B, K = d.shape[:2]
+    _rerank_queries(model, q, qm, d, dm)  # warms up cuBLAS
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    logits = _rerank_queries(model, q, qm, d, dm)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = read_counts()
+    check(launches == {"K1": 0, "K2": want_k2, "K3": 0},
+          f"{name} launches {launches}, want K2 = {want_k2} and no other")
+    check(tuple(logits.shape) == (B, K) and bool(torch.isfinite(logits.float()).all()),
+          f"{name} logits {tuple(logits.shape)}")
+    t2 = time.perf_counter()
+    cpu = _cpu_copy(model, cfg)
+    n = 4
+    with torch.inference_mode():
+        want = cpu(q[:1].float().cpu(), d[0, :n].float().cpu(), n - 1, qm[:1].cpu(),
+                   dm[0, :n].cpu()).logits.reshape(n)
+    got = logits[0, :n].float().cpu()
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, atol=INTER_ATOL, rtol=INTER_RTOL),
+          f"{name} logits {got.tolist()} vs CPU fp32 {want.tolist()}")
+    return {"phase": name, "card": smi, "queries": B, "candidates": K,
+            "query_tokens": q.shape[1], "doc_tokens": d.shape[2],
+            "interaction_type": cfg.interaction_type, "run_seconds": run_s,
+            "candidates_per_s": B * K / run_s, "max_abs_err_vs_cpu_fp32": err,
+            "tol": [INTER_ATOL, INTER_RTOL], "logit_std": logits.float().std().item(),
+            "cpu_check_seconds": time.perf_counter() - t2, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def _k2_interaction(name, keep, heads, hd, gen, smi):
+    """K2 against its plain version at an interaction launch shape: random
+    q/k/v ``[K, L, heads x hd]`` with the key bias of ``keep [K, L]``.
+    Emits and returns the variant's line."""
+    K, L = keep.shape
+    q, k, v = (torch.randn(K, L, heads * hd, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    line = k2_variant(name, q, k, v, torch.where(keep, 0.0, -1e9), None, heads=heads,
+                      scale=hd ** -0.5, causal=False, sdpa_mask=keep[:, None, None, :],
+                      flops=4 * K * heads * L * L * hd)
+    emit({"phase": "kernel_check", "kernel": "K2 fused_self_attention", "card": smi, **line})
+    return line
+
+
+def interaction_phases(retrieved, smi):
+    """Phase 9a-9c: the ModPreFLMR-BERT interaction reranker (CrossEncoder
+    type, 9a), the same traffic through MORES (9b), and phase 3's top-100
+    reranked straight from the index (9c). ``retrieved`` holds phase 3's
+    query matrices and mask and its candidates' token matrices and masks.
+    Returns (the lines, K2's lines for the kernels line by phase)."""
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import InteractionRerankModel
+
+    lines = []
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 10)
+    B, K, LQ, LD, DIM = INTER_B, INTER_K, INTER_LQ, INTER_LD, INTER_DIM
+    q = torch.as_tensor(rng.normal(size=(B, LQ, DIM)).astype(np.float32)).cuda().bfloat16()
+    d = torch.empty(B, K, LD, DIM, dtype=torch.bfloat16, device="cuda")
+    for i in range(B):
+        d[i] = torch.as_tensor(rng.normal(size=(K, LD, DIM)).astype(np.float32)).cuda()
+    qm = torch.ones(B, LQ, dtype=torch.int32, device="cuda")
+    dm = torch.ones(B, K, LD, dtype=torch.int32, device="cuda")
+    setup_s = time.perf_counter() - t0
+
+    # 9a. CrossEncoder: K2 at [K, LQ + LD, 12 x 64] in every layer
+    cfg = _interaction_config("CrossEncoder")
+    model = InteractionRerankModel(cfg, device="cuda", dtype=torch.bfloat16,
+                                   generator=torch.Generator(device="cuda").manual_seed(SEED)).eval()
+    line = interaction_rerank("rerank_interaction_cross_encoder", model, cfg, q, qm, d, dm,
+                              INTER_LAYERS * B, smi)
+    lines.append({**line, "setup_seconds": setup_s})
+    H, HD = cfg.cross_encoder.num_attention_heads, cfg.cross_encoder.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    L = LQ + LD
+    tlen = torch.randint(LQ, L + 1, (K,), device="cuda", generator=gen)
+    keep = torch.arange(L, device="cuda")[None, :] < tlen[:, None]  # padded doc tails
+    k2 = {"9a": _k2_interaction("key bias L=640 (interaction CrossEncoder, 9a)", keep, H, HD,
+                                gen, smi)}
+
+    # 9c. phase 3's queries and their top-100 straight from the index
+    Qm, q_mask, cand_emb, cand_mask = retrieved
+    line = interaction_rerank("rerank_interaction_retrieved", model, cfg, Qm, q_mask,
+                              cand_emb, cand_mask, INTER_LAYERS * Qm.shape[0], smi)
+    line["seq_len"] = Qm.shape[1] + cand_emb.shape[2]
+    retrieved_line = line
+    # K2 at 9c's launch shape, with the first query's own key mask (its
+    # query tokens, then each candidate's padded doc tokens)
+    keep = torch.cat([q_mask[:1].bool().expand(cand_mask.shape[1], -1), cand_mask[0].bool()], 1)
+    k2["9c"] = _k2_interaction("key bias L=369 (interaction CrossEncoder on retrieved docs, 9c)",
+                               keep, H, HD, gen, smi)
+    del model
+    gc.collect()
+
+    # 9b. MORES on 9a's traffic: no kernel on this path
+    cfg = _interaction_config("MORES")
+    model = InteractionRerankModel(cfg, device="cuda", dtype=torch.bfloat16,
+                                   generator=torch.Generator(device="cuda").manual_seed(SEED)).eval()
+    lines.append(interaction_rerank("rerank_interaction_mores", model, cfg, q, qm, d, dm, 0,
+                                    smi))
+    lines.append(retrieved_line)
+    del model, q, d
+    gc.collect()
+    torch.cuda.empty_cache()
+    k2["9a"]["launches"] = lines[0]["launches"]["K2"]
+    k2["9c"]["launches"] = retrieved_line["launches"]["K2"]
+    return lines, k2
+
+
+def mores_training(smi):
+    """Phase 9d: one MORES training step at 9b's width in fp32 (negative
+    sampling over 2 queries x (1 + 2) candidates, AdamW at 1e-4) through
+    ``make_rerank_train_step``, against the same step on the CPU; then
+    steps/s. Returns the line."""
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import InteractionRerankModel
+    from reranking_multimodal_retrievers_tpu_torch.training import (
+        TrainState, make_optimizer, make_rerank_train_step)
+
+    t0 = time.perf_counter()
+    B, NW = MORES_TRAIN_B, MORES_TRAIN_NWAY
+    cfg = _interaction_config("MORES", serving=False)
+    model = InteractionRerankModel(cfg, device="cuda",
+                                   generator=torch.Generator(device="cuda").manual_seed(SEED))
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED + 12)
+    qm = np.ones((B, INTER_LQ), np.int32)
+    dm = np.ones((B * NW, INTER_LD), np.int32)
+    for r in range(B * NW):  # candidates of 40-100% of the doc tokens
+        dm[r, int(rng.integers(INTER_LD * 2 // 5, INTER_LD + 1)):] = 0
+    qm[1, INTER_LQ * 3 // 4:] = 0
+    host = dict(query_late_interaction=torch.as_tensor(
+                    rng.normal(size=(B, INTER_LQ, INTER_DIM)).astype(np.float32)),
+                context_late_interaction=torch.as_tensor(
+                    rng.normal(size=(B * NW, INTER_LD, INTER_DIM)).astype(np.float32)),
+                query_mask=torch.as_tensor(qm), context_mask=torch.as_tensor(dm))
+    batch = {k: v.cuda() for k, v in host.items()}
+    leaf = "reranker.layers.0.crossattention.self.query.weight"
+    after, grads, losses = {}, {}, {}
+    cpu = InteractionRerankModel(cfg, device="meta")
+    cpu.load_state_dict({k: v.clone() for k, v in init.items()}, assign=True)
+    t1 = time.perf_counter()
+    for side, m, b in (("card", model, batch), ("cpu", cpu, host)):
+        opt, sched, _ = make_optimizer(m, optimizer_name="AdamW", lr=1e-4)
+        seen, hooks = grad_snapshots(m, [leaf])
+        _, met = make_rerank_train_step(m, opt, sched, num_negative_examples=NW - 1)(
+            TrainState.create(m, opt, sched), b)
+        for h in hooks:
+            h.remove()
+        after[side], grads[side], losses[side] = (m.get_parameter(leaf).detach().clone(),
+                                                  seen[leaf], float(met["loss"]))
+    cpu_s = time.perf_counter() - t1
+    del cpu
+    check(loss_rel_err(losses["card"], losses["cpu"]) <= TRAIN_LOSS_TOL,
+          f"MORES loss on the card {losses['card']} vs CPU fp32 {losses['cpu']}")
+    leaf_line = check_first_update(leaf, 1e-4, init[leaf], after["card"], grads["card"],
+                                   after["cpu"], grads["cpu"])
+
+    opt, sched, _ = make_optimizer(model, optimizer_name="AdamW", lr=1e-4)
+    step = make_rerank_train_step(model, opt, sched, num_negative_examples=NW - 1)
+    state = TrainState.create(model, opt, sched)
+    reset_counts()
+    windows = [cuda_ms(lambda: step(state, batch), MORES_WINDOW_STEPS,
+                       warmup=MORES_WARMUP if w == 0 else 0) for w in range(MORES_WINDOWS)]
+    step_ms = float(np.median(windows))
+    launches = read_counts()
+    check(sum(launches.values()) == 0, f"MORES training launched kernels: {launches}")
+    del model, opt, sched, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "train_interaction_mores", "card": smi, "rows": B * NW, "queries": B,
+            "nway": NW, "query_tokens": INTER_LQ, "doc_tokens": INTER_LD,
+            "loss_fn": "negative_sampling", "loss_card": losses["card"],
+            "loss_cpu": losses["cpu"], "loss_tol": TRAIN_LOSS_TOL, "leaf": leaf,
+            "leaf_vs_cpu": leaf_line, "warmup_steps": MORES_WARMUP,
+            "window_steps": MORES_WINDOW_STEPS, "window_step_ms": windows,
+            "step_ms": step_ms, "steps_per_sec": 1e3 / step_ms,
+            "cpu_seconds": cpu_s, "launches": launches, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1405,7 +1653,13 @@ def main() -> int:
           "identical_rankings": identical, "max_abs_err": worst,
           "launches": retrieve_launches, "seconds": time.perf_counter() - t0})
     candidates = [[int(x) for x in ids] for ids, _ in results]
-    del ref_scores, flmr
+    # phase 9c's inputs: the candidates' token matrices and masks, from the
+    # index, as at test time
+    position = {doc: i for i, doc in enumerate(index.doc_ids)}
+    cand = torch.as_tensor([[position[str(c)] for c in row] for row in candidates],
+                           device="cuda")
+    retrieved = (Qm, qout.query_mask.int(), index.embeddings[cand], index.mask[cand].int())
+    del ref_scores, flmr, cand
 
     # ---- 3b. int8 retrieve over the same index, quantized on the card (main path)
     qindex, line = int8_retrieve(index, Qm, K, candidates)
@@ -1498,6 +1752,15 @@ def main() -> int:
     emit(rerank_training(smi))
     emit(int8_linear_backward(smi))
 
+    # ---- 9. the interaction rerankers (main path), 9d. MORES's train step
+    t0 = time.perf_counter()
+    lines, k2_inter = interaction_phases(retrieved, smi)
+    for line in lines:
+        emit(line)
+    del retrieved
+    emit(mores_training(smi))
+    emit({"phase": "interaction", "seconds": time.perf_counter() - t0})
+
     # ---- 7. the kernels line and the result
     torch.cuda.synchronize()
     phases = (retrieve_launches, int8_launches, stream_launches, rerank_launches, w8a8_launches)
@@ -1532,6 +1795,9 @@ def main() -> int:
              replaces=attention, launches=launches("K2"), **k2[512], at_593=k2[593]),
         k2_line("head_bias bf16 (Flan-T5-XL encoder)", k2_t5),
         k2_line("causal, head_dim 80 (OPT-2.7b)", k2_opt),
+        k2_line("key bias L=640 (interaction CrossEncoder, 9a)", k2_inter["9a"]),
+        k2_line("key bias L=369 (interaction CrossEncoder on retrieved docs, 9c)",
+                k2_inter["9c"]),
         dict(name="maxsim_scores_int8", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim_int8.cu",
              replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183",

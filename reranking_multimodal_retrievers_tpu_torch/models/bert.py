@@ -3,12 +3,19 @@
 HuggingFace ``BertModel`` structure and parameter names (post-LayerNorm
 residual blocks, learned absolute positions, optional cross-attention), with
 the JAX package's serving knobs: ``attention_scores_bf16``,
-``gelu_approximate``, ``use_pallas_attention`` and ``quantize_int8``. Under
-``use_pallas_attention``, the self-attention core of a layer that sees only a
-padding mask goes through kernel K2 (``ops/attention_cuda.py``) on CUDA
-tensors. Under ``quantize_int8`` every dense layer (query/key/value,
-attention output, intermediate, output, pooler) is an ``Int8Linear``
-(``ops/quant.py``): W8A8 with the same parameters.
+``gelu_approximate``, ``use_pallas_attention``, ``use_flash_attention`` and
+``quantize_int8``. Under ``use_pallas_attention``, the self-attention core of
+a layer that sees only a padding mask goes through kernel K2
+(``ops/attention_cuda.py``) on CUDA tensors, at any length (the JAX package
+falls back to its unfused path where ``L % 8 != 0`` or its head packing is
+infeasible; both compute the same function). Under ``use_flash_attention``
+(and not ``use_pallas_attention``, which takes precedence), the same core at
+``L >= 256`` is attention with segment ids, as the JAX package's library
+flash kernel computes it: ``scaled_dot_product_attention`` on CUDA, its plain
+version on the CPU (:func:`segment_attention`). Under ``quantize_int8`` every
+dense layer (query/key/value, attention output, intermediate, output,
+pooler) is an ``Int8Linear`` (``ops/quant.py``): W8A8 with the same
+parameters.
 """
 
 from __future__ import annotations
@@ -41,7 +48,10 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
     add_cross_attention: bool = False
-    # a JAX library kernel in the reference; not ported yet
+    # self-attention with a padding-style mask at L >= 256 as attention with
+    # segment ids (pad rows attend only pad rows): PyTorch's
+    # scaled_dot_product_attention on CUDA, where the JAX package calls
+    # JAX's library flash kernel
     use_flash_attention: bool = False
     # self-attention with a padding-style mask goes through kernel K2
     use_pallas_attention: bool = False
@@ -118,9 +128,62 @@ def embedding(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return _EmbeddingLookup.apply(ids, table)
 
 
-def _check_supported(cfg: BertConfig) -> None:
-    if cfg.use_flash_attention:
-        raise NotImplementedError("use_flash_attention is not ported yet")
+def flash_block_q(L: int) -> Optional[int]:
+    """The JAX package's tile for its flash path (``models/bert.py:157-158``):
+    the largest of 512, 256 and 128 that divides ``L`` padded up to a
+    multiple of 128, or None."""
+    L_pad = -(-L // 128) * 128
+    return next((b for b in (512, 256, 128) if L_pad % b == 0), None)
+
+
+def attention_route(cfg: BertConfig, L: int, can_flash: bool, cross: bool) -> str:
+    """Which core a layer's attention takes: ``"k2"`` under
+    ``use_pallas_attention`` (self-attention only; K2 takes any L, where the
+    JAX package's gate at ``models/bert.py:149-152`` also wants ``L % 8 == 0``
+    and falls back to the unfused path, which computes the same function);
+    else ``"flash"`` by the JAX package's gate (``models/bert.py:159-163``:
+    self-attention, ``L >= 256`` and a tile from ``flash_block_q``); else
+    ``"unfused"``."""
+    if not can_flash or cross:
+        return "unfused"
+    if cfg.use_pallas_attention:
+        return "k2"
+    if cfg.use_flash_attention and L >= 256 and flash_block_q(L) is not None:
+        return "flash"
+    return "unfused"
+
+
+def segment_attention(q, k, v, segment_mask=None, *, sm_scale: float) -> torch.Tensor:
+    """Attention with segment ids over ``q/k/v [B, heads, L, hd]``: a query
+    attends the keys of its own segment, real tokens (``segment_mask`` 1) to
+    real tokens and pad rows to pad rows, as the JAX package's flash kernel
+    computes it with ``SegmentIds``; no mask attends everything. On CUDA
+    tensors it is ``scaled_dot_product_attention`` with the boolean mask; on
+    the CPU the plain version: fp32 scores and softmax, the probabilities in
+    V's dtype, fp32 P.V, the output in Q's dtype."""
+    same = None
+    if segment_mask is not None:
+        seg = segment_mask.bool()
+        same = seg[:, None, :, None] == seg[:, None, None, :]
+    if q.device.type == "cuda":
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=sm_scale)
+    s = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * sm_scale
+    if same is not None:
+        s = s.masked_fill(~same, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bnqk,bnkd->bnqd", p.float(), v.float()).to(q.dtype)
+
+
+def _linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)``, or, for a plain ``nn.Linear`` whose weights have another
+    dtype than ``x``, the product in their promoted dtype, as a flax
+    ``Dense(dtype=None)`` computes it (MORES's fp32 docs through bf16
+    weights)."""
+    if type(layer) is not nn.Linear or x.dtype == layer.weight.dtype:
+        return layer(x)
+    dt = torch.promote_types(x.dtype, layer.weight.dtype)
+    bias = None if layer.bias is None else layer.bias.to(dt)
+    return F.linear(x.to(dt), layer.weight.to(dt), bias)
 
 
 def _dense(cfg: BertConfig, in_features: int, out_features: int) -> nn.Linear:
@@ -163,15 +226,20 @@ class BertAttention(nn.Module):
         nh, hd = cfg.num_attention_heads, cfg.head_dim
 
         q3 = self.self.query(hidden_states)
-        k3 = self.self.key(kv)
-        v3 = self.self.value(kv)
-        if cfg.use_pallas_attention and can_flash and kv_states is None:
+        k3 = _linear(self.self.key, kv)
+        v3 = _linear(self.self.value, kv)
+        route = attention_route(cfg, Lq, can_flash, kv_states is not None)
+        if route == "k2":
             bias = None
             if segment_mask is not None:
                 bias = (1.0 - segment_mask.float()) * ATTN_MASK_BIAS
             ctx = fused_self_attention(
                 q3, k3, v3, bias, num_heads=nh, sm_scale=float(hd) ** -0.5,
             ).to(hidden_states.dtype)
+        elif route == "flash":
+            qh, kh, vh = (x.view(B, Lq, nh, hd).transpose(1, 2) for x in (q3, k3, v3))
+            ctx = segment_attention(qh, kh, vh, segment_mask, sm_scale=float(hd) ** -0.5)
+            ctx = ctx.transpose(1, 2).reshape(B, Lq, H).to(hidden_states.dtype)
         else:
             if mask_bias is None and segment_mask is not None:
                 mask_bias = additive_mask(segment_mask)
@@ -179,7 +247,9 @@ class BertAttention(nn.Module):
             k = k3.view(B, Lk, nh, hd)
             v = v3.view(B, Lk, nh, hd)
             if cfg.attention_scores_bf16 and q.dtype == torch.bfloat16:
-                scores = torch.einsum("bqnd,bknd->bnqk", q, k)
+                # fp32 keys (MORES's docs) are rounded to bf16 first, as XLA
+                # does for a bf16 product of mixed operands
+                scores = torch.einsum("bqnd,bknd->bnqk", q, k.to(q.dtype))
             else:
                 scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
             scores = scores / torch.tensor(math.sqrt(hd), dtype=scores.dtype)
@@ -238,7 +308,6 @@ class BertEncoder(nn.Module):
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
-        _check_supported(cfg)
         self.config = cfg
         self.layer = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_hidden_layers))
 
@@ -321,7 +390,7 @@ class BertModel(nn.Module):
                 inputs_embeds=None, attention_adj=None):
         cfg = self.config
         x = self.embeddings(input_ids, token_type_ids, inputs_embeds=inputs_embeds)
-        can_flash = cfg.use_pallas_attention and attention_adj is None
+        can_flash = (cfg.use_flash_attention or cfg.use_pallas_attention) and attention_adj is None
         mask_bias = None
         if attention_mask is not None and not can_flash:
             mask_bias = additive_mask(attention_mask)

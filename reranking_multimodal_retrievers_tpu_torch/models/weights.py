@@ -154,6 +154,53 @@ def rerank_state_dict(params: Tree) -> StateDict:
     return sd
 
 
+
+def interaction_rerank_state_dict(params: Tree) -> StateDict:
+    """Flax ``InteractionRerankModel`` params (CrossEncoder or MORES type) ->
+    the port's ``InteractionRerankModel`` state dict."""
+    sd: StateDict = {}
+    _dense(sd, "cross_encoder_input_mapping", params["cross_encoder_input_mapping"])
+    ce = params["reranker"]
+    if "bert_model" in ce:
+        _bert(sd, "reranker.bert_model.", ce["bert_model"])
+    i = 0
+    while f"layer_{i}" in ce:
+        lp, lpre = ce[f"layer_{i}"], f"reranker.layers.{i}"
+        _bert_attention(sd, f"{lpre}.crossattention", lp["crossattention"])
+        _bert_attention(sd, f"{lpre}.attention", lp["attention"])
+        for n in ("intermediate", "output"):
+            _dense(sd, f"{lpre}.{n}", lp[n])
+        _layernorm(sd, f"{lpre}.layernorm", lp["layernorm"])
+        i += 1
+    _dense(sd, "reranker.classifier1", ce["classifier1"])
+    _dense(sd, "reranker.classifier2", ce["classifier2"])
+    return sd
+
+
+def legacy_retriever_state_dict(params: Tree) -> StateDict:
+    """Flax params of a legacy retriever (``VisualDPR``, ``RetrieverDPR``,
+    ``RetrieverT5``, ``VisualColBERTMultipleMapping``, ``VisualColBERTMAE``
+    or ``VisualDPRForRAG``) -> the port's state dict; ``VisualColBERT``'s
+    are ``flmr_state_dict``'s. BERTs keep their names, the CLIP ViT is
+    ``vision_encoder.vision_model``, a two-layer vision MLP keeps ``fc1`` /
+    ``fc2`` (``vision_projection_<i>`` becomes ``vision_projections.<i>``)
+    and MAE's mapping encoder is ``vision_projection``."""
+    sd: StateDict = {}
+    for name, p in params.items():
+        if name in ("query_encoder", "item_encoder", "text_encoder", "encoder"):
+            _bert(sd, f"{name}.", p)
+        elif name == "vision_encoder":
+            _clip(sd, "vision_encoder.vision_model.", p)
+        elif "layer_0" in p:
+            _bert_encoder(sd, name, p)
+        elif "fc1" in p:
+            prefix = name.replace("vision_projection_", "vision_projections.")
+            _dense(sd, f"{prefix}.fc1", p["fc1"])
+            _dense(sd, f"{prefix}.fc2", p["fc2"])
+        else:
+            _dense(sd, name, p)
+    return sd
+
 # ---- the decoder rerankers: LoRA, T5, OPT, BLIP-2 ---------------------------
 
 def _linear(sd: StateDict, name: str, p: Tree) -> None:

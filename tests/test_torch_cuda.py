@@ -305,6 +305,94 @@ def test_bert_kernel_path_matches_plain_path(gen):
     torch.testing.assert_close(a, b, atol=6e-2, rtol=0)
 
 
+@pytest.mark.parametrize("L", [640, 369])
+def test_k2_at_the_interaction_launch_shapes(gen, L):
+    """K2 at the interaction reranker's launch shapes: [100, 128 + 512,
+    12 x 64] (bench.py's traffic) and [100, 113 + 256, 12 x 64] (FLMR's
+    query rows and an index's doc rows), doc tails padded."""
+    B, H = 100, 12
+    q, k, v = (torch.randn(B, L, H * 64, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.randint(L // 3, L + 1, (B,), device="cuda", generator=gen)
+    bias = torch.where(torch.arange(L, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
+    launches = fused_self_attention.launches
+    got = fused_self_attention(q, k, v, bias, num_heads=H, sm_scale=0.125)
+    torch.cuda.synchronize()
+    assert fused_self_attention.launches == launches + 1
+    ref = fused_self_attention_reference(q, k, v, bias, num_heads=H, sm_scale=0.125)
+    torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("interaction_type,launches_per_call", [("CrossEncoder", 2),
+                                                                ("MORES", 0)])
+def test_interaction_kernel_path_matches_plain_path(gen, interaction_type, launches_per_call):
+    """The interaction reranker in bf16 with use_pallas_attention: the
+    CrossEncoder type routes each layer's self-attention through K2 (any
+    L: here 45 + 60), MORES launches nothing; the same weights without the
+    flag take the plain path."""
+    from reranking_multimodal_retrievers_tpu_torch.models.bert import BertConfig
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import (
+        InteractionRerankConfig, InteractionRerankModel)
+
+    kw = dict(hidden_size=128, num_attention_heads=2, intermediate_size=256,
+              max_position_embeddings=512)
+    fused = InteractionRerankModel(InteractionRerankConfig(
+        cross_encoder=BertConfig.tiny(use_pallas_attention=True, **kw),
+        interaction_type=interaction_type), dtype=torch.bfloat16, generator=gen)
+    plain = InteractionRerankModel(InteractionRerankConfig(
+        cross_encoder=BertConfig.tiny(**kw), interaction_type=interaction_type),
+        dtype=torch.bfloat16)
+    plain.load_state_dict(fused.state_dict())
+    nway = 3
+    q = torch.randn(2, 45, 128, device="cuda", generator=gen).to(torch.bfloat16)
+    d = torch.randn(2 * nway, 60, 128, device="cuda", generator=gen).to(torch.bfloat16)
+    qm = torch.ones(2, 45, dtype=torch.int32, device="cuda")
+    dm = torch.ones(2 * nway, 60, dtype=torch.int32, device="cuda")
+    qm[1, 30:], dm[2, 40:] = 0, 0
+    launches = fused_self_attention.launches
+    with torch.inference_mode():
+        a = fused(q, d, nway - 1, qm, dm).logits.float()
+        b = plain(q, d, nway - 1, qm, dm).logits.float()
+    assert fused_self_attention.launches == launches + launches_per_call
+    # two bf16 layers of LayerNorm'd activations of order 1, then a head
+    # with weights of std 0.02 over 128 of them: logits of std ~0.2
+    torch.testing.assert_close(a, b, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_path_matches_its_plain_version(gen, dtype):
+    """``segment_attention`` on the card (``scaled_dot_product_attention``
+    with the segment mask) against its plain version on the CPU, and a
+    BERT with use_flash_attention at L = 384 against the same weights on
+    the unfused path with the segment bias, every row."""
+    from reranking_multimodal_retrievers_tpu_torch.models.bert import (
+        BertConfig, BertModel, segment_attention)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, L, hd = 3, 2, 384, 64
+    q, k, v = (torch.randn(B, H, L, hd, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    seg = torch.ones(B, L, dtype=torch.int32, device="cuda")
+    seg[1, 300:], seg[2, 100:] = 0, 0
+    got = segment_attention(q, k, v, seg, sm_scale=hd ** -0.5).float().cpu()
+    want = segment_attention(q.cpu(), k.cpu(), v.cpu(), seg.cpu(), sm_scale=hd ** -0.5).float()
+    # fp32: another order of fp32 sums; bf16: the library's bf16 roundings
+    atol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+    kw = dict(hidden_size=128, num_attention_heads=2, intermediate_size=256,
+              max_position_embeddings=512)
+    model = BertModel(BertConfig.tiny(use_flash_attention=True, **kw), dtype=dtype,
+                      generator=gen)
+    ids = torch.randint(1, 1000, (B, L), device="cuda", generator=gen) * seg
+    same = seg.bool()[:, :, None] == seg.bool()[:, None, :]
+    with torch.inference_mode():
+        a = model(ids, seg)["last_hidden_state"].float()
+        b = model(ids, None, attention_adj=torch.where(same, 0.0, -1e9))["last_hidden_state"]
+    torch.testing.assert_close(a, b.float(), atol=1e-4 if dtype == torch.float32 else 6e-2,
+                               rtol=0)
+
+
 def _codes(gen, *shape, lo=-127, hi=128):
     return torch.randint(lo, hi, shape, device="cuda", generator=gen, dtype=torch.int8)
 

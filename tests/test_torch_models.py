@@ -174,6 +174,74 @@ def test_flmr_doc_matches_jax(multimodal_docs):
 
 
 def test_unported_bert_options_raise():
-    # quantize_int8 is ported (tests/test_torch_quant.py); flash is not
-    with pytest.raises(NotImplementedError):
-        tbert.BertModel(tbert.BertConfig.tiny(use_flash_attention=True), device="cpu")
+    """The name is kept from when the port refused options; it now holds the
+    opposite. Every BERT option builds now: ``quantize_int8`` (held against the JAX
+    package in ``tests/test_torch_quant.py``) and ``use_flash_attention``,
+    which was refused here before (held below)."""
+    for kw in (dict(quantize_int8=True), dict(use_flash_attention=True)):
+        m = tbert.BertModel(tbert.BertConfig.tiny(**kw), device="cpu")
+        with torch.no_grad():
+            out = m(torch.ones(1, 4, dtype=torch.long), torch.ones(1, 4, dtype=torch.long))
+        assert torch.isfinite(out["last_hidden_state"]).all()
+    layer = tbert.BertModel(tbert.BertConfig.tiny(quantize_int8=True), device="cpu").encoder.layer[0]
+    assert type(layer.attention.self.query).__name__ == "Int8Linear"
+
+
+def test_attention_route_matches_jax():
+    """``flash_block_q`` is the JAX package's tile choice
+    (``models/bert.py:157-158``) at every length; every length padded to a
+    multiple of 128 has one, so the gate's length test is ``L >= 256``."""
+    for L in range(1, 1100):
+        L_pad = -(-L // 128) * 128
+        want = next((b for b in (512, 256, 128) if L_pad % b == 0), None)
+        assert tbert.flash_block_q(L) == want
+    cfg = tbert.BertConfig.tiny(use_flash_attention=True)
+    route = tbert.attention_route
+    assert [route(cfg, L, True, False) for L in (128, 255, 256, 384)] == [
+        "unfused", "unfused", "flash", "flash"]
+    assert route(cfg, 384, False, False) == "unfused"  # attention fusion: no flash
+    assert route(cfg, 384, True, True) == "unfused"  # cross-attention
+    both = tbert.BertConfig.tiny(use_flash_attention=True, use_pallas_attention=True)
+    assert route(both, 384, True, False) == "k2"  # K2 takes precedence
+    k2 = tbert.BertConfig.tiny(use_pallas_attention=True)
+    assert [route(k2, L, True, False) for L in (8, 369, 640)] == ["k2"] * 3  # any L
+    assert route(k2, 384, True, True) == route(k2, 384, False, False) == "unfused"
+    assert route(tbert.BertConfig.tiny(), 384, True, False) == "unfused"
+
+
+@pytest.mark.parametrize("L,case", [(256, "flash"), (384, "flash"), (128, "fallback"),
+                                    (255, "fallback"), (384, "pallas_precedence")])
+def test_bert_flash_attention(L, case):
+    """``use_flash_attention`` at tiny width with right padding. Real rows
+    match the JAX package's unfused path within 1e-5 (a real token attends
+    only real tokens either way); every row matches the plain segment-mask
+    version (the same weights on the unfused path with a [B, L, L] bias
+    that is 0 within a segment and -1e9 across). Below 256 the gate falls
+    back to the unfused path, where pad rows attend real keys: every row
+    then matches JAX's; so does K2's path, which takes precedence. At
+    L >= 256 the pad rows differ from the unfused path's."""
+    kw = dict(max_position_embeddings=512)
+    jcfg = jbert.BertConfig.tiny(**kw)
+    rng = np.random.default_rng(L)
+    ids, am = _ids(rng, 2, L, pad_from=[L - 37, L // 2])
+    jm = jbert.BertModel(jcfg)
+    params = jax.device_get(jm.init(jax.random.PRNGKey(0), ids, am)["params"])
+    want = np.asarray(jm.apply({"params": params}, ids, am)["last_hidden_state"])
+
+    tkw = dict(kw, use_flash_attention=True,
+               use_pallas_attention=case == "pallas_precedence")
+    tm = tbert.BertModel(tbert.BertConfig.tiny(**tkw), device="cpu")
+    tm.load_state_dict(weights.bert_state_dict(params))
+    tids, tam = torch.as_tensor(ids).long(), torch.as_tensor(am)
+    seg = tam.bool()
+    seg_bias = torch.where(seg[:, :, None] == seg[:, None, :], 0.0, -1e9)
+    with torch.no_grad():
+        got = _np(tm(tids, tam)["last_hidden_state"])
+        plain = _np(tm(tids, None, attention_adj=seg_bias)["last_hidden_state"])
+    real = am.astype(bool)
+    np.testing.assert_allclose(got[real], want[real], rtol=1e-5, atol=1e-5)
+    if case == "flash":
+        np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5)
+        assert np.abs(got[~real] - want[~real]).max() > 1e-3
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
