@@ -95,10 +95,32 @@ Phases, each printing one JSON line with its elapsed seconds:
      launches); 9d. one MORES training step at 9b's width in fp32
      (negative sampling over 2 queries x (1 + 2) candidates, AdamW at
      1e-4) against the same step on the CPU, then steps/s; no launch;
-  7. after phase 9: the ``kernels`` line (K1 and K3 with their times at
+  10. the rest of the engine (``engine/{codec,plaid,compress,condenser,
+     trainer}.py``): 10a. phase 3's 100,000 x 256 x 128 index compressed on
+     the card (256 centroids, a 65,536-token sample, 2^21-token slabs, as
+     ``flmr_executor.py:392-404`` does), then CompressedSearcher (k 100 of
+     1,024 candidates; stage 1 through K1 over decompressed bf16 slabs) over
+     ``bench.py:745``'s 32 x 96 queries and phase 3's 8 queries: compress
+     seconds, queries/s (best of 3 after a warm-up), the memory ratio to the
+     bf16 index, top-100 recall against the exact K1 search, the time of
+     stage 1 (decompression and K1) and stage 2; the top-100 against the
+     plain two-stage version on the card, stage 1 against the plain stage 1
+     on one slab, and on the first 2,048 docs the card's codec against the
+     CPU's; 10b. the index pooled 2x on the card and searched by K1 at
+     L_d = 128 (recall against 10a's exact top-100; one batch of pooling
+     against the CPU); 10c. two Baleen hops (25 then 10 passages) for 4
+     questions over a synthetic 4,096-passage collection, both readers at
+     ELECTRA-large width (24 x 1024, 16 heads x 64) in bf16 through K2 at
+     [25, 512, 16 x 64], four passages' stage-1 scores against a CPU fp32
+     recomputation, K2 against its plain version at that shape; 10d. the
+     triples trainer at its config's defaults (bsize 8, nway 2, 32 + 180
+     tokens) for 10 steps with a text-only FLMR at BERT-base width in fp32,
+     the first step's loss and one KL-distillation step against the CPU;
+     no kernel launch;
+  7. after phase 10: the ``kernels`` line (K1 and K3 with their times at
      ``bench.py``'s batch and the 100k searches of phases 3 and 3b beside
-     the bound, K2 at each main-path variant's launch shape), then the
-     result line.
+     the bound, K1 at stage 1's and the pooled index's launch shapes, K2 at
+     each main-path variant's launch shape), then the result line.
 
 ``python3 chip_smoke.py --probe-t5-init`` instead builds the kernels and
 runs phase 5's model once with every weight at std 0.02 (none of HF T5's
@@ -106,8 +128,9 @@ scales): p(yes) of four candidates through K2 and through the plain path in
 bf16, and in fp32, as information.
 
 The launch counters are set to 0 just before each main-path phase (3, 3b,
-3c, 4, 4b, 5, 6, 8's training run, 9a, 9b, 9c and 9d's timed steps) and
-read just after it; phases 8, 9b and 9d must launch none. Each decoder
+3c, 4, 4b, 5, 6, 8's training run, 9a, 9b, 9c, 9d's timed steps, 10a, 10b,
+10c and 10d) and read just after it; phases 8, 9b, 9d and 10d must launch
+none. Phase 3's index stays on the card until phase 10b. Each decoder
 family is built, run and freed before the next (about 8 GB each in bf16).
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits non-zero before printing anything.
@@ -209,6 +232,39 @@ INTER_ATOL, INTER_RTOL = 0.05, 0.05
 MORES_TRAIN_B, MORES_TRAIN_NWAY = 2, 3
 # its steps/s: the median of 4 windows of 5 steps each, after 3 warm-up steps
 MORES_WARMUP, MORES_WINDOWS, MORES_WINDOW_STEPS = 3, 4, 5
+# phase 10a: bench.py:723-800's compressed retrieval at BENCH_PLAID_N=100000
+# (phase 3's index): 32 queries x 96 tokens drawn as bench.py:745 draws them,
+# k = 100 of 1,024 candidates, the executor's codec settings
+# (flmr_executor.py:392-404: 256 centroids; the codec's 65,536-token sample
+# and 2^21-token slabs)
+PLAID_B, PLAID_LQ, PLAID_K, PLAID_CANDIDATES, PLAID_CENTROIDS = 32, 96, 100, 1024, 256
+# the card's compress against the CPU's on the index's first docs
+PLAID_SUBSET = 2048
+# stage 1 through K1 against the plain stage 1, and the card's final top-100
+# against the plain two-stage version: exact bf16 products in fp32 on both
+# sides, summed in another order; queries of norm ~11 give totals up to ~100
+PLAID_ATOL, PLAID_RTOL = 2e-3, 2e-5
+# the codec, card against CPU: centroids are fp32 sums of up to a few
+# thousand unit rows in another order (1e-5); a token's code may differ only
+# where the CPU's scores of the two centroids lie within CODE_TIE; a residual
+# only where the two unrounded residual / scale values straddle a rounding
+# boundary less than RESID_TIE of a step apart
+CENTROID_TOL, CODE_TIE, RESID_TIE = 1e-5, 1e-5, 0.05
+# phase 10b: pooling factor 2, BATCH docs a call; one batch of
+# POOL_CHECK_DOCS docs against the CPU within one bf16 spacing of a unit
+# vector
+POOL_FACTOR, POOL_BATCH, POOL_CHECK_DOCS = 2, 8192, 256
+# phase 10c: Baleen's reader at ELECTRA-large width (the public config of
+# google/electra-large-discriminator), 4,096 passages, 4 questions, two hops
+BALEEN_PASSAGES, BALEEN_QUERIES, BALEEN_MAXLEN, BALEEN_QTOKENS = 4096, 4, 512, 32
+# sentence scores in bf16 on the card against fp32 on the CPU through 24
+# layers: bf16 keeps 8 mantissa bits (0.4% a rounding), which 24 residual
+# layers accumulate to a few percent of the final hidden state; the head's
+# scores (std ~0.6 at these random weights) move by a few hundredths
+BALEEN_ATOL, BALEEN_RTOL = 0.1, 0.05
+# phase 10d: the triples trainer at its config's defaults, 10 steps (CE), and
+# one KL-distillation step over 2 queries, both against the CPU
+TRIPLES_STEPS, TRIPLES_KL_B = 10, 2
 
 
 def emit(obj):
@@ -1475,6 +1531,487 @@ def mores_training(smi):
             "cpu_seconds": cpu_s, "launches": launches, "seconds": time.perf_counter() - t0}
 
 
+def best_ms(fn, reps=3):
+    """The best of ``reps`` timed calls of ``fn`` after one warm-up call, each
+    timed with CUDA events (``fn`` ends in a host copy)."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def recall_at_k(ids, exact_ids):
+    """The mean share of each row of ``exact_ids`` found in the same row of
+    ``ids``."""
+    return float(np.mean([len(set(map(int, a)) & set(map(int, b))) / len(b)
+                          for a, b in zip(ids, exact_ids)]))
+
+
+def same_top_k(got_vals, got_ids, want_vals, want_ids, atol, rtol):
+    """Values within ``atol + rtol * |value|`` rank by rank; an id may differ
+    from the reference's only between docs whose reference values lie within
+    that tolerance (an order swap), or at the boundary for a doc within it of
+    the reference's last value. Returns the largest |value difference|."""
+    err = float(np.abs(got_vals - want_vals).max())
+    check(np.allclose(got_vals, want_vals, atol=atol, rtol=rtol),
+          f"top-k values off by {err}")
+    for gv, gi, wv, wi in zip(got_vals, got_ids, want_vals, want_ids):
+        rank = {int(d): r for r, d in enumerate(wi)}
+        for r, d in enumerate(gi):
+            if d == wi[r]:
+                continue
+            w = wv[rank[int(d)]] if int(d) in rank else wv[-1]
+            ref = wv[r] if int(d) in rank else gv[r]
+            check(abs(w - ref) <= atol + rtol * abs(w), f"top-k id {d} at rank {r} is no near-tie")
+    return err
+
+
+def k1_line(Q, D, M, name):
+    """K1 against its plain version at a phase's launch shape, timed beside
+    it, with the bound of the same work. Returns the line."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import (
+        maxsim_scores, maxsim_scores_reference)
+
+    B, LQ, DIM = Q.shape
+    N, LD, _ = D.shape
+    got = maxsim_scores(Q, D, M)
+    ref = maxsim_scores_reference(Q, D, M)
+    err = (got - ref).abs().max().item()
+    check(torch.allclose(got, ref, atol=PLAID_ATOL, rtol=PLAID_RTOL),
+          f"K1 {name}: max |diff| {err}")
+    del got, ref
+    flops = 2 * B * LQ * N * LD * DIM
+    b_ms, b_by = bound(flops, Q.numel() * 2 + D.numel() * 2 + M.numel() + B * N * 4)
+    ms = cuda_ms(lambda: maxsim_scores(Q, D, M), 10)
+    return dict(variant=name, shape=[[B, LQ, DIM], [N, LD, DIM]], max_abs_err=err,
+                tol=[PLAID_ATOL, PLAID_RTOL], ms=ms,
+                plain_ms=cuda_ms(lambda: maxsim_scores_reference(Q, D, M), 1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, share_of_bound=b_ms / ms,
+                tflops=flops / (ms * 1e-3) / 1e12)
+
+
+def compare_codecs(card, cpu, emb):
+    """The card's CompressedTokenIndex against the CPU's, compressed from the
+    same tokens ``emb``. Returns the comparison's numbers."""
+    cent_err = (card.centroids.cpu() - cpu.centroids).abs().max().item()
+    check(cent_err <= CENTROID_TOL, f"codec centroids: card off the CPU's by {cent_err}")
+    e = emb.cpu().float().reshape(-1, emb.shape[-1])
+    valid = cpu.mask.reshape(-1)
+    c_card, c_cpu = card.codes.cpu().reshape(-1).long(), cpu.codes.reshape(-1).long()
+    code_flips = (c_card != c_cpu) & valid
+    if code_flips.any():
+        x = e[code_flips]
+        gap = ((x * cpu.centroids[c_cpu[code_flips]]).sum(-1)
+               - (x * cpu.centroids[c_card[code_flips]]).sum(-1)).abs()
+        check(gap.max().item() <= CODE_TIE, f"codec: a code flip is no near-tie ({gap.max()})")
+    scale_err = ((card.scales.cpu() - cpu.scales).abs() / cpu.scales).max().item()
+    same = ~code_flips
+    r_card = card.residuals.cpu().reshape(e.shape)[same & valid]
+    r_cpu = cpu.residuals.reshape(e.shape)[same & valid]
+    resid_flips = r_card != r_cpu
+    if resid_flips.any():
+        q = [(e[same & valid] - c.centroids.cpu()[codes[same & valid]]) / c.scales.cpu()
+             for c, codes in ((card, c_card), (cpu, c_cpu))]
+        apart = (q[0] - q[1]).abs()[resid_flips].max().item()
+        check(apart < RESID_TIE, f"codec: a residual flip is no rounding near-tie ({apart})")
+    return {"centroid_max_abs_err": cent_err, "scale_max_rel_err": scale_err,
+            "code_flips": int(code_flips.sum()), "residual_flips": int(resid_flips.sum()),
+            "valid_tokens": int(valid.sum())}
+
+
+def compressed_retrieval(index, Qm, smi):
+    """Phase 10a: ``index`` (phase 3's) compressed on the card, then
+    CompressedSearcher over bench.py's 32 queries and phase 3's ``Qm``,
+    against the exact K1 search and the plain two-stage version. Returns
+    (the phase's line, K1's line at stage 1's launch shape, the 32 queries
+    and their exact top-100)."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import make_search_fn
+    from reranking_multimodal_retrievers_tpu_torch.engine.codec import compress, decompress
+    from reranking_multimodal_retrievers_tpu_torch.engine.plaid import (
+        CompressedSearcher, stage1_k1, stage1_plain, stage2_top_k)
+    from reranking_multimodal_retrievers_tpu_torch.engine.search import SLAB_DOCS
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import maxsim_scores
+
+    t0 = time.perf_counter()
+    emb, mask = index.embeddings, index.mask
+    N, LD, DIM = emb.shape
+    Qb = torch.as_tensor(np.random.default_rng(1).normal(size=(PLAID_B, PLAID_LQ, DIM))
+                         .astype(np.float32)).cuda()
+    Qb16 = Qb.to(torch.bfloat16)
+    exact = make_search_fn(N, k=PLAID_K)
+    slabs = -(-N // SLAB_DOCS)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cidx = compress(emb, mask, index.doc_ids, num_centroids=PLAID_CENTROIDS, device="cuda")
+    torch.cuda.synchronize()
+    compress_s = time.perf_counter() - t1
+    searcher = CompressedSearcher(cidx, k=PLAID_K, n_candidates=PLAID_CANDIDATES)
+    _, exact_ids = exact(Qb16, emb, mask)
+    vals, ids = searcher.search(Qb)
+    _, exact_ids_m = exact(Qm, emb, mask)
+    vals_m, ids_m = searcher.search(Qm)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches == {"K1": 4 * slabs, "K2": 0, "K3": 0},
+          f"compressed retrieval launches {launches}, want K1 = {4 * slabs} and no other")
+    exact_ids, exact_ids_m = exact_ids.cpu().numpy(), exact_ids_m.cpu().numpy()
+    check(ids.shape == (PLAID_B, PLAID_K) and bool(np.isfinite(vals).all())
+          and bool(np.isfinite(vals_m).all()), f"compressed top-k {ids.shape}")
+    bf16_bytes = N * LD * DIM * 2
+    recall, recall_m = recall_at_k(ids, exact_ids), recall_at_k(ids_m, exact_ids_m)
+    # a wrong codec or wrong ids would find about k / N of the exact top-k
+    check(recall > 0.1 and recall_m > 0.1, f"compressed recall {recall}, {recall_m}")
+
+    # checks: the top-100 against the plain two-stage version on the card,
+    # stage 1 through K1 against the plain stage 1 on one slab, the codec
+    # against the CPU on a subset
+    t2 = time.perf_counter()
+    arrays = (cidx.codes, cidx.residuals, cidx.centroids, cidx.scales, cidx.mask)
+    with torch.inference_mode():
+        plain1 = stage1_plain(Qb, *arrays, chunk=searcher.chunk, bf16=True)
+        pv, pi = stage2_top_k(Qb, plain1, *arrays, PLAID_CANDIDATES, PLAID_K)
+        del plain1
+        top_err = same_top_k(vals, ids, pv.cpu().numpy(), pi.cpu().numpy(), PLAID_ATOL,
+                             PLAID_RTOL)
+        one = (cidx.codes[:SLAB_DOCS], cidx.residuals[:SLAB_DOCS], cidx.centroids,
+               cidx.scales, cidx.mask[:SLAB_DOCS])
+        s_k1 = stage1_k1(Qb, *one)
+        s_plain = stage1_plain(Qb, *one, chunk=256, bf16=True)
+        stage1_err = (s_k1 - s_plain).abs().max().item()
+        check(torch.allclose(s_k1, s_plain, atol=PLAID_ATOL, rtol=PLAID_RTOL),
+              f"stage 1 through K1 off the plain stage 1 by {stage1_err}")
+        del s_k1, s_plain
+    sub = slice(0, PLAID_SUBSET)
+    sub_ids = index.doc_ids[sub]
+    card_sub = compress(emb[sub], mask[sub], sub_ids, num_centroids=PLAID_CENTROIDS,
+                        device="cuda")
+    cpu_sub = compress(emb[sub].cpu(), mask[sub].cpu(), sub_ids,
+                       num_centroids=PLAID_CENTROIDS, device="cpu")
+    codec_check = compare_codecs(card_sub, cpu_sub, emb[sub])
+    del card_sub, cpu_sub
+    check_s = time.perf_counter() - t2
+
+    # where the time goes (after the counts were read)
+    with torch.inference_mode():
+        plaid_ms = best_ms(lambda: searcher.search(Qb))
+        exact_ms = best_ms(lambda: exact(Qb16, emb, mask)[1].cpu())
+        stage1_ms = cuda_ms(lambda: stage1_k1(Qb, *arrays), 3)
+        decompress_ms = cuda_ms(lambda: [decompress(cidx.codes[s:s + SLAB_DOCS],
+                                                    cidx.residuals[s:s + SLAB_DOCS],
+                                                    cidx.centroids, cidx.scales).to(torch.bfloat16)
+                                         for s in range(0, N, SLAB_DOCS)], 3)
+        stage1_kernel_ms = cuda_ms(lambda: [maxsim_scores(Qb16, emb[s:s + SLAB_DOCS],
+                                                          mask[s:s + SLAB_DOCS])
+                                            for s in range(0, N, SLAB_DOCS)], 3)
+        stage1 = stage1_k1(Qb, *arrays)
+        stage2_ms = cuda_ms(lambda: stage2_top_k(Qb, stage1, *arrays, PLAID_CANDIDATES,
+                                                 PLAID_K), 3)
+        del stage1
+        D0 = decompress(cidx.codes[:SLAB_DOCS], cidx.residuals[:SLAB_DOCS], cidx.centroids,
+                        cidx.scales).to(torch.bfloat16)
+        k1 = k1_line(Qb16, D0, cidx.mask[:SLAB_DOCS].contiguous(),
+                     "stage 1 of compressed search (10a)")
+        del D0
+    k1["launches"] = launches["K1"] - 2 * slabs  # the exact searches are phase 3's shape
+    line = {"phase": "retrieve_compressed", "card": smi, "index": [N, LD, DIM],
+            "queries": PLAID_B, "query_tokens": PLAID_LQ, "k": PLAID_K,
+            "n_candidates": PLAID_CANDIDATES, "num_centroids": PLAID_CENTROIDS,
+            "compress_seconds": compress_s, "compressed_bytes": cidx.nbytes(),
+            "bf16_bytes": bf16_bytes, "memory_ratio": bf16_bytes / cidx.nbytes(),
+            "search_ms": plaid_ms, "queries_per_s": PLAID_B / (plaid_ms * 1e-3),
+            "exact_search_ms": exact_ms, "exact_queries_per_s": PLAID_B / (exact_ms * 1e-3),
+            "stage1_ms": stage1_ms, "stage1_decompress_ms": decompress_ms,
+            "stage1_k1_ms": stage1_kernel_ms, "stage2_ms": stage2_ms,
+            "recall_at_100": recall, "flmr_queries_recall_at_100": recall_m,
+            "top100_vs_plain_max_abs_err": top_err, "stage1_vs_plain_max_abs_err": stage1_err,
+            "codec_card_vs_cpu": {"docs": PLAID_SUBSET, **codec_check},
+            "check_seconds": check_s, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+    del cidx, searcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, k1, (Qb, exact_ids)
+
+
+def pooled_retrieval(index, Qb, exact_ids, smi):
+    """Phase 10b: ``index`` pooled 2x on the card, Searcher over it (K1 at
+    L_d = 128), recall against 10a's exact top-100. Returns (the phase's
+    line, K1's line at the pooled launch shape)."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import Searcher, pool_doc_tokens, pool_index
+    from reranking_multimodal_retrievers_tpu_torch.engine.search import SLAB_DOCS
+
+    t0 = time.perf_counter()
+    N = index.num_padded_docs
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pooled = pool_index(index, factor=POOL_FACTOR, batch=POOL_BATCH)
+    torch.cuda.synchronize()
+    pool_s = time.perf_counter() - t1
+    searcher = Searcher(pooled, k=PLAID_K)
+    ids, vals = searcher.search(Qb)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    slabs = -(-N // SLAB_DOCS)
+    check(launches == {"K1": slabs, "K2": 0, "K3": 0},
+          f"pooled retrieval launches {launches}, want K1 = {slabs} and no other")
+    check(len(ids) == PLAID_B and all(len(r) == PLAID_K for r in ids)
+          and bool(np.isfinite(vals).all()), "pooled top-k")
+    # information: pooling random unit tokens keeps little of their ranking;
+    # the kernel check below and the CPU check of the pooling hold the path
+    recall = recall_at_k(ids, exact_ids)
+    search_ms = best_ms(lambda: searcher.search(Qb))
+    # one batch against the CPU
+    n = POOL_CHECK_DOCS
+    with torch.inference_mode():
+        p_card, m_card = pool_doc_tokens(index.embeddings[:n], index.mask[:n], factor=POOL_FACTOR)
+        p_cpu, m_cpu = pool_doc_tokens(index.embeddings[:n].cpu(), index.mask[:n].cpu(),
+                                       factor=POOL_FACTOR)
+    pool_err = (p_card.cpu().float() - p_cpu.float()).abs().max().item()
+    check(torch.equal(m_card.cpu(), m_cpu) and pool_err <= 2.0 ** -8,
+          f"pooled tokens on the card off the CPU's by {pool_err}")
+    with torch.inference_mode():
+        k1 = k1_line(Qb.to(torch.bfloat16), pooled.embeddings[:SLAB_DOCS],
+                     pooled.mask[:SLAB_DOCS].contiguous(), "pooled index, L_d = 128 (10b)")
+    k1["launches"] = launches["K1"]
+    line = {"phase": "retrieve_pooled", "card": smi, "index": list(pooled.embeddings.shape),
+            "factor": POOL_FACTOR, "pool_seconds": pool_s, "search_ms": search_ms,
+            "queries_per_s": PLAID_B / (search_ms * 1e-3), "recall_at_100": recall,
+            "pool_vs_cpu_max_abs_err": pool_err, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+    del pooled, searcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, k1
+
+
+def baleen_tokenize(queries, passages, maxlen=BALEEN_MAXLEN, max_sents=32):
+    """Whitespace tokenizer with the ``[MASK]``-separator convention (BERT's
+    ids: [CLS] 101, [SEP] 102, [MASK] 103; other words hashed into
+    1000-29999): ``[CLS] query [SEP] passage [SEP]``, padded to ``maxlen``;
+    each ``[MASK]`` after the first [SEP] anchors a sentence."""
+    import zlib
+
+    B = len(passages)
+    ids = np.zeros((B, maxlen), np.int64)
+    am, tt = np.zeros_like(ids), np.zeros_like(ids)
+    sp = np.full((B, max_sents), -1, np.int64)
+    special = {"[CLS]": 101, "[SEP]": 102, "[MASK]": 103}
+    for b, (q, p) in enumerate(zip(queries, passages)):
+        qt = q.split()
+        toks = (["[CLS]"] + qt + ["[SEP]"] + p.split() + ["[SEP]"])[:maxlen]
+        sep_at = len(qt) + 1
+        nsent = 0
+        for i, t in enumerate(toks):
+            ids[b, i] = special.get(t, 1000 + zlib.crc32(t.encode()) % 29000)
+            if t == "[MASK]" and i > sep_at and nsent < max_sents:
+                sp[b, nsent] = i
+                nsent += 1
+            am[b, i] = 1
+            tt[b, i] = int(i > sep_at)
+    return ids, am, tt, sp
+
+
+def baleen(smi):
+    """Phase 10c: two Baleen hops (25 then 10 passages) for 4 questions over
+    a synthetic 4,096-passage collection, the readers at ELECTRA-large width
+    in bf16 through K2. Returns (the phase's line, K2's line)."""
+    import zlib
+
+    from reranking_multimodal_retrievers_tpu_torch.engine import Searcher, TokenIndex
+    from reranking_multimodal_retrievers_tpu_torch.engine.condenser import (
+        BaleenEngine, Condenser, HopConfig, HopSearcher, SentenceReader)
+    from reranking_multimodal_retrievers_tpu_torch.models import BertConfig
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 20)
+    words = [f"w{i}" for i in range(20000)]
+
+    def sentence(lo, hi):
+        return " ".join(words[j] for j in rng.integers(0, len(words), int(rng.integers(lo, hi))))
+
+    workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_baleen"
+    workdir.mkdir(parents=True, exist_ok=True)
+    path = workdir / "collectionX.jsonl"
+    with open(path, "w") as f:
+        for pid in range(BALEEN_PASSAGES):
+            f.write(json.dumps({"pid": pid, "title": sentence(2, 5),
+                                "text": [sentence(8, 21) for _ in range(int(rng.integers(4, 9)))]})
+                    + "\n")
+    # ELECTRA-large: 24 layers, 1024 hidden, 16 heads x 64, 4096 FFN
+    cfg = BertConfig(vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
+                     num_attention_heads=16, intermediate_size=4096,
+                     max_position_embeddings=512, use_pallas_attention=True)
+    readers = [SentenceReader(cfg, device="cuda", dtype=torch.bfloat16,
+                              generator=torch.Generator(device="cuda").manual_seed(SEED + i)).eval()
+               for i in (21, 22)]
+    condenser = Condenser(str(path), readers[0], readers[1], readers[0], baleen_tokenize)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    index = TokenIndex(embeddings=unit(gen, BALEEN_PASSAGES, 128, 128),
+                       mask=torch.ones(BALEEN_PASSAGES, 128, dtype=torch.bool, device="cuda"),
+                       doc_ids=[str(p) for p in range(BALEEN_PASSAGES)])
+    hops = HopSearcher(Searcher(index, k=HopConfig().ncandidates), HopConfig())
+
+    def encode_query(text, facts):
+        g = torch.Generator(device="cuda").manual_seed(
+            zlib.crc32(" # ".join([text] + list(facts)).encode()))
+        return unit(g, 1, BALEEN_QTOKENS, 128)
+
+    engine = BaleenEngine(hops, condenser, encode_query, num_hops=2)
+    questions = [f"which {sentence(3, 6)} is {sentence(2, 4)}" for _ in range(BALEEN_QUERIES)]
+    setup_s = time.perf_counter() - t0
+    engine.search(questions[0])  # warms up cuBLAS
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t1 = time.perf_counter()
+    results = [engine.search(q) for q in questions]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = read_counts()
+    # per question and hop: one search (one slab) and two reader forwards
+    # (stage 1, stage 2) of 24 layers each
+    want = {"K1": 2 * BALEEN_QUERIES, "K2": 2 * 2 * cfg.num_hidden_layers * BALEEN_QUERIES,
+            "K3": 0}
+    check(launches == want, f"Baleen launches {launches}, want {want}")
+    for r in results:
+        check(r["pids"] and all(p in condenser.collectionX for p in r["pids"])
+              and all(k in condenser.collectionY for k in r["facts"])
+              and len(r["pids"]) <= sum(HopConfig().per_hop_k), f"Baleen result {r}")
+
+    # the first hop's stage-1 scores of four passages against fp32 on the CPU
+    t2 = time.perf_counter()
+    ranking, _ = hops.search(encode_query(questions[0], []), 0)
+    passages = [" [MASK] ".join(condenser.collectionX[int(p)]) for p in ranking[0]]
+    toks = baleen_tokenize([questions[0]] * len(passages), passages)
+    card = condenser._score(readers[0], questions[0], passages[:4])
+    cpu = SentenceReader(cfg, device="meta")
+    cpu.load_state_dict({k: v.float().cpu() for k, v in readers[0].state_dict().items()},
+                        assign=True)
+    with torch.inference_mode():
+        want_s = cpu(*(torch.as_tensor(a[:4]) for a in toks)).numpy()
+    finite = np.isfinite(want_s)
+    check((np.isfinite(card) == finite).all(), "Baleen: padded sentence slots differ")
+    score_err = float(np.abs(card[finite] - want_s[finite]).max())
+    check(np.allclose(card[finite], want_s[finite], atol=BALEEN_ATOL, rtol=BALEEN_RTOL),
+          f"Baleen stage-1 scores {card[finite][:8]} vs CPU fp32 {want_s[finite][:8]}")
+    cpu_s = time.perf_counter() - t2
+    del cpu
+    # K2 at the first hop's stage-1 launch shape, with its key mask
+    keep = torch.as_tensor(toks[1], device="cuda").bool()
+    k2 = _k2_interaction("key bias L=512, 16 heads (Baleen reader, 10c)", keep,
+                         cfg.num_attention_heads, cfg.head_dim, gen, smi)
+    k2["launches"] = launches["K2"]
+    line = {"phase": "baleen", "card": smi, "passages": BALEEN_PASSAGES,
+            "questions": BALEEN_QUERIES, "hops": 2, "per_hop_k": list(HopConfig().per_hop_k),
+            "reader": "ELECTRA-large width (24 x 1024, 16 x 64 heads), bf16, K2",
+            "seq_len": BALEEN_MAXLEN, "setup_seconds": setup_s, "run_seconds": run_s,
+            "questions_per_s": BALEEN_QUERIES / run_s,
+            "facts_per_question": [len(r["facts"]) for r in results],
+            "stage1_vs_cpu_fp32_max_abs_err": score_err, "cpu_check_seconds": cpu_s,
+            "launches": launches, "seconds": time.perf_counter() - t0}
+    del readers, condenser, engine, index
+    shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, k2
+
+
+def triples_training(smi):
+    """Phase 10d: the triples trainer (TriplesTrainerConfig's defaults) for
+    10 steps on the card with a text-only FLMR at BERT-base width in fp32;
+    the first step's loss against the CPU's, and one KL-distillation step
+    card against CPU. Returns the phase's line."""
+    import logging
+
+    from reranking_multimodal_retrievers_tpu_torch.engine import trainer
+    from reranking_multimodal_retrievers_tpu_torch.models import (
+        BertConfig, FLMRConfig, FLMRModelForRetrieval)
+
+    t0 = time.perf_counter()
+    cfg = trainer.TriplesTrainerConfig()
+    n_q = TRIPLES_STEPS * cfg.bsize
+    queries = {i: f"question {i}" for i in range(n_q)}
+    collection = [f"passage {i}" for i in range(4 * n_q)]
+    rng = np.random.default_rng(SEED + 30)
+    triples = [[q, *map(int, rng.integers(0, len(collection), cfg.nway))] for q in range(n_q)]
+    scored = [[q] + [[int(p), float(rng.normal())]
+                     for p in rng.integers(0, len(collection), cfg.nway)]
+              for q in range(TRIPLES_KL_B)]
+    fcfg = FLMRConfig(text_config=BertConfig(), dim=128, use_vision_encoder=False,
+                      query_concat_output_from_vision_encoder=False,
+                      use_transformer_mapping_network=False)
+    state = {k: v.cpu() for k, v in FLMRModelForRetrieval(
+        fcfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 31)
+    ).state_dict().items()}
+
+    def model_on(dev):
+        m = FLMRModelForRetrieval(fcfg, device="meta")
+        # a copy: training updates the weights in place
+        m.load_state_dict({k: v.to(dev, copy=True) for k, v in state.items()}, assign=True)
+        return m
+
+    class Losses(logging.Handler):
+        """Each logged step's loss (the trainer logs steps 1 and 10)."""
+
+        def __init__(self):
+            super().__init__()
+            self.steps = {}
+
+        def emit(self, record):
+            self.steps[record.args[0]] = (record.args[1], record.created)
+
+    log = logging.getLogger(trainer.__name__)
+    seen = Losses()
+    log.addHandler(seen)
+    log.setLevel(logging.INFO)
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, ema = trainer.train(cfg, triples, queries, collection, model=model_on("cuda"),
+                               device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        launches = read_counts()
+        check(launches == {"K1": 0, "K2": 0, "K3": 0}, f"triples launches {launches}")
+        check(sorted(seen.steps) == [1, TRIPLES_STEPS] and np.isfinite(ema),
+              f"triples steps logged {sorted(seen.steps)}, ema {ema}")
+        card_loss = seen.steps[1][0]
+        steps_per_s = (TRIPLES_STEPS - 1) / (seen.steps[TRIPLES_STEPS][1] - seen.steps[1][1])
+        # the KL path: one step on the card, its loss is the ema of one step
+        kl_cfg = dataclasses.replace(cfg, bsize=TRIPLES_KL_B, maxsteps=1)
+        _, kl_card = trainer.train(kl_cfg, scored, queries, collection, model=model_on("cuda"),
+                                   device="cuda")
+    finally:
+        log.removeHandler(seen)
+    t2 = time.perf_counter()
+    _, cpu_loss = trainer.train(dataclasses.replace(cfg, maxsteps=1), triples, queries,
+                                collection, model=model_on("cpu"), device="cpu")
+    _, kl_cpu = trainer.train(kl_cfg, scored, queries, collection, model=model_on("cpu"),
+                              device="cpu")
+    cpu_s = time.perf_counter() - t2
+    errs = (loss_rel_err(card_loss, cpu_loss), loss_rel_err(kl_card, kl_cpu))
+    check(max(errs) <= TRAIN_LOSS_TOL,
+          f"triples losses card {card_loss}, {kl_card} vs CPU {cpu_loss}, {kl_cpu}")
+    return {"phase": "train_triples", "card": smi, "steps": TRIPLES_STEPS, "bsize": cfg.bsize,
+            "nway": cfg.nway, "query_maxlen": cfg.query_maxlen, "doc_maxlen": cfg.doc_maxlen,
+            "model": "text-only FLMR, BERT-base, dim 128, fp32 (TF32 off)",
+            "first_loss": card_loss, "first_loss_cpu": cpu_loss, "kl_loss": kl_card,
+            "kl_loss_cpu": kl_cpu, "loss_rel_err": list(errs), "loss_tol": TRAIN_LOSS_TOL,
+            "ema_loss": ema, "run_seconds": run_s, "steps_per_s": steps_per_s,
+            "cpu_check_seconds": cpu_s, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1666,7 +2203,7 @@ def main() -> int:
     int8_launches = line["launches"]
     int8_search = (line["search_ms"], line["search_bound_ms"])
     emit(line)
-    del index, emb, mask
+    del emb, mask  # phase 10 takes the index again
 
     # ---- 3c. the int8 index streamed from host RAM (main path)
     line = streamed_retrieve(qindex, Qm, K, wgen)
@@ -1761,9 +2298,30 @@ def main() -> int:
     emit(mores_training(smi))
     emit({"phase": "interaction", "seconds": time.perf_counter() - t0})
 
+    # ---- 10. the rest of the engine (main path): compressed retrieval over
+    # phase 3's index, the pooled index, two Baleen hops, the triples trainer
+    t0 = time.perf_counter()
+    line, k1_plaid, (Qb, exact_ids) = compressed_retrieval(index, Qm, smi)
+    plaid_launches = line["launches"]
+    emit(line)
+    line, k1_pooled = pooled_retrieval(index, Qb, exact_ids, smi)
+    pooled_launches = line["launches"]
+    emit(line)
+    del index, Qb
+    gc.collect()
+    torch.cuda.empty_cache()
+    line, k2_baleen = baleen(smi)
+    baleen_launches = line["launches"]
+    emit(line)
+    line = triples_training(smi)
+    triples_launches = line["launches"]
+    emit(line)
+    emit({"phase": "engine", "seconds": time.perf_counter() - t0})
+
     # ---- 7. the kernels line and the result
     torch.cuda.synchronize()
-    phases = (retrieve_launches, int8_launches, stream_launches, rerank_launches, w8a8_launches)
+    phases = (retrieve_launches, int8_launches, stream_launches, rerank_launches, w8a8_launches,
+              plaid_launches, pooled_launches, baleen_launches, triples_launches)
 
     def launches(name):
         return sum(p[name] for p in phases)
@@ -1798,6 +2356,13 @@ def main() -> int:
         k2_line("key bias L=640 (interaction CrossEncoder, 9a)", k2_inter["9a"]),
         k2_line("key bias L=369 (interaction CrossEncoder on retrieved docs, 9c)",
                 k2_inter["9c"]),
+        k2_line("key bias L=512, 16 heads (Baleen reader, 10c)", k2_baleen),
+        dict(name="maxsim_scores stage 1 of compressed search (10a)", route="cuda",
+             source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
+             replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:67", **k1_plaid),
+        dict(name="maxsim_scores pooled index, L_d = 128 (10b)", route="cuda",
+             source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
+             replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:67", **k1_pooled),
         dict(name="maxsim_scores_int8", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim_int8.cu",
              replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183",

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Union
 
 import torch
@@ -18,3 +19,24 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def is_on(tensor: torch.Tensor, device: torch.device) -> bool:
+    """Whether ``tensor`` lies on ``device``; a CUDA device without an index
+    (``"cuda"``) means the current card, as allocation on it does."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return tensor.device == device
+
+
+@contextmanager
+def fp32_matmul():
+    """Run the enclosed fp32 products in full fp32 on CUDA: TF32 off in
+    cuBLAS for the duration (restored after), where the JAX package asks
+    for fp32 results."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was

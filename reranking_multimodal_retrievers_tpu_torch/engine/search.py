@@ -48,13 +48,21 @@ def _local_search(Q, D, M, *, k: int, score_dtype=torch.float32,
 
 
 def _top_k(scores, M, k: int, L_q: int, guard: bool):
-    """Top-k of ``scores [B, N]``; under ``guard`` whole-padding docs
-    (all-False mask rows) first get ``MASK_FILL_VALUE * L_q``, so that they
-    never outrank a real doc."""
+    """Top-k of ``scores [B, N]``; under ``guard`` whole-padding docs first
+    go through :func:`guard_padding_docs`."""
     if guard:
-        scores = torch.where(M.any(dim=1)[None, :], scores,
-                             torch.tensor(MASK_FILL_VALUE * L_q, device=scores.device))
+        scores = guard_padding_docs(scores, M, L_q)
     return torch.topk(scores, k, dim=1)
+
+
+def guard_padding_docs(scores, M, L_q: int):
+    """``scores [B, N]`` with every whole-padding doc (all-False row of
+    ``M [N, L_d]``) set to ``MASK_FILL_VALUE * L_q``, so that it never
+    outranks a real doc. That is exactly the JAX package's total for such a
+    doc, whose masked token scores it replaces by -9999 where K1 adds
+    -9999 to them."""
+    return torch.where(M.any(dim=1)[None, :], scores,
+                       torch.tensor(MASK_FILL_VALUE * L_q, device=scores.device))
 
 
 def _local_search_int8(Qq, qs, Dq, ds, M, *, k: int, unpadded: bool = False):

@@ -102,6 +102,15 @@ def bert_state_dict(params: Tree) -> StateDict:
     return sd
 
 
+def sentence_reader_state_dict(params: Tree) -> StateDict:
+    """Flax ``SentenceReader`` params (``engine/condenser.py``) -> the port's
+    ``SentenceReader`` state dict: ``encoder.*`` and ``linear.*``."""
+    sd: StateDict = {}
+    _bert(sd, "encoder.", params["encoder"])
+    _dense(sd, "linear", params["linear"])
+    return sd
+
+
 def clip_vision_state_dict(params: Tree) -> StateDict:
     """Flax ``CLIPVisionModel`` params -> the port's ``CLIPVisionModel``."""
     sd: StateDict = {}

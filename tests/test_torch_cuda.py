@@ -661,3 +661,104 @@ def test_tiny_train_step_on_card_matches_cpu(gen):
         rounding = 2 * torch.finfo(torch.float32).eps * b.abs().max() + 1e-5 * lr
         excess = ((got - p.detach().double()).abs() - (adam[1] - adam[0]).abs() - rounding)
         assert excess.max() <= 0, n
+
+
+def _compressed_corpus(gen, N=300, LD=50, DIM=128):
+    """Unit doc tokens with ragged padding and a whole-padding doc (7)."""
+    emb = _unit(gen, N, LD, DIM)
+    lens = torch.randint(1, LD + 1, (N,), device="cuda", generator=gen)
+    mask = torch.arange(LD, device="cuda")[None, :] < lens[:, None]
+    mask[7] = False
+    return emb * mask[..., None], mask
+
+
+def test_stage1_through_k1_matches_plain_stage1(gen):
+    """Compressed search's stage 1 on the card: each slab decompressed,
+    rounded to bf16 and scored by K1 under its mask, whole-padding docs
+    given JAX's -9999 * L_q, against the JAX einsum's plain version on the
+    card. Queries of norm ~11 (bench.py's normal draws), so totals reach
+    ~100: fp32 sums of exact bf16 products in another order, within 2e-3 +
+    2e-5 relative; the padding doc bitwise."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import codec, plaid
+
+    emb, mask = _compressed_corpus(gen)
+    idx = codec.compress(emb, mask, list(range(300)), num_centroids=64, sample_size=4096,
+                         device="cuda")
+    Q = torch.randn(4, 40, 128, device="cuda", generator=gen)
+    args = (Q, idx.codes, idx.residuals, idx.centroids, idx.scales, idx.mask)
+    launches = maxsim_scores.launches
+    with torch.inference_mode():
+        got = plaid.stage1_k1(*args, slab=128)
+        want = plaid.stage1_plain(*args, chunk=50, bf16=True)
+    assert maxsim_scores.launches == launches + 3  # three slabs
+    assert torch.equal(want[:, 7], torch.full_like(want[:, 7], -9999.0 * 40))
+    assert torch.equal(got[:, 7], want[:, 7])
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-5)
+
+
+def test_kmeans_on_card_is_deterministic(gen):
+    """Lloyd's sums as a one-hot product (not a scatter-add): two runs on the
+    card give the same bits, and the CPU's centroids within 1e-5 and its
+    assignments."""
+    from reranking_multimodal_retrievers_tpu_torch.engine.kmeans import kmeans
+
+    x = _unit(gen, 16384, 128).float()
+    runs = [kmeans(x, x[:256], k=256, n_iters=10) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    c, a = kmeans(x.cpu(), x[:256].cpu(), k=256, n_iters=10)
+    torch.testing.assert_close(runs[0][0].cpu(), c, atol=1e-5, rtol=0)
+    assert torch.equal(runs[0][1].cpu(), a)
+
+
+def test_compress_on_card_matches_cpu(gen):
+    """``compress`` on the card against the CPU on the same tokens: the same
+    centroids within 1e-5, the same codes, and residuals that differ only
+    where the two unrounded residual / scale values straddle a rounding
+    boundary less than 5% of a step apart."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import codec
+
+    emb, mask = _compressed_corpus(gen, N=256, LD=64)
+    kw = dict(num_centroids=128, sample_size=8192, token_chunk=4096)
+    card = codec.compress(emb, mask, list(range(256)), device="cuda", **kw)
+    cpu = codec.compress(emb.cpu(), mask.cpu(), list(range(256)), device="cpu", **kw)
+    torch.testing.assert_close(card.centroids.cpu(), cpu.centroids, atol=1e-5, rtol=0)
+    assert torch.equal(card.codes.cpu(), cpu.codes)
+    torch.testing.assert_close(card.scales.cpu(), cpu.scales, atol=4e-7 / 127, rtol=1e-6)
+    flips = card.residuals.cpu() != cpu.residuals
+    e = emb.cpu().float()
+    q = [(e - c.centroids.cpu()[c.codes.cpu().long()]) / c.scales.cpu() for c in (card, cpu)]
+    assert ((q[0] - q[1]).abs()[flips] < 0.05).all()
+
+
+def test_k2_at_sixteen_heads(gen):
+    """K2 at the condenser reader's launch shape (ELECTRA-large: [25, 512,
+    16 x 64]), a head count no other path launches, with padded key tails."""
+    B, L, H = 25, 512, 16
+    q, k, v = (torch.randn(B, L, H * 64, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.randint(40, L + 1, (B,), device="cuda", generator=gen)
+    bias = torch.where(torch.arange(L, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
+    launches = fused_self_attention.launches
+    got = fused_self_attention(q, k, v, bias, num_heads=H, sm_scale=0.125)
+    assert fused_self_attention.launches == launches + 1
+    ref = fused_self_attention_reference(q, k, v, bias, num_heads=H, sm_scale=0.125)
+    torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+def test_compress_keeps_a_card_tensor_on_the_card(gen, monkeypatch):
+    """``compress`` of a tensor already on the card samples and slices it
+    there (no host copy of the index), for ``device="cuda"`` as for
+    ``"cuda:0"``."""
+    from reranking_multimodal_retrievers_tpu_torch.device import is_on, resolve_device
+    from reranking_multimodal_retrievers_tpu_torch.engine import codec
+
+    emb, mask = _compressed_corpus(gen, N=64, LD=16)
+    for name in ("cuda", f"cuda:{torch.cuda.current_device()}"):
+        assert is_on(emb, resolve_device(name))
+    assert not is_on(emb.cpu(), resolve_device("cuda"))
+    copies = []
+    cpu = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **k: copies.append(t.shape) or cpu(t, *a, **k))
+    codec.compress(emb, mask, list(range(64)), num_centroids=16, sample_size=512, device="cuda")
+    # the mask and the centroids come to the host; the embeddings never do
+    assert tuple(emb.shape) not in [tuple(s) for s in copies]
