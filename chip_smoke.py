@@ -117,10 +117,31 @@ Phases, each printing one JSON line with its elapsed seconds:
      tokens) for 10 steps with a text-only FLMR at BERT-base width in fp32,
      the first step's loss and one KL-distillation step against the CPU;
      no kernel launch;
-  7. after phase 10: the ``kernels`` line (K1 and K3 with their times at
+  11. the CLI (``cli.main.main``, in-process) at full width, over one
+     synthetic dataset (1,500 pairs, 500 test queries, 30,000 passages,
+     the visual key in the passage tail) under ``build/chip_smoke_cli/``,
+     removed after: 11a. ``configs/synth_flmr_fullsize.json`` ``--mode
+     train``, 20 steps, validation off, no launch; its first step's losses
+     against the same step on the CPU in fp32; steps/s after 5 warm-up
+     steps and peak memory; 11b. ``--mode test`` from 11a's checkpoint with
+     ``use_pallas_attention`` in the text encoder: the corpus encoded
+     through K2's fp32 path into the bf16 index and searched by K1; K1 and
+     fp32 K2 against their plain versions on the first inputs they got at
+     each launch shape (timed beside the plain version and, for K2,
+     ``scaled_dot_product_attention``); the first 8 queries' top-100
+     against the plain search up to near-ties; docs/s, queries/s, recall;
+     11c. the same over an int8 index (K3), its top-100 overlap with 11b's;
+     11d. ``configs/synth_rerank_full_context_fullsize.json`` ``--mode
+     train``, 10 steps (no launch), then ``--mode test`` over 11b's dump
+     with ``use_pallas_attention`` in the cross-encoder (fp32 K2): 500
+     queries x 100 candidates, none missing its static retrieval, four
+     logits against the checkpoint's weights on the CPU in fp32,
+     candidates/s and the reranked against the raw recall;
+  7. after phase 11: the ``kernels`` line (K1 and K3 with their times at
      ``bench.py``'s batch and the 100k searches of phases 3 and 3b beside
-     the bound, K1 at stage 1's and the pooled index's launch shapes, K2 at
-     each main-path variant's launch shape), then the result line.
+     the bound, K1 at stage 1's, the pooled index's and 11b's launch
+     shapes, K3 at 11c's, K2 at each main-path variant's launch shape,
+     and K2's fp32 path at each of phase 11's), then the result line.
 
 ``python3 chip_smoke.py --probe-t5-init`` instead builds the kernels and
 runs phase 5's model once with every weight at std 0.02 (none of HF T5's
@@ -129,8 +150,8 @@ bf16, and in fp32, as information.
 
 The launch counters are set to 0 just before each main-path phase (3, 3b,
 3c, 4, 4b, 5, 6, 8's training run, 9a, 9b, 9c, 9d's timed steps, 10a, 10b,
-10c and 10d) and read just after it; phases 8, 9b, 9d and 10d must launch
-none. Phase 3's index stays on the card until phase 10b. Each decoder
+10c, 10d and each CLI run of 11) and read just after it; phases 8, 9b, 9d,
+10d, 11a and 11d's training must launch none. Phase 3's index stays on the card until phase 10b. Each decoder
 family is built, run and freed before the next (about 8 GB each in bf16).
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits non-zero before printing anything.
@@ -335,11 +356,13 @@ def unit(gen, *shape):
 
 
 def _counters():
-    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import fused_self_attention
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention, fused_self_attention_f32)
     from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import maxsim_scores
     from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_int8_cuda import maxsim_scores_int8
 
-    return {"K1": maxsim_scores, "K2": fused_self_attention, "K3": maxsim_scores_int8}
+    return {"K1": maxsim_scores, "K2": fused_self_attention, "K3": maxsim_scores_int8,
+            "K2f32": fused_self_attention_f32}
 
 
 def reset_counts():
@@ -1360,7 +1383,7 @@ def interaction_rerank(name, model, cfg, q, qm, d, dm, want_k2, smi):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
     launches = read_counts()
-    check(launches == {"K1": 0, "K2": want_k2, "K3": 0},
+    check(launches == {"K1": 0, "K2": want_k2, "K3": 0, "K2f32": 0},
           f"{name} launches {launches}, want K2 = {want_k2} and no other")
     check(tuple(logits.shape) == (B, K) and bool(torch.isfinite(logits.float()).all()),
           f"{name} logits {tuple(logits.shape)}")
@@ -1660,7 +1683,7 @@ def compressed_retrieval(index, Qm, smi):
     vals_m, ids_m = searcher.search(Qm)
     torch.cuda.synchronize()
     launches = read_counts()
-    check(launches == {"K1": 4 * slabs, "K2": 0, "K3": 0},
+    check(launches == {"K1": 4 * slabs, "K2": 0, "K3": 0, "K2f32": 0},
           f"compressed retrieval launches {launches}, want K1 = {4 * slabs} and no other")
     exact_ids, exact_ids_m = exact_ids.cpu().numpy(), exact_ids_m.cpu().numpy()
     check(ids.shape == (PLAID_B, PLAID_K) and bool(np.isfinite(vals).all())
@@ -1761,7 +1784,7 @@ def pooled_retrieval(index, Qb, exact_ids, smi):
     torch.cuda.synchronize()
     launches = read_counts()
     slabs = -(-N // SLAB_DOCS)
-    check(launches == {"K1": slabs, "K2": 0, "K3": 0},
+    check(launches == {"K1": slabs, "K2": 0, "K3": 0, "K2f32": 0},
           f"pooled retrieval launches {launches}, want K1 = {slabs} and no other")
     check(len(ids) == PLAID_B and all(len(r) == PLAID_K for r in ids)
           and bool(np.isfinite(vals).all()), "pooled top-k")
@@ -1880,7 +1903,7 @@ def baleen(smi):
     # per question and hop: one search (one slab) and two reader forwards
     # (stage 1, stage 2) of 24 layers each
     want = {"K1": 2 * BALEEN_QUERIES, "K2": 2 * 2 * cfg.num_hidden_layers * BALEEN_QUERIES,
-            "K3": 0}
+            "K3": 0, "K2f32": 0}
     check(launches == want, f"Baleen launches {launches}, want {want}")
     for r in results:
         check(r["pids"] and all(p in condenser.collectionX for p in r["pids"])
@@ -1982,7 +2005,8 @@ def triples_training(smi):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t1
         launches = read_counts()
-        check(launches == {"K1": 0, "K2": 0, "K3": 0}, f"triples launches {launches}")
+        check(launches == {"K1": 0, "K2": 0, "K3": 0, "K2f32": 0},
+              f"triples launches {launches}")
         check(sorted(seen.steps) == [1, TRIPLES_STEPS] and np.isfinite(ema),
               f"triples steps logged {sorted(seen.steps)}, ema {ema}")
         card_loss = seen.steps[1][0]
@@ -2010,6 +2034,423 @@ def triples_training(smi):
             "ema_loss": ema, "run_seconds": run_s, "steps_per_s": steps_per_s,
             "cpu_check_seconds": cpu_s, "launches": launches,
             "seconds": time.perf_counter() - t0}
+
+
+# ---- phase 11: the CLI (cli/main.py -> Experiment -> executors -> data
+# pipeline -> metrics) at full width
+
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+CONFIGS = Path(__file__).resolve().parent / "configs"
+FLMR_CONFIG, RERANK_CONFIG = "synth_flmr_fullsize.json", "synth_rerank_full_context_fullsize.json"
+# 11a: one epoch cut to 20 steps; 11d: 10 steps; the first TIMED_FROM steps
+# of a run are warm-up for its steps/s
+CLI_FLMR_STEPS, CLI_RERANK_STEPS, TIMED_FROM = 20, 10, 5
+# K2's fp32 path against its plain version, both fp32 with TF32 off: the JAX
+# package's tolerance for the same comparison (tests/test_maxsim_pallas.py)
+K2F32_RTOL, K2F32_ATOL = 1e-4, 2e-5
+# H100 SXM fp32 peak outside the tensor cores (data sheet)
+PEAK_FP32_FLOPS = 67e12
+# card fp32 against CPU fp32 (TF32 off for cuBLAS and cuDNN): round-off
+# alone, as phase 8's TRAIN_LOSS_TOL; the rerank logits through 12 + 1
+# layers and the mapping network, fp32 K2 on the card, the plain attention
+# on the CPU: a share of max(1, |logit|)
+CLI_LOSS_TOL, CLI_LOGIT_TOL = 1e-5, 1e-4
+
+
+class _Recorder:
+    """Wrappers, for the duration of a ``with`` block, around functions the
+    executors call by name: they time them, keep their results or their
+    first inputs per shape, and call the original (whose launch counter
+    counts as it would)."""
+
+    def __init__(self):
+        self.undo = []
+
+    def patch(self, obj, name, make):
+        orig = getattr(obj, name)
+        setattr(obj, name, make(orig))
+        self.undo.append((obj, name, orig))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in reversed(self.undo):
+            setattr(obj, name, orig)
+
+
+def _clock(log):
+    """A method wrapper that appends (seconds, result) of each call, after a
+    synchronize."""
+    def make(orig):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            log.append((time.perf_counter() - t, out))
+            return out
+        return timed
+    return make
+
+
+def _first_inputs(store, key_fn):
+    """A function wrapper that keeps clones of the first call's arguments
+    for each key ``key_fn(*args)`` gives (None: not kept), and counts the
+    calls per key."""
+    def make(orig):
+        def keep(*args, **kwargs):
+            key = key_fn(*args)
+            if key is not None:
+                entry = store.setdefault(key, {"calls": 0})
+                entry["calls"] += 1
+                if "args" not in entry:
+                    entry["args"] = [a.clone() if isinstance(a, torch.Tensor) else a
+                                     for a in args]
+                    entry["kwargs"] = dict(kwargs)
+            return orig(*args, **kwargs)
+        return keep
+    return make
+
+
+def _k2_key(q, k, v, bias=None, *rest):
+    return (tuple(q.shape), bias is not None) if q.dtype == torch.float32 and q.is_cuda else None
+
+
+def k2f32_line(entry, name):
+    """K2's fp32 path against its plain version on the first inputs a phase
+    gave it at one launch shape, timed beside the plain version and
+    ``scaled_dot_product_attention`` in fp32 (in turns)."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention, fused_self_attention_reference)
+
+    q, k, v, bias = (entry["args"] + [None])[:4]
+    kw = {key: entry["kwargs"][key] for key in ("num_heads", "sm_scale")}
+    B, L, HD = q.shape
+    H = kw["num_heads"]
+    got = fused_self_attention(q, k, v, bias, **kw)
+    ref = fused_self_attention_reference(q, k, v, bias, **kw)
+    err = (got - ref).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and torch.allclose(got, ref, rtol=K2F32_RTOL,
+                                                             atol=K2F32_ATOL),
+          f"fp32 K2 {name} at {[B, L, HD]}: max |diff| {err}")
+    qh, kh, vh = (x.view(B, L, H, HD // H).transpose(1, 2) for x in (q, k, v))
+    amask = None if bias is None else (bias == 0)[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flops = 4 * B * H * L * L * (HD // H)
+    b_ms, b_by = bound(flops, 4 * q.numel() * 4 + (0 if bias is None else bias.numel() * 4),
+                       PEAK_FP32_FLOPS)
+    times = k2_timed(lambda: fused_self_attention(q, k, v, bias, **kw),
+                     lambda: sdpa(qh, kh, vh, attn_mask=amask, scale=kw["sm_scale"]), flops, b_ms)
+    return dict(variant=name, shape=[B, L, HD], max_abs_err=err, tol=[K2F32_RTOL, K2F32_ATOL],
+                plain_ms=cuda_ms(lambda: fused_self_attention_reference(q, k, v, bias, **kw), 3),
+                bound_ms=b_ms, bound_by=b_by, flops=flops, **times)
+
+
+def k3_line(Qq, qs, Dq, ds, M, name):
+    """K3 against its plain version on the first inputs a phase gave it,
+    timed beside it, with the bound of the same work."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_int8_cuda import (
+        maxsim_scores_int8, maxsim_scores_int8_reference)
+
+    B, LQ, DIM = Qq.shape
+    N, LD, _ = Dq.shape
+    got = maxsim_scores_int8(Qq, qs, Dq, ds, M)
+    ref = maxsim_scores_int8_reference(Qq, qs, Dq, ds, M)
+    err = (got - ref).abs().max().item()
+    check(err <= K3_TOL, f"K3 {name}: max |diff| {err} > {K3_TOL}")
+    ops = 2 * B * LQ * N * LD * DIM
+    b_ms, b_by = bound(ops, Qq.numel() + qs.numel() * 4 + Dq.numel() + ds.numel() * 4
+                       + (0 if M is None else M.numel()) + B * N * 4, PEAK_INT8_OPS)
+    ms = cuda_ms(lambda: maxsim_scores_int8(Qq, qs, Dq, ds, M), 10)
+    return dict(variant=name, shape=[[B, LQ, DIM], [N, LD, DIM]], max_abs_err=err, tol=K3_TOL,
+                ms=ms, plain_ms=cuda_ms(lambda: maxsim_scores_int8_reference(Qq, qs, Dq, ds, M),
+                                        1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, share_of_bound=b_ms / ms,
+                tops=ops / (ms * 1e-3) / 1e12)
+
+
+def _cli_opts():
+    """--opts that put every path of both full-size configs under CLI_DIR and
+    give the FLMR run the reranker config's synthetic data (visual key in
+    the tail, its vocab and images): one dataset, generated once."""
+    with open(CONFIGS / RERANK_CONFIG) as f:
+        gen = dict(json.load(f)["data_pipeline"]["transforms"]["input:GenerateSynthetic"]
+                   ["setup_kwargs"])
+    gen.update(vocab_path=str(CLI_DIR / "vocab" / "vocab.txt"), images_dir=str(CLI_DIR / "images"))
+    tok = "data_pipeline.transforms.output:PrepareDataloaders.setup_kwargs.tokenizer_config"
+    return [f"meta.EXPERIMENT_FOLDER='{CLI_DIR / 'experiments'}'",
+            f"data_pipeline.cache_dir='{CLI_DIR / 'cache'}'",
+            f"data_pipeline.transforms.input:GenerateSynthetic.setup_kwargs={gen!r}",
+            f"{tok}.tokenizer.TokenizerModelVersion='{CLI_DIR / 'vocab'}'",
+            f"{tok}.decoder_tokenizer.TokenizerModelVersion='{CLI_DIR / 'vocab'}'",
+            "train.trainer_paras.max_epochs=1", "train.trainer_paras.log_every_n_steps=1",
+            "valid.trainer_paras.limit_val_batches=0"]
+
+
+def _cli(config, mode, *opts):
+    from reranking_multimodal_retrievers_tpu_torch.cli.main import main as cli_main
+
+    rc = cli_main(["--config", str(CONFIGS / config), "--mode", mode, "--opts", *_cli_opts(),
+                   *opts])
+    check(rc == 0, f"cli {config} --mode {mode}: exit {rc}")
+
+
+def _cpu_executor(cls, config, mode, *opts):
+    """The executor of ``config`` on the CPU (its weights from the same seed,
+    drawn on the CPU as on the card), over the cached dataset."""
+    from reranking_multimodal_retrievers_tpu_torch.utils.config_system import (
+        apply_opts, load_config)
+
+    cfg = load_config(str(CONFIGS / config))
+    apply_opts(cfg, [*_cli_opts(), f"meta.experiment_dir='{CLI_DIR / 'cpu_check'}'", *opts])
+    cfg.set_path("mode", mode)
+    return cls(cfg, device="cpu")
+
+
+def _steps_per_s(log):
+    times = np.cumsum([t for t, _ in log])
+    return (len(times) - TIMED_FROM) / (times[-1] - times[TIMED_FROM - 1])
+
+
+def _metrics_lines(exp_dir):
+    with open(Path(exp_dir) / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _dump(exp_dir):
+    with open(Path(exp_dir) / "test_predictions_rank_0.json") as f:
+        return json.load(f)
+
+
+def cli_phases(smi):
+    """Phase 11. Returns (lines, kernel rows, launch counts of each part)."""
+    import os
+
+    from reranking_multimodal_retrievers_tpu_torch.engine import search as search_mod
+    from reranking_multimodal_retrievers_tpu_torch.engine.rerank_eval import (
+        make_chunked_rerank_fn)
+    from reranking_multimodal_retrievers_tpu_torch.executors import (FLMRExecutor,
+                                                                     RerankerExecutor)
+    from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import (
+        remove_instruction_prefix)
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import maxsim_scores_reference
+
+    lines, parts = [], {}
+    os.environ.pop("RMRT_PLATFORM", None)  # the CLI runs on the card
+    if CLI_DIR.exists():
+        shutil.rmtree(CLI_DIR)
+    def exp_dir(config):  # the first run of the config's experiment
+        with open(CONFIGS / config) as f:
+            return CLI_DIR / "experiments" / json.load(f)["meta"]["experiment_name"] / "version_0"
+
+    flmr_dir, rr_dir = exp_dir(FLMR_CONFIG), exp_dir(RERANK_CONFIG)
+    try:
+        # -- 11a. FLMR train
+        t0 = time.perf_counter()
+        steps = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with _Recorder() as rec:
+            rec.patch(FLMRExecutor, "training_step", _clock(steps))
+            _cli(FLMR_CONFIG, "train", f"train.trainer_paras.limit_train_batches={CLI_FLMR_STEPS}")
+        parts["11a"] = read_counts()
+        check(sum(parts["11a"].values()) == 0, f"11a training launched kernels: {parts['11a']}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        wall = time.perf_counter() - t0
+        check(len(steps) == CLI_FLMR_STEPS, f"11a took {len(steps)} steps")
+        card = [m for m in _metrics_lines(flmr_dir) if m.get("step") == 1 and "ib_loss" in m][0]
+        t1 = time.perf_counter()
+        cpu_ex = _cpu_executor(FLMRExecutor, FLMR_CONFIG, "train")
+        with torch.no_grad():
+            out = cpu_ex.model(**cpu_ex.model_batch(next(iter(cpu_ex.train_dataloader()))),
+                               num_negative_examples=cpu_ex.num_negative_samples)
+        cpu = {"loss": float(out.loss), "ib_loss": float(out.in_batch_negative_loss)}
+        del cpu_ex, out
+        loss_err = max(abs(card[k] - v) / max(1.0, abs(v)) for k, v in cpu.items())
+        check(loss_err <= CLI_LOSS_TOL, f"11a first step: card {card} vs CPU fp32 {cpu}")
+        lines.append({"phase": "cli_flmr_train", "config": FLMR_CONFIG, "steps": len(steps),
+                      "batch": 32, "steps_per_s": _steps_per_s(steps),
+                      "examples_per_s": 32 * _steps_per_s(steps), "peak_memory_gb": peak_gb,
+                      "first_step_card": {k: card[k] for k in cpu}, "first_step_cpu_fp32": cpu,
+                      "first_step_rel_err": loss_err, "tol": CLI_LOSS_TOL,
+                      "cpu_check_seconds": time.perf_counter() - t1,
+                      "launches": parts["11a"], "wall_seconds": wall, "card": smi,
+                      "seconds": time.perf_counter() - t0})
+
+        # -- 11b. FLMR test: K1 over the bf16 index, fp32 K2 in the encoders
+        def flmr_test(name, *opts):
+            t0 = time.perf_counter()
+            idx_log, q_log, s_log, k1_in, k3_in, k2_in = [], [], [], {}, {}, {}
+            reset_counts()
+            with _Recorder() as rec:
+                rec.patch(FLMRExecutor, "build_index", _clock(idx_log))
+                rec.patch(FLMRExecutor, "encode_queries", _clock(q_log))
+                rec.patch(search_mod.Searcher, "search", _clock(s_log))
+                rec.patch(search_mod, "maxsim_scores",
+                          _first_inputs(k1_in, lambda Q, D, M=None, *r: tuple(Q.shape)))
+                rec.patch(search_mod, "maxsim_scores_int8",
+                          _first_inputs(k3_in, lambda Qq, *r: tuple(Qq.shape)))
+                rec.patch(bert_mod, "fused_self_attention", _first_inputs(k2_in, _k2_key))
+                _cli(FLMR_CONFIG, "test", f"meta.experiment_dir='{flmr_dir}'",
+                     "model_config.flmr.text_config.use_pallas_attention=true", *opts)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            wall = time.perf_counter() - t0
+            dump = _dump(flmr_dir)
+            preds = dump["predictions"]
+            check(len(preds) == 500 and all(len(p["top_ranking_passages"]) == 100
+                                            and np.isfinite([d["score"] for d in
+                                                             p["top_ranking_passages"]]).all()
+                                            for p in preds), f"{name}: the prediction dump")
+            index = idx_log[0][1]
+            n_q = sum(int(q.shape[0]) for _, q in q_log)
+            index_s = sum(t for t, _ in idx_log)
+            encode_s, search_s = sum(t for t, _ in q_log), sum(t for t, _ in s_log)
+            m = dump["metrics"]
+            line = {"phase": name, "docs": index.num_docs, "queries": len(preds),
+                    "corpus_docs_per_s": index.num_docs / index_s, "index_seconds": index_s,
+                    "queries_per_s": len(preds) / (encode_s + search_s), "encoded_queries": n_q,
+                    "query_encode_seconds": encode_s, "search_seconds": search_s,
+                    "recall_at_5": m["recall_at_5"], "recall_at_100": m["recall_at_100"],
+                    "pos_item_ids_recall_at_5": m["pos_item_ids_recall_at_5"],
+                    "pos_item_ids_recall_at_100": m["pos_item_ids_recall_at_100"],
+                    "launches": launches, "wall_seconds": wall, "card": smi}
+            return line, index, q_log, k1_in, k3_in, k2_in, dump
+
+        t0 = time.perf_counter()
+        line, index, q_log, k1_in, _, k2_in, dump_b = flmr_test("cli_flmr_test")
+        parts["11b"] = line["launches"]
+        check(parts["11b"]["K1"] > 0 and parts["11b"]["K2f32"] > 0 and parts["11b"]["K3"] == 0
+              and parts["11b"]["K2"] == 0, f"11b launches {parts['11b']}")
+        (k1_key, k1_entry), = k1_in.items()
+        Qk1, Dk1, Mk1 = k1_entry["args"][:3]
+        k1_row = k1_line(Qk1, Dk1, Mk1, "CLI test (11b)")
+        # the first 8 queries' top-100 against the plain search over the index
+        Q8 = q_log[0][1][:8].to(torch.bfloat16)
+        ref_scores = maxsim_scores_reference(Q8, index.embeddings, index.mask)
+        ref_vals, _ = torch.topk(ref_scores, 100, dim=1)
+        position = {d: i for i, d in enumerate(index.doc_ids)}
+        worst = 0.0
+        for i in range(8):
+            top = dump_b["predictions"][i]["top_ranking_passages"]
+            got_idx = torch.as_tensor([position[p["passage_id"]] for p in top], device="cuda")
+            swap = (ref_scores[i, got_idx] - ref_vals[i]).abs().max().item()
+            served = (torch.as_tensor([p["score"] for p in top], device="cuda")
+                      - ref_scores[i, got_idx]).abs().max().item()
+            worst = max(worst, swap, served)
+        check(worst <= K1_TOL, f"11b top-100 off the plain search by {worst}")
+        k2_rows = {key: k2f32_line(entry, f"{'x'.join(map(str, key[0]))} (11b, 11c)")
+                   for key, entry in k2_in.items()}
+        line.update(top100_vs_plain_max_abs_err=worst, top100_tol=K1_TOL,
+                    k2f32_shapes={"x".join(map(str, key[0])): e["calls"]
+                                  for key, e in k2_in.items()},
+                    seconds=time.perf_counter() - t0)
+        lines.append(line)
+        shutil.copy(flmr_dir / "test_predictions_rank_0.json", CLI_DIR / "flmr_dump.json")
+        del index, q_log, k1_in, Q8, ref_scores, Qk1, Dk1, Mk1, k1_entry
+
+        # -- 11c. the same test over an int8 index (K3)
+        t0 = time.perf_counter()
+        line, index, _, _, k3_in, k2_in_c, dump_c = flmr_test(
+            "cli_flmr_test_int8", "model_config.modules=['use_int8_index']")
+        parts["11c"] = line["launches"]
+        check(parts["11c"]["K3"] > 0 and parts["11c"]["K1"] == 0 and parts["11c"]["K2f32"] > 0,
+              f"11c launches {parts['11c']}")
+        (k3_key, k3_entry), = k3_in.items()
+        k3_row = k3_line(*k3_entry["args"][:5], "CLI int8 test (11c)")
+        overlap = float(np.mean([
+            len({p["passage_id"] for p in a["top_ranking_passages"]}
+                & {p["passage_id"] for p in b["top_ranking_passages"]}) / 100
+            for a, b in zip(dump_b["predictions"], dump_c["predictions"])]))
+        line.update(top100_overlap_with_bf16=overlap, seconds=time.perf_counter() - t0)
+        lines.append(line)
+        for key, row in k2_rows.items():  # 11c launches K2 at 11b's shapes again
+            row["launches"] = k2_in[key]["calls"] + k2_in_c.get(key, {"calls": 0})["calls"]
+        check(sum(r["launches"] for r in k2_rows.values())
+              == parts["11b"]["K2f32"] + parts["11c"]["K2f32"],
+              "11b/11c: fp32 K2 launches at shapes other than 11b's")
+        del index, k3_in, k3_entry, dump_c, k2_in, k2_in_c
+
+        # -- 11d. reranker train, then test over 11b's dump
+        t0 = time.perf_counter()
+        steps = []
+        rr_opts = [f"model_config.retrieve_result_path='{CLI_DIR / 'flmr_dump.json'}'"]
+        reset_counts()
+        with _Recorder() as rec:
+            rec.patch(RerankerExecutor, "training_step", _clock(steps))
+            _cli(RERANK_CONFIG, "train", *rr_opts,
+                 f"train.trainer_paras.limit_train_batches={CLI_RERANK_STEPS}")
+        parts["11d_train"] = read_counts()
+        check(sum(parts["11d_train"].values()) == 0,
+              f"11d training launched kernels: {parts['11d_train']}")
+        check(len(steps) == CLI_RERANK_STEPS, f"11d took {len(steps)} steps")
+        train_line = {"steps": len(steps), "steps_per_s": _steps_per_s(steps),
+                      "launches": parts["11d_train"], "seconds": time.perf_counter() - t0}
+
+        t0 = time.perf_counter()
+        k2_in, evals = {}, []
+        reset_counts()
+        with _Recorder() as rec:
+            rec.patch(RerankerExecutor, "evaluate", _clock(evals))
+            rec.patch(bert_mod, "fused_self_attention", _first_inputs(k2_in, _k2_key))
+            _cli(RERANK_CONFIG, "test", *rr_opts, f"meta.experiment_dir='{rr_dir}'",
+                 "model_config.cross_encoder.use_pallas_attention=true")
+        torch.cuda.synchronize()
+        parts["11d_test"] = read_counts()
+        check(parts["11d_test"]["K2f32"] > 0 and parts["11d_test"]["K2"] == 0,
+              f"11d test launches {parts['11d_test']}")
+        dump = _dump(rr_dir)
+        preds = dump["predictions"]
+        check(len(preds) == 500
+              and not any(p.get("static_retrieval_missing") for p in preds)
+              and all(len(p["top_ranking_passages"]) == 100 for p in preds),
+              "11d: the rerank dump")
+        # four logits against the CPU: the checkpoint's weights in fp32
+        t1 = time.perf_counter()
+        cpu_ex = _cpu_executor(RerankerExecutor, RERANK_CONFIG, "test", *rr_opts,
+                               f"meta.experiment_dir='{rr_dir}'")
+        cpu_ex.load_checkpoint(cpu_ex.ckpt_manager.resolve())
+        batch = next(iter(next(iter(cpu_ex.eval_dataloaders("test").values()))))
+        docs = cpu_ex.static_retrieve(batch["question_ids"][0])[:4]
+        mb = cpu_ex._build_rerank_inputs(
+            {k: (v[:1] if k == "pixel_values" else v) for k, v in batch.items()},
+            [remove_instruction_prefix(batch["questions"][0])], [d["content"] for d in docs], 4)
+        want = make_chunked_rerank_fn(cpu_ex.reranker, nway=4, chunk_size=4)(
+            mb["input_ids"], mb["attention_mask"], mb["token_type_ids"],
+            mb["query_pixel_values"])[0].numpy()
+        got_scores = {p["passage_id"]: p["score"] for p in preds[0]["top_ranking_passages"]}
+        got = np.array([got_scores[d["passage_id"]] for d in docs])
+        logit_err = float(np.max(np.abs(got - want) / np.maximum(1.0, np.abs(want))))
+        check(logit_err <= CLI_LOGIT_TOL, f"11d logits {got} vs CPU fp32 {want}")
+        del cpu_ex
+        m = dump["metrics"]
+        eval_s = evals[0][0]
+        rr_rows = {key: dict(k2f32_line(entry, f"{'x'.join(map(str, key[0]))} (11d)"),
+                             launches=entry["calls"]) for key, entry in k2_in.items()}
+        lines.append({"phase": "cli_rerank", "config": RERANK_CONFIG, "train": train_line,
+                      "queries": len(preds), "candidates": 100 * len(preds),
+                      "candidates_per_s": 100 * len(preds) / eval_s, "evaluate_seconds": eval_s,
+                      "logits_vs_cpu_fp32": {"card": got.tolist(), "cpu": want.tolist(),
+                                             "rel_err": logit_err, "tol": CLI_LOGIT_TOL},
+                      "cpu_check_seconds": time.perf_counter() - t1,
+                      **{k: m[k] for k in ("recall_at_5", "raw_recall_at_5",
+                                           "pos_item_ids_recall_at_5",
+                                           "pos_item_ids_raw_recall_at_5")},
+                      "k2f32_shapes": {"x".join(map(str, key[0])): e["calls"]
+                                       for key, e in k2_in.items()},
+                      "launches": parts["11d_test"], "card": smi,
+                      "seconds": time.perf_counter() - t0})
+    finally:
+        if CLI_DIR.exists():
+            shutil.rmtree(CLI_DIR)
+
+    k1_row["launches"] = parts["11b"]["K1"]
+    k3_row["launches"] = parts["11c"]["K3"]
+    # K2's fp32 rows: one a launch shape, on the first inputs there, with
+    # the launches at that shape
+    return lines, k1_row, k3_row, list(k2_rows.values()) + list(rr_rows.values()), parts
 
 
 def main() -> int:
@@ -2044,8 +2485,9 @@ def main() -> int:
     # ---- 1. build
     t0 = time.perf_counter()
     build_s = _build.build_all()
-    maxsim_cuda._lib()  # load the three libraries
+    maxsim_cuda._lib()  # load the four libraries
     attention_cuda._lib()
+    attention_cuda._lib_f32()
     maxsim_int8_cuda._lib()
     emit({"phase": "build", "nvcc_seconds": build_s,
           "ptxas": {name: ptxas_report(name) for name in _build.SOURCES},
@@ -2317,11 +2759,22 @@ def main() -> int:
     triples_launches = line["launches"]
     emit(line)
     emit({"phase": "engine", "seconds": time.perf_counter() - t0})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 11. the CLI at full width (main path): FLMR train, test (K1, fp32
+    # K2), int8 test (K3), reranker train and test (fp32 K2)
+    t0 = time.perf_counter()
+    lines, k1_cli, k3_cli, k2f32_rows, cli_parts = cli_phases(smi)
+    for line in lines:
+        emit(line)
+    emit({"phase": "cli", "seconds": time.perf_counter() - t0})
 
     # ---- 7. the kernels line and the result
     torch.cuda.synchronize()
     phases = (retrieve_launches, int8_launches, stream_launches, rerank_launches, w8a8_launches,
-              plaid_launches, pooled_launches, baleen_launches, triples_launches)
+              plaid_launches, pooled_launches, baleen_launches, triples_launches,
+              *cli_parts.values())
 
     def launches(name):
         return sum(p[name] for p in phases)
@@ -2368,6 +2821,15 @@ def main() -> int:
              replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183",
              launches=launches("K3"), **k3, at_bench_batch=k3_bench,
              **search_100k(*int8_search, "tops")),
+        dict(name="maxsim_scores CLI test over the 30,000-doc index (11b)", route="cuda",
+             source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
+             replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:67", **k1_cli),
+        dict(name="maxsim_scores_int8 CLI int8 test (11c)", route="cuda",
+             source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim_int8.cu",
+             replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183", **k3_cli),
+        *(dict(name=f"fused_self_attention fp32 {row['variant']}", route="cuda",
+               source="reranking_multimodal_retrievers_tpu_torch/csrc/attention_f32.cu",
+               replaces=attention, **row) for row in k2f32_rows),
     ], "not_ported": []})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,16 +1,53 @@
-"""The reranker executor's input builders (port of the input side of
-``executors/reranker_executor.py``): what a frozen retriever gives the
-interaction rerankers and attention fusion. Each function takes the
-retriever (an ``FLMRModelForRetrieval``) and the tokenised batch where the
-JAX executor's methods take ``self``; the executor class is not ported yet.
-Both run without autograd: the retriever is frozen.
+"""Reranker executor: train + rerank-eval over static retrieval results
+(port of ``executors/reranker_executor.py``).
+
+Parity with `src/executors/Reranker_base_executor.py:80-1201`, as the JAX
+package built it:
+
+- ``init_retrieve``: static retrieval results (question_id → top passages)
+  loaded from json/json.gz/pkl (`:244-271`); in dummy mode synthesized from
+  the corpus (positives + random distractors);
+- train-time doc selection: ground-truth positive + sampled retrieved
+  negatives (``negative_sample_model_inputs``, `:486-530`) or random
+  retrieved docs with binary labels (``sample_model_inputs``, `:532-566`),
+  gated by the ``model_config.modules`` flags;
+- test: per batch of queries, rerank the static top-``docs_to_rerank`` docs
+  with one ``[B·K, L]`` forward (chunked for the full-context family), sort
+  by logit, keep the raw (retriever-ordered) list for the side-by-side
+  rerank-vs-raw metrics (`:651-1030`).
+
+This port covers the encoder families, ``full_context`` and ``spliced``
+(without attention fusion). The ``interaction`` and ``decoder`` families and
+``preflmr_attention_fusion`` raise ``NotImplementedError``; their models are
+ported, and the input builders of the interaction rerankers and of fusion,
+:func:`interaction_inputs` and :func:`fusion_inputs`, are here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import json
+import logging
+import os
+import pickle
+import random
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+
+from ..models.bert import BertConfig
+from ..models.rerankers import FullContextRerankModel, RerankConfig, RerankModel
+from ..models.tokenization import prepare_full_context_inputs, remove_instruction_prefix
+from ..training import TrainState, make_rerank_train_step
+from ..utils.config_system import ConfigDict
+from ..utils.registries import register_executor
+from .base import BaseExecutor
+from .flmr_executor import flmr_config_from
+
+logger = logging.getLogger(__name__)
+
+FAMILY_TODO = ("the {} reranker family is not ported to the executor yet: ROADMAP.md, "
+               "queue A item 2")
 
 
 @torch.no_grad()
@@ -45,3 +82,509 @@ def fusion_inputs(retriever, query_input_ids, query_attention_mask, context_inpu
                     query_pixel_values=query_pixel_values,
                     num_negative_examples=num_negative_examples, use_in_batch_negatives=False)
     return {"preflmr_scores": out.scores_raw, "fusion_multiplier": fusion_multiplier}
+
+
+def _submodules(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A flat state dict grouped by top-level submodule name."""
+    groups: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, value in state_dict.items():
+        top, _, rest = name.partition(".")
+        groups.setdefault(top, {})[rest] = value
+    return groups
+
+
+def warm_start_from_retriever(state_dict: Dict[str, torch.Tensor],
+                              retriever_state_dict: Dict[str, torch.Tensor]
+                              ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """Copy the shared FLMR-backbone submodules of a trained retriever's
+    state dict into a freshly initialised reranker's.
+
+    The reference never trains a monoPreFLMR reranker from scratch: its
+    ``RerankModel`` splices the encoders of a pretrained PreFLMR
+    (`Reranker_base_executor.py:185-242`; `rerank_model.py:88-101`) and only
+    the cross-encoder head and input mapping start fresh. The submodule
+    names are shared by construction (``context_text_encoder``,
+    ``context_vision_encoder``, ``context_vision_projection``,
+    ``transformer_mapping_*``), so warm-starting copies top-level
+    submodules. A submodule in both must have the same parameter names and
+    shapes (a loud failure beats silently keeping random weights); the
+    copied tensors take the reranker's dtype. Submodules only in the
+    reranker keep their fresh init.
+
+    Returns ``(merged_state_dict, restored_submodule_names)``."""
+    mine, theirs = _submodules(state_dict), _submodules(retriever_state_dict)
+    merged = dict(state_dict)
+    restored = []
+    for top, sub in mine.items():
+        if top not in theirs:
+            continue
+        rsub = theirs[top]
+        if set(sub) != set(rsub):
+            raise ValueError(
+                f"reranker backbone warm-start: submodule {top!r} has other parameters in "
+                "the reranker's flmr config than in the retriever checkpoint")
+        if any(sub[k].shape != rsub[k].shape for k in sub):
+            raise ValueError(
+                f"reranker backbone warm-start: submodule {top!r} parameter shapes differ "
+                "between the reranker's flmr config and the retriever checkpoint")
+        for k in sub:
+            merged[f"{top}.{k}"] = rsub[k].to(device=sub[k].device, dtype=sub[k].dtype)
+        restored.append(top)
+    return merged, restored
+
+
+@register_executor
+class RerankerExecutor(BaseExecutor):
+    # ------------------------------------------------------------ model
+    def _init_model(self):
+        mc = self.config.get_path("model_config", ConfigDict())
+        self.modules = list(mc.get("modules", []))
+        self.Ks = mc.get("Ks", [5, 10, 20, 50, 100])
+        self.docs_to_rerank = mc.get("docs_to_rerank", max(self.Ks))
+        self.num_negative_samples = mc.get("num_negative_samples", 4)
+        self.fusion_multiplier = mc.get("fusion_multiplier", 1.0)
+        self._rng = random.Random(self.config.get_path("meta.seed", 42) or 42)
+
+        for flag, family in (("interaction_reranker", "interaction"),
+                             ("decoder_reranker", "decoder"),
+                             ("preflmr_attention_fusion", "preflmr_attention_fusion")):
+            if flag in self.modules:
+                raise NotImplementedError(FAMILY_TODO.format(family))
+
+        ce_cfg = BertConfig(**mc.get("cross_encoder", {"num_hidden_layers": 1}))
+        pos_weight = mc.get("pos_weight")
+        if "weighted_regression" in self.modules and pos_weight is None:
+            # reference `Reranker_base_executor.py:196-199`: weight the BCE
+            # positive class by the group size (1 pos : N negs); an explicit
+            # pos_weight in the config wins over the flag's derived value
+            pos_weight = float(self.num_negative_samples + 1)
+        # encoder family: joint-retokenization FullContext when flagged,
+        # otherwise the spliced-query RerankModel — the reference's
+        # module→class mapping (`Reranker_base_executor.py:151-183`)
+        flmr_cfg = flmr_config_from(
+            mc,
+            query_tokenizer=self.tokenizers.get("tokenizer"),
+            context_tokenizer=self.tokenizers.get("decoder_tokenizer"),
+        )
+        self.reranker_config = RerankConfig(
+            flmr=flmr_cfg,
+            cross_encoder=ce_cfg,
+            loss_fn=mc.get("loss_fn", "BCE"),
+            pos_weight=pos_weight,
+            max_query_length=mc.get("max_query_length", 32),
+            max_decoder_source_length=mc.get("max_decoder_source_length", 512),
+        )
+        if "full_context_reranker" in self.modules:
+            self.reranker_family = "full_context"
+            cls = FullContextRerankModel
+        else:
+            self.reranker_family = "spliced"
+            cls = RerankModel
+        # drawn on the CPU from the seeded generator, then moved (the same
+        # weights on any device)
+        self.reranker = cls(self.reranker_config, device="cpu",
+                            generator=self.generator).to(self.device)
+        self.retriever = None
+
+        self._setup_corpus()
+        self.init_retrieve()
+        self._warm_start()
+        self._train_state = None
+        self._restored = None
+        self._rerank_fn = None
+
+    def _setup_corpus(self):
+        self.id2doc: Dict[str, str] = {}
+        passages = self.prepared_data.get("passages")
+        if passages and "id2doc" in passages:
+            self.id2doc = dict(passages["id2doc"])
+        else:
+            for loaders in self.data_loaders.values():
+                for loader in loaders.values():
+                    ds = getattr(loader, "dataset", None)
+                    if ds is not None and getattr(ds, "passages", None):
+                        self.id2doc.update(ds.passages["id2doc"])
+
+    def _warm_start(self):
+        """``model_config.reranker_backbone_path``: warm-start the spliced
+        FLMR encoders from a trained retriever checkpoint — the reference's
+        standing recipe."""
+        bpath = self.config.get_path("model_config.reranker_backbone_path", None)
+        if not bpath:
+            return
+        from ..training.checkpointing import CheckpointManager
+
+        restored_ckpt = CheckpointManager.restore(bpath, device=self.device)
+        merged, restored = warm_start_from_retriever(self.reranker.state_dict(),
+                                                     restored_ckpt["model"])
+        if not restored:
+            raise ValueError(f"reranker_backbone_path {bpath}: no shared FLMR "
+                             "submodules found to warm-start")
+        self.reranker.load_state_dict(merged)
+        logger.info("warm-started reranker backbone from %s: %s", bpath, restored)
+
+    # -------------------------------------------------- static retrieval
+    def init_retrieve(self):
+        """Reference `:244-271`."""
+        path = self.config.get_path("model_config.retrieve_result_path")
+        self.questionId2topPassages: Dict[str, List[dict]] = {}
+        # transparent .gz fallback: large static-retrieval dumps are
+        # committed gzipped (git-friendly) while configs keep pointing at
+        # the plain path — a fresh checkout works without a manual gunzip
+        if path and not os.path.exists(path) and os.path.exists(path + ".gz"):
+            path = path + ".gz"
+        if path and os.path.exists(path):
+            if path.endswith(".json.gz"):
+                import gzip
+                with gzip.open(path, "rt") as f:
+                    loaded = json.load(f)
+            elif path.endswith(".json"):
+                with open(path) as f:
+                    loaded = json.load(f)
+            else:
+                with open(path, "rb") as f:
+                    loaded = pickle.load(f)
+            # accepted shapes: {qid: [{passage_id, score}...]}, the
+            # prediction-dump format from FLMRExecutor.logging_results, or a
+            # reference-produced dump ({"output": [...]}, the layout
+            # `src/tools/reduce_retrieval_result_file_size.py` pickles)
+            if "predictions" in loaded or "output" in loaded:
+                # branch on key presence, not truthiness: a framework dump
+                # with an empty predictions list is valid and must not fall
+                # through to a KeyError on "output"
+                entries = (loaded["predictions"] if "predictions" in loaded
+                           else loaded["output"])
+                for entry in entries:
+                    self.questionId2topPassages[str(entry["question_id"])] = entry[
+                        "top_ranking_passages"
+                    ]
+            else:
+                self.questionId2topPassages = {str(k): v for k, v in loaded.items()}
+        elif self.use_dummy_data:
+            self._synthesize_static_retrieval()
+        else:
+            logger.warning("no static retrieval results configured")
+
+    def _synthesize_static_retrieval(self):
+        all_ids = list(self.id2doc.keys())
+        for loaders in self.data_loaders.values():
+            for loader in loaders.values():
+                ds = getattr(loader, "dataset", None)
+                table = getattr(ds, "dataset", None)
+                if table is None:
+                    continue
+                for row in table:
+                    qid = str(row["question_id"])
+                    if qid in self.questionId2topPassages:
+                        continue
+                    pos = list(row.get("pos_item_ids", []))
+                    pos_set = set(pos)
+                    # only docs_to_rerank docs survive the slice — stop the
+                    # corpus scan there instead of materializing all of it
+                    pool = list(pos)
+                    for p in all_ids:
+                        if len(pool) >= self.docs_to_rerank:
+                            break
+                        if p not in pos_set:
+                            pool.append(p)
+                    pool = pool[: self.docs_to_rerank]
+                    self._rng.shuffle(pool)
+                    self.questionId2topPassages[qid] = [
+                        {"passage_id": p, "content": self.id2doc[p], "score": 1.0}
+                        for p in pool
+                    ]
+
+    def static_retrieve(self, question_id) -> List[dict]:
+        """Reference `:1032-1054`; lists shorter than K pad by replication
+        (reference `FLMR_base_executor.py:1006-1015`). Entries from reduced
+        static files (`tools/reduce_retrieval_file.py` strips ``content``,
+        mirroring `src/tools/reduce_retrieval_result_file_size.py`) get their
+        content re-resolved from the passage corpus, as the reference does
+        via its own ``passage_id2doc`` lookup."""
+        docs = self.questionId2topPassages.get(str(question_id), [])
+        resolved = []
+        for d in docs[: self.docs_to_rerank]:
+            if "content" in d:
+                resolved.append(d)
+                continue
+            # reference dumps may carry int passage ids while the corpus is
+            # keyed by str (or vice versa) — normalize instead of silently
+            # handing the reranker an empty passage
+            pid = d["passage_id"]
+            content = self.id2doc.get(pid)
+            if content is None:
+                content = self.id2doc.get(str(pid))
+            if content is None:
+                logger.warning(
+                    "static-retrieval passage id %r absent from corpus; "
+                    "reranking it as empty text", pid)
+                content = ""
+            resolved.append({**d, "content": content})
+        docs = resolved
+        while docs and len(docs) < self.docs_to_rerank:
+            docs = docs + docs[: self.docs_to_rerank - len(docs)]
+        return docs
+
+    # ------------------------------------------------------------ train
+    def prepare_training(self, total_steps: int):
+        optimizer, scheduler, _ = self.build_optimizer(self.reranker, total_steps)
+        state = TrainState.create(self.reranker, optimizer, scheduler)
+        if self._restored is not None and "optimizer" in self._restored:
+            optimizer.load_state_dict(self._restored["optimizer"])
+            scheduler.load_state_dict(self._restored["scheduler"])
+            state.step = int(self._restored["step"])
+        self._restored = None
+        self._train_state = state
+        self._step = make_rerank_train_step(self.reranker, optimizer, scheduler,
+                                            num_negative_examples=self.num_negative_samples)
+
+    def _select_training_docs(self, qid, pos_ids):
+        """negative_sample vs sample modes (reference `:486-566`)."""
+        retrieved = [d["passage_id"] for d in self.static_retrieve(qid)]
+        if not retrieved:
+            retrieved = list(self.id2doc.keys())[: self.docs_to_rerank]
+        if "neg_sample_retrieved" in self.modules or "train_with_retrieved_docs" not in self.modules:
+            # 1 positive + N negatives, both RANDOMLY sampled from the
+            # retrieved list (reference `negative_sample_model_inputs`,
+            # `Reranker_base_executor.py:486-531`: `local_random.sample`).
+            # Sampling matters: with a deterministic top-N slice the model
+            # only ever sees the same num_negative_samples docs per query and
+            # the remaining retrieved candidates are out-of-distribution at
+            # eval time — rerank then *degrades* the raw order.
+            pos_set = set(pos_ids)
+            retrieved_pos = [p for p in retrieved if p in pos_set]
+            if retrieved_pos:
+                pos = self._rng.choice(retrieved_pos)
+            elif pos_ids:
+                pos = self._rng.choice(pos_ids)
+            else:
+                pos = retrieved[0]
+            negs = [p for p in retrieved if p not in pos_set]
+            if len(negs) < self.num_negative_samples:
+                # top up from the corpus, stopping once we have enough —
+                # never materialize an 80k-element list per training sample
+                for p in self.id2doc:
+                    if len(negs) >= self.num_negative_samples:
+                        break
+                    if p not in pos_set:
+                        negs.append(p)
+            elif len(negs) > self.num_negative_samples:
+                negs = self._rng.sample(negs, self.num_negative_samples)
+            selected = [pos] + negs[: self.num_negative_samples]
+            labels = [1] + [0] * self.num_negative_samples
+        else:
+            # random N+1 retrieved docs with binary labels (`:532-566`)
+            selected = self._rng.sample(retrieved, min(len(retrieved), self.num_negative_samples + 1))
+            while len(selected) < self.num_negative_samples + 1:
+                selected.append(selected[-1])
+            labels = [1 if p in set(pos_ids) else 0 for p in selected]
+        return selected, labels
+
+    def _sampled_labels(self) -> bool:
+        """Whether a training batch carries the sampled docs' binary labels
+        ('train_with_retrieved_docs' without 'neg_sample_retrieved')."""
+        return ("train_with_retrieved_docs" in self.modules
+                and "neg_sample_retrieved" not in self.modules)
+
+    def _training_batch(self, batch, labelled: bool) -> Dict[str, object]:
+        """The reranker's forward arguments for a collated batch: each
+        query's selected docs (reference `:486-566`), and with ``labelled``
+        their binary labels."""
+        nway = self.num_negative_samples + 1
+        doc_ids, labels = [], []
+        for qi, qid in enumerate(batch["question_ids"]):
+            pos = (batch.get("pos_item_ids") or [[]] * len(batch["question_ids"]))[qi]
+            sel, lab = self._select_training_docs(qid, [p for p in pos if p])
+            doc_ids.extend(sel)
+            labels.extend(lab)
+        contents = [self.id2doc.get(d, "") for d in doc_ids]
+        queries = [remove_instruction_prefix(q) for q in batch["questions"]]
+        model_batch = self._build_rerank_inputs(batch, queries, contents, nway)
+        if labelled:
+            model_batch["labels"] = torch.tensor(labels, dtype=torch.float32,
+                                                 device=self.device)
+        return model_batch
+
+    def training_step(self, batch) -> Dict[str, float]:
+        self.reranker.train()
+        self._train_state, metrics = self._step(
+            self._train_state, self._training_batch(batch, self._sampled_labels()))
+        return {"loss": float(metrics["loss"])}
+
+    def _build_rerank_inputs(self, batch, queries, contents, nway) -> Dict[str, object]:
+        """Tensors on the executor's device for the spliced or the
+        full-context reranker."""
+        pix = None
+        if "text_only" not in self.modules and "pixel_values" in batch:
+            pix = torch.as_tensor(batch["pixel_values"]).to(self.device)
+
+        def dev(x):
+            return torch.as_tensor(x).to(self.device)
+
+        if self.reranker_family == "spliced":
+            # raw query tokens + separately tokenized contexts; the model
+            # splices them (reference `rerank_model.py:204-224`)
+            ct = self.tokenizers["decoder_tokenizer"]
+            dlen = self.config.get_path("model_config.doc_maxlen", 64)
+            enc_d = ct(contents, max_length=dlen)
+            return dict(
+                query_input_ids=dev(batch["input_ids"]),
+                query_attention_mask=dev(batch["attention_mask"]),
+                query_pixel_values=pix,
+                context_input_ids=dev(enc_d["input_ids"]),
+                context_attention_mask=dev(enc_d["attention_mask"]),
+            )
+        cfg = self.reranker_config
+        tok = getattr(self.tokenizers.get("tokenizer"), "tok", None) or getattr(
+            self.tokenizers.get("decoder_tokenizer"), "tok", None)
+        enc = prepare_full_context_inputs(
+            queries, contents, tok,
+            max_query_length=cfg.max_query_length,
+            max_context_length=cfg.max_context_length,
+            max_decoder_source_length=cfg.max_decoder_source_length,
+            docs_per_query=nway,
+        )
+        return {
+            "input_ids": dev(enc["input_ids"]),
+            "attention_mask": dev(enc["attention_mask"]),
+            "token_type_ids": dev(enc["token_type_ids"]),
+            "query_pixel_values": pix,
+        }
+
+    def state_to_save(self):
+        if self._train_state is None:
+            return {"model": self.reranker.state_dict(), "step": self.global_step}
+        return self._train_state
+
+    def load_checkpoint(self, path: str):
+        from ..training.checkpointing import CheckpointManager
+
+        restored = CheckpointManager.restore(path, device=self.device)
+        self.reranker.load_state_dict(restored["model"])
+        # optimizer and scheduler state are loaded into the optimizer that
+        # prepare_training builds
+        self._restored = restored
+        if restored.get("step") is not None:
+            self.global_step = int(restored["step"])
+
+    # ------------------------------------------------------------- eval
+    @torch.no_grad()
+    def _fast_validate(self, limit) -> ConfigDict:
+        """Loss-only validation — the reference's ``fast_evaluate_outputs``
+        path (`Reranker_base_executor.py:641-645`). Doc selection mirrors
+        training (static retrieval; the ``test_with_retrieved_docs`` flag
+        adds sampled-doc labels exactly like ``train_with_retrieved_docs``,
+        reference `:730-751`)."""
+        self.reranker.eval()
+        loss_sum, weight_sum = 0.0, 0.0
+        for name, loader in self.eval_dataloaders("valid").items():
+            for bi, batch in enumerate(loader):
+                if limit and bi >= limit:
+                    break
+                # drop padding-duplicated tail rows: a batch-mean loss over
+                # padded rows over-weights the duplicated samples
+                real = batch.get("_real_count", len(batch["question_ids"]))
+                nb = len(batch["question_ids"])
+                if real < nb:
+                    batch = {k: (v[:real] if hasattr(v, "__len__") and len(v) == nb else v)
+                             for k, v in batch.items()}
+                model_batch = self._training_batch(
+                    batch, "test_with_retrieved_docs" in self.modules or self._sampled_labels())
+                out = self.reranker(**model_batch,
+                                    num_negative_examples=self.num_negative_samples)
+                loss_sum += float(out.loss) * real
+                weight_sum += real
+        out = ConfigDict(metrics={}, artifacts={})
+        out.metrics["loss"] = loss_sum / weight_sum if weight_sum else 0.0
+        return out
+
+    def _forward_fn(self, K: int):
+        """``fwd(model_batch) -> logits [B, K]`` of the eval forward: the
+        chunked ``[B·K, L]`` program for the full-context family
+        (``engine/rerank_eval.py``), one forward for the spliced one."""
+        chunk_size = self.config.get_path("model_config.eval_chunk_size", 64)
+        if "split_testing_batch" in self.modules:
+            # reference `:838-919` halves OOM-ing test batches at runtime;
+            # here the static equivalent is a half-size chunk
+            chunk_size = max(1, chunk_size // 2)
+        if self.reranker_family == "full_context":
+            from ..engine import make_chunked_rerank_fn
+
+            chunked = make_chunked_rerank_fn(self.reranker, nway=K, chunk_size=chunk_size)
+            return lambda mb: chunked(mb["input_ids"], mb["attention_mask"],
+                                      mb["token_type_ids"], mb.get("query_pixel_values"))
+
+        def plain_fwd(mb):
+            with torch.inference_mode():
+                return self.reranker(**mb, num_negative_examples=K - 1).logits.reshape(-1, K)
+
+        return plain_fwd
+
+    def evaluate(self, mode: str = "test") -> ConfigDict:
+        limit = self.config.get_path(
+            f"{mode}.trainer_paras.limit_{'val' if mode == 'valid' else 'test'}_batches")
+        if mode == "valid" and "full_validation" not in self.modules:
+            # reference default (`Reranker_base_executor.py:641-645`):
+            # validation computes loss only; the full rerank runs only when
+            # the 'full_validation' module flag is set
+            return self._fast_validate(limit)
+        self.reranker.eval()
+        K = self.docs_to_rerank
+        batch_results: List[dict] = []
+        # the [B·K, L] joint forward that replaces the reference's per-query
+        # loop (`Reranker_base_executor.py:785-935`)
+        fwd = self._forward_fn(K)
+        for name, loader in self.eval_dataloaders(mode).items():
+            for bi, batch in enumerate(loader):
+                if limit and bi >= limit:
+                    break
+                n_rows = len(batch["question_ids"])
+                real = batch.get("_real_count", n_rows)
+                # queries with no static retrieval results keep a placeholder
+                # doc list and are *marked*, not dropped — dropping silently
+                # overstates coverage in the metrics
+                per_q_docs = [self.static_retrieve(batch["question_ids"][qi])
+                              for qi in range(n_rows)]
+                fallback = [{"passage_id": p, "content": self.id2doc[p], "score": 0.0}
+                            for p in list(self.id2doc.keys())[:K]]
+                contents, queries = [], []
+                for qi in range(n_rows):
+                    docs = per_q_docs[qi] or fallback
+                    per_q_docs[qi] = docs
+                    contents.extend(d["content"] for d in docs)
+                    queries.append(remove_instruction_prefix(batch["questions"][qi]))
+                model_batch = self._build_rerank_inputs(batch, queries, contents, K)
+                logits = fwd(model_batch).float().cpu().numpy().reshape(n_rows, K)
+                for qi in range(real):
+                    docs = per_q_docs[qi]
+                    missing_static = not self.questionId2topPassages.get(
+                        str(batch["question_ids"][qi]))
+                    row = logits[qi]
+                    order = np.argsort(-row)
+                    entry = {
+                        "question_id": batch["question_ids"][qi],
+                        "question": batch["questions"][qi],
+                        "top_ranking_passages": [
+                            {"passage_id": docs[j]["passage_id"],
+                             "content": docs[j]["content"], "score": float(row[j])}
+                            for j in order
+                        ],
+                        "raw_top_ranking_passages": [
+                            {"passage_id": d["passage_id"], "content": d["content"],
+                             "score": float(d.get("score", 0.0))}
+                            for d in docs
+                        ],
+                    }
+                    if missing_static:
+                        entry["static_retrieval_missing"] = True
+                    if "answers" in batch:
+                        entry["answers"] = batch["answers"][qi]
+                        entry["gold_answer"] = batch["gold_answer"][qi]
+                    if "pos_item_ids" in batch:
+                        entry["pos_item_ids"] = batch["pos_item_ids"][qi]
+                    batch_results.append(entry)
+
+        data_dict = {"batch_retrieval_result": batch_results, "Ks": self.Ks}
+        log_dict = self.compute_metrics(data_dict)
+        log_dict["batch_retrieval_result"] = batch_results
+        return log_dict

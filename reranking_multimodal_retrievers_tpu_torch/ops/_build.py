@@ -25,7 +25,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = {"maxsim": "maxsim.cu", "attention": "attention.cu", "maxsim_int8": "maxsim_int8.cu"}
+SOURCES = {"maxsim": "maxsim.cu", "attention": "attention.cu", "maxsim_int8": "maxsim_int8.cu",
+           "attention_f32": "attention_f32.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

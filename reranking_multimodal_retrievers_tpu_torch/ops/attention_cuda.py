@@ -1,8 +1,9 @@
 """Kernel K2: fused multi-head self-attention, and its plain PyTorch version.
 
 Replaces ``reranking_multimodal_retrievers_tpu/ops/attention_pallas.py::
-fused_self_attention``. The CUDA kernel is ``csrc/attention.cu``; its header
-says what bounds it on an H100 and how its design answers that.
+fused_self_attention``. The CUDA kernels are ``csrc/attention.cu`` (bf16)
+and ``csrc/attention_f32.cu`` (fp32, key bias only); their headers say what
+bounds them on an H100 and how their designs answer that.
 
 :func:`fused_self_attention` takes the plain version for CPU tensors and
 launches the kernel for CUDA tensors (or raises: there is no fallback).
@@ -110,7 +111,8 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
     [num_heads, L, L] additive bias; causal: -1e9 where key > query.
     Returns [B, L, num_heads * head_dim] in q's dtype.
 
-    On CUDA, q/k/v are bf16 with head_dim 64 or 80, unit stride in the last
+    On CUDA, fp32 q/k/v (with no head_bias and no causal mask) go to
+    :func:`fused_self_attention_f32`; otherwise q/k/v are bf16 with head_dim 64 or 80, unit stride in the last
     dim and row/batch strides that are multiples of 8 elements (the kernel
     reads them by TMA through tensor maps built per call); head_bias is a
     contiguous bf16 or fp32 tensor on the same device, passed to the kernel
@@ -139,8 +141,15 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
             f"the CUDA attention kernel takes head_dim {KERNEL_HEAD_DIMS}; got "
             f"{HD} channels over {num_heads} heads")
     hd = HD // num_heads
+    if q.dtype == k.dtype == v.dtype == torch.float32:
+        if head_bias is not None or causal:
+            raise NotImplementedError("the fp32 CUDA attention kernel takes a key bias only "
+                                      "(no head_bias, no causal mask)")
+        return fused_self_attention_f32(q, k, v, mask_bias, num_heads=num_heads,
+                                        sm_scale=sm_scale)
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"the CUDA attention kernel takes bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"the CUDA attention kernels take bf16 or fp32, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     for x in (q, k, v):
         if x.stride(2) != 1 or x.stride(1) % 8 or x.stride(0) % 8 or x.data_ptr() % 16:
             raise ValueError(f"unsupported q/k/v layout: strides {x.stride()}")
@@ -172,6 +181,55 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
 fused_self_attention.launches = 0
 
 
+def fused_self_attention_f32(q, k, v, mask_bias=None, *, num_heads: int,
+                             sm_scale: float) -> torch.Tensor:
+    """K2's fp32 path on CUDA (``csrc/attention_f32.cu``): softmax(Q K^T *
+    sm_scale + key bias) V for fp32 q/k/v ``[B, L, num_heads * head_dim]``
+    with head_dim 64 or 80 and unit stride in the last dim, and an optional
+    [B, L] key bias; returns fp32 ``[B, L, num_heads * head_dim]``. Called by
+    :func:`fused_self_attention` for fp32 CUDA tensors; it takes CUDA tensors
+    only."""
+    refuse_grad("fused_self_attention_f32", q, k, v, mask_bias,
+                hint="or train with use_pallas_attention=False, as the JAX package does")
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k, v must share one CUDA device: {q.device}, {k.device}, "
+                         f"{v.device}")
+    if not (q.dtype == k.dtype == v.dtype == torch.float32):
+        raise TypeError(f"fp32 q/k/v expected, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must be equal [B, L, heads*hd]: {q.shape}, {k.shape}, {v.shape}")
+    B, L, HD = q.shape
+    if HD % num_heads or HD // num_heads not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the CUDA attention kernel takes head_dim {KERNEL_HEAD_DIMS}; got "
+            f"{HD} channels over {num_heads} heads")
+    for x in (q, k, v):
+        if x.stride(2) != 1:
+            raise ValueError(f"unsupported q/k/v layout: strides {x.stride()}")
+    bias = None
+    if mask_bias is not None:
+        if mask_bias.shape != (B, L):
+            raise ValueError(f"mask_bias must be [B, L], got {tuple(mask_bias.shape)}")
+        bias = mask_bias.to(device=q.device, dtype=torch.float32).contiguous()
+    out = torch.empty(B, L, HD, dtype=torch.float32, device=q.device)
+    if B == 0 or L == 0:
+        return out
+    err = _lib_f32().attention_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        B, L, num_heads, HD // num_heads, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err < 0:
+        raise ValueError(f"fused_self_attention_f32: shape refused by the kernel ({err})")
+    _build.check(err, "fused_self_attention_f32")
+    fused_self_attention_f32.launches += 1
+    return out
+
+
+fused_self_attention_f32.launches = 0
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     if lib.attention_bf16.argtypes is None:
@@ -179,4 +237,14 @@ def _lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
             + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.attention_bf16.restype = ctypes.c_int
+    return lib
+
+
+def _lib_f32() -> ctypes.CDLL:
+    lib = _build.load("attention_f32")
+    if lib.attention_f32.argtypes is None:
+        lib.attention_f32.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 6
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.attention_f32.restype = ctypes.c_int
     return lib

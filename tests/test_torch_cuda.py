@@ -127,7 +127,9 @@ def test_k2_rejects_other_head_dims_and_dtypes(gen):
         fused_self_attention(x, x, x, num_heads=2, sm_scale=0.1)  # head_dim 96
     y = torch.randn(1, 8, 128, device="cuda", generator=gen)
     with pytest.raises(TypeError):
-        fused_self_attention(y, y, y, num_heads=2, sm_scale=0.125)  # fp32
+        fused_self_attention(*(y.half(),) * 3, num_heads=2, sm_scale=0.125)  # fp16
+    with pytest.raises(NotImplementedError):  # fp32 takes a key bias only
+        fused_self_attention(y, y, y, num_heads=2, sm_scale=0.125, causal=True)
     z = y.to(torch.bfloat16)
     for hb, err in ((torch.zeros(2, 8, 8, device="cuda", dtype=torch.float16), TypeError),
                     (torch.zeros(2, 8, 9, device="cuda"), ValueError),
@@ -303,6 +305,64 @@ def test_bert_kernel_path_matches_plain_path(gen):
     assert fused_self_attention.launches == launches + 2  # one per layer
     # two bf16 layers of LayerNorm'd activations of order 1
     torch.testing.assert_close(a, b, atol=6e-2, rtol=0)
+
+
+def test_bert_fp32_kernel_path_matches_plain_path(gen):
+    """An fp32 BERT with use_pallas_attention, as the executors build it,
+    routes self-attention through K2's fp32 kernel (before it existed, K2
+    raised TypeError on fp32); the same weights without the flag take the
+    plain path. TF32 is off: the JAX package's tolerance for the same
+    comparison (tests/test_maxsim_pallas.py)."""
+    from reranking_multimodal_retrievers_tpu_torch.models.bert import BertConfig, BertModel
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_f32)
+
+    kw = dict(hidden_size=128, num_attention_heads=2, intermediate_size=256)
+    fused = BertModel(BertConfig.tiny(use_pallas_attention=True, **kw), generator=gen)
+    plain = BertModel(BertConfig.tiny(**kw))
+    plain.load_state_dict(fused.state_dict())
+    ids = torch.randint(1, 1000, (3, 45), device="cuda", generator=gen)
+    am = torch.ones_like(ids)
+    am[1, 30:] = 0
+    launches = fused_self_attention_f32.launches
+    with torch.inference_mode():
+        a = fused(ids, am)["last_hidden_state"]
+        b = plain(ids, am)["last_hidden_state"]
+    assert a.dtype == torch.float32
+    assert fused_self_attention_f32.launches == launches + 2  # one per layer
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,L,H,HD,masked,strided", [
+    (3, 24, 12, 64, True, False),   # the FLMR doc encoder's L, one query tile
+    (2, 45, 2, 80, True, True),     # head_dim 80, two query tiles, strided q/k/v
+    (5, 80, 12, 64, True, False),   # the cross-encoder's L: two key tiles
+    (1, 1, 4, 64, False, False),    # L = 1
+    (2, 130, 3, 80, False, False),  # three key tiles, no mask
+])
+def test_k2_f32_matches_plain(gen, B, L, H, HD, masked, strided):
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_f32)
+
+    width = H * HD
+    if strided:  # q/k/v as views of one [B, L, 3 * width] projection
+        qkv = torch.randn(B, L, 3 * width, device="cuda", generator=gen)
+        q, k, v = qkv[..., :width], qkv[..., width:2 * width], qkv[..., 2 * width:]
+    else:
+        q, k, v = (torch.randn(B, L, width, device="cuda", generator=gen) for _ in range(3))
+    bias = None
+    if masked:
+        keep = torch.rand(B, L, device="cuda", generator=gen) > 0.3
+        keep[:, 0] = True
+        keep[-1] = False  # a row whose keys are all masked
+        bias = torch.where(keep, 0.0, -1e9)
+    launches = fused_self_attention_f32.launches
+    got = fused_self_attention(q, k, v, bias, num_heads=H, sm_scale=HD ** -0.5)
+    ref = fused_self_attention_reference(q, k, v, bias, num_heads=H, sm_scale=HD ** -0.5)
+    torch.cuda.synchronize()
+    assert fused_self_attention_f32.launches == launches + 1
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("L", [640, 369])

@@ -1,9 +1,12 @@
 """The port stands alone: it imports no JAX, flax, optax, orbax, transformers,
-tests or the JAX package, it imports with those modules blocked, and its
-entry points refuse to fall back to the CPU when CUDA is absent. The one
-exception is ``transformers`` inside a function of ``models/tokenization.py``,
-imported only where a tokenizer is built (the tokenizers are not on the
-card's path, and the module imports without it)."""
+datasets, PIL, tests or the JAX package, it imports with those modules
+blocked, and its entry points (the CLI, ``Experiment`` and the executors
+among them) refuse to fall back to the CPU when CUDA is absent. The two
+exceptions are imports inside a function: ``transformers`` in
+``models/tokenization.py``, where an HF tokenizer is built (the data
+pipeline builds the port's own WordPiece tokenizer), and ``PIL`` in
+``data/image_io.py``, for an image format other than the PNGs it reads
+itself."""
 
 import ast
 import os
@@ -21,9 +24,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "reranking_multimodal_retrievers_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "transformers", "tests",
-             "reranking_multimodal_retrievers_tpu"}
+             "reranking_multimodal_retrievers_tpu", "datasets", "PIL"}
 # imports allowed inside a function body (not at module level) of a file
-LAZY_ALLOWED = {PORT / "models" / "tokenization.py": {"transformers"}}
+LAZY_ALLOWED = {PORT / "models" / "tokenization.py": {"transformers"},
+                PORT / "data" / "image_io.py": {"PIL"}}
 
 
 def _sources():
@@ -69,7 +73,7 @@ def _modules():
 def test_port_and_chip_smoke_import_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax', 'orbax', 'transformers',\n"
+        "for m in ('jax', 'flax', 'optax', 'orbax', 'transformers', 'datasets', 'PIL',\n"
         "          'reranking_multimodal_retrievers_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
@@ -83,9 +87,15 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     assert out.stdout.strip() == "imported"
 
 
-def test_default_device_entry_points_refuse_without_cuda():
+def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
+    monkeypatch.delenv("RMRT_PLATFORM", raising=False)
+    from reranking_multimodal_retrievers_tpu_torch.cli.main import main
+    from reranking_multimodal_retrievers_tpu_torch.executors import (FLMRExecutor,
+                                                                     RerankerExecutor)
+    from reranking_multimodal_retrievers_tpu_torch.executors.experiment import Experiment
+    from reranking_multimodal_retrievers_tpu_torch.utils import ConfigDict
     from reranking_multimodal_retrievers_tpu_torch.engine import (
         HostTokenIndex, QuantizedTokenIndex, StreamingSearcher, TokenIndex, encode_corpus)
     from reranking_multimodal_retrievers_tpu_torch.models import (
@@ -130,6 +140,11 @@ def test_default_device_entry_points_refuse_without_cuda():
         lambda: leg.VisualColBERTMultipleMapping(leg.MultiMappingConfig.tiny()),
         lambda: leg.VisualColBERTMAE(leg.MAERetrieverConfig.tiny()),
         lambda: leg.VisualDPRForRAG(leg.DPRConfig.tiny(), 24),
+        lambda: main(["--config", str(ROOT / "configs" / "okvqa_flmr.json"), "--mode", "train",
+                      "--use_dummy_data"]),
+        lambda: Experiment(ConfigDict()),
+        lambda: FLMRExecutor(ConfigDict()),
+        lambda: RerankerExecutor(ConfigDict()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -164,3 +179,33 @@ def test_lazy_import_exception_is_narrow(tmp_path):
         assert "transformers" in _imported_roots(tmp_path / "t.py")
     finally:
         del LAZY_ALLOWED[tmp_path / "t.py"]
+
+
+def test_lazy_pil_import_is_narrow(tmp_path):
+    """Only a function-level import of ``PIL`` in ``data/image_io.py`` is
+    let through: a module-level one there is still caught, and the synthetic
+    data (its own PNGs) is read without PIL."""
+    img = PORT / "data" / "image_io.py"
+    assert "PIL" not in _imported_roots(img)
+    assert "PIL" in _roots(ast.walk(ast.parse(img.read_text())))
+    LAZY_ALLOWED[tmp_path / "i.py"] = LAZY_ALLOWED[img]
+    try:
+        (tmp_path / "i.py").write_text("from PIL import Image\n" + img.read_text())
+        assert "PIL" in _imported_roots(tmp_path / "i.py")
+    finally:
+        del LAZY_ALLOWED[tmp_path / "i.py"]
+    code = (
+        "import sys\n"
+        "sys.modules['PIL'] = None\n"
+        "import numpy as np\n"
+        "from reranking_multimodal_retrievers_tpu_torch.data import image_io\n"
+        f"p = {str(tmp_path / 'k.png')!r}\n"
+        "a = np.arange(48, dtype=np.uint8).reshape(4, 4, 3)\n"
+        "image_io.write_png(p, a)\n"
+        "assert (image_io.read_image(p) == a).all()\n"
+        "print(image_io.CLIPImageProcessor(4)([a]).shape)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "(1, 3, 4, 4)"
