@@ -9,7 +9,9 @@ Phases, each printing one JSON line with its elapsed seconds:
   0. the card (name and power limit as ``nvidia-smi`` gives them);
   1. build the CUDA kernels (``nvcc`` -> shared library -> ``ctypes``), and
      report each library's registers, static shared memory and spill bytes
-     from its ``-Xptxas -v`` log;
+     from its ``-Xptxas -v`` log; K2's fp32 library must hold TF32 tensor-core
+     instructions (``HMMA ... TF32`` in ``cuobjdump -sass``) and ``cp.async``
+     copies (``LDGSTS``);
   2. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes (K1 and K2 in bf16, K3 on int8 codes, masked and
      unmasked, plus crafted codes that must match bitwise; K1 and K3 also at
@@ -18,7 +20,12 @@ Phases, each printing one JSON line with its elapsed seconds:
      a yardstick the port never calls, K2 and the yardstick in turns
      (kernel, library, kernel, library), with each kernel's share of its
      bound and achieved TFLOP/s (TOP/s for K3) and K2's ratio to the
-     yardstick;
+     yardstick; K2's fp32 path with an fp32 head bias at Flan-T5-XL's
+     encoder shape [10, 544, 32 x 64] (at scores of order 1 and of std 8)
+     and with the causal mask at OPT-2.7b's [5, 544, 32 x 80], against its
+     plain version and timed the same way; the names of the kernels the fp32
+     yardstick runs at the cross-encoder's [50, 161, 12 x 64], read once
+     from ``torch.profiler``;
   3. retrieve: full-width FLMR (BERT-base, ViT-B/32, dim 128, 32-token
      prefix, 1-layer mapping network; random bf16 weights from a seed)
      encodes 1,024 docs into a TokenIndex padded with random unit vectors to
@@ -141,7 +148,9 @@ Phases, each printing one JSON line with its elapsed seconds:
      ``bench.py``'s batch and the 100k searches of phases 3 and 3b beside
      the bound, K1 at stage 1's, the pooled index's and 11b's launch
      shapes, K3 at 11c's, K2 at each main-path variant's launch shape,
-     and K2's fp32 path at each of phase 11's), then the result line.
+     and K2's fp32 path at each of phase 11's and at phase 2's head-bias
+     and causal shapes, each with the bound of 3xTF32 products and the
+     bound of fp32 FFMA beside it), then the result line.
 
 ``python3 chip_smoke.py --probe-t5-init`` instead builds the kernels and
 runs phase 5's model once with every weight at std 0.02 (none of HF T5's
@@ -2048,7 +2057,11 @@ CLI_FLMR_STEPS, CLI_RERANK_STEPS, TIMED_FROM = 20, 10, 5
 # K2's fp32 path against its plain version, both fp32 with TF32 off: the JAX
 # package's tolerance for the same comparison (tests/test_maxsim_pallas.py)
 K2F32_RTOL, K2F32_ATOL = 1e-4, 2e-5
-# H100 SXM fp32 peak outside the tensor cores (data sheet)
+# H100 SXM peaks (data sheet): TF32 tensor cores, and fp32 outside them.
+# K2's fp32 path does each product three times in TF32 (3xTF32); its bound
+# is max(bytes / 3.35 TB/s, 3 * operations / 495 TFLOP/s), and the bound of
+# the same operations in fp32 FFMA is printed beside it
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 # card fp32 against CPU fp32 (TF32 off for cuBLAS and cuDNN): round-off
 # alone, as phase 8's TRAIN_LOSS_TOL; the rerank logits through 12 + 1
@@ -2117,34 +2130,182 @@ def _k2_key(q, k, v, bias=None, *rest):
     return (tuple(q.shape), bias is not None) if q.dtype == torch.float32 and q.is_cuda else None
 
 
-def k2f32_line(entry, name):
-    """K2's fp32 path against its plain version on the first inputs a phase
-    gave it at one launch shape, timed beside the plain version and
-    ``scaled_dot_product_attention`` in fp32 (in turns)."""
+def k2f32_bound(flops, nbytes):
+    """(bound ms, what bounds it, fp32 FFMA bound ms) of K2's fp32 path: the
+    3xTF32 products on the tensor cores against the bytes, and the same
+    operations in fp32 FFMA (the bound before the tensor cores)."""
+    b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    ffma_ms, _ = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    return b_ms, b_by, ffma_ms
+
+
+def k2f32_check(name, q, k, v, bias, head_bias=None, *, heads, scale, causal=False,
+                sdpa_mask=None, flops=None):
+    """K2's fp32 path against its plain version on the card, timed beside
+    the plain version and ``scaled_dot_product_attention`` in fp32 with
+    ``sdpa_mask`` (in turns). ``flops``: the work the inputs need (4 B H L^2
+    hd, about half under the causal mask)."""
     from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
         fused_self_attention, fused_self_attention_reference)
 
-    q, k, v, bias = (entry["args"] + [None])[:4]
-    kw = {key: entry["kwargs"][key] for key in ("num_heads", "sm_scale")}
+    kw = dict(num_heads=heads, sm_scale=scale, causal=causal)
     B, L, HD = q.shape
-    H = kw["num_heads"]
-    got = fused_self_attention(q, k, v, bias, **kw)
-    ref = fused_self_attention_reference(q, k, v, bias, **kw)
+    got = fused_self_attention(q, k, v, bias, head_bias, **kw)
+    ref = fused_self_attention_reference(q, k, v, bias, head_bias, **kw)
     err = (got - ref).abs().max().item()
     check(bool(torch.isfinite(got).all()) and torch.allclose(got, ref, rtol=K2F32_RTOL,
                                                              atol=K2F32_ATOL),
           f"fp32 K2 {name} at {[B, L, HD]}: max |diff| {err}")
-    qh, kh, vh = (x.view(B, L, H, HD // H).transpose(1, 2) for x in (q, k, v))
-    amask = None if bias is None else (bias == 0)[:, None, None, :]
+    del got, ref
+    qh, kh, vh = (x.view(B, L, heads, HD // heads).transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    flops = 4 * B * H * L * L * (HD // H)
-    b_ms, b_by = bound(flops, 4 * q.numel() * 4 + (0 if bias is None else bias.numel() * 4),
-                       PEAK_FP32_FLOPS)
-    times = k2_timed(lambda: fused_self_attention(q, k, v, bias, **kw),
-                     lambda: sdpa(qh, kh, vh, attn_mask=amask, scale=kw["sm_scale"]), flops, b_ms)
-    return dict(variant=name, shape=[B, L, HD], max_abs_err=err, tol=[K2F32_RTOL, K2F32_ATOL],
-                plain_ms=cuda_ms(lambda: fused_self_attention_reference(q, k, v, bias, **kw), 3),
-                bound_ms=b_ms, bound_by=b_by, flops=flops, **times)
+    if flops is None:
+        flops = 4 * B * heads * L * L * (HD // heads)
+    nbytes = 4 * q.numel() * 4 + (0 if bias is None else bias.numel() * 4)
+    if head_bias is not None:
+        nbytes += head_bias.numel() * head_bias.element_size()
+    b_ms, b_by, ffma_ms = k2f32_bound(flops, nbytes)
+    kernel = lambda: fused_self_attention(q, k, v, bias, head_bias, **kw)  # noqa: E731
+    library = lambda: sdpa(qh, kh, vh, attn_mask=sdpa_mask, scale=scale)  # noqa: E731
+    times = k2_timed(kernel, library, flops, b_ms)
+    times.update(device_ms=device_ms(kernel), library_device_ms=device_ms(library))
+    return dict(variant=name, shape=[B, L, HD], heads=heads, max_abs_err=err,
+                tol=[K2F32_RTOL, K2F32_ATOL],
+                plain_ms=cuda_ms(lambda: fused_self_attention_reference(
+                    q, k, v, bias, head_bias, **kw), 3),
+                bound_ms=b_ms, bound_by=b_by, bound_ffma_ms=ffma_ms,
+                share_of_bound_ffma=ffma_ms / times["ms"], flops=flops, **times)
+
+
+def k2f32_line(entry, name):
+    """K2's fp32 path against its plain version on the first inputs a phase
+    gave it at one launch shape (``k2f32_check``)."""
+    q, k, v, bias = (entry["args"] + [None])[:4]
+    heads = entry["kwargs"]["num_heads"]
+    amask = None if bias is None else (bias == 0)[:, None, None, :]
+    return k2f32_check(name, q, k, v, bias, heads=heads, scale=entry["kwargs"]["sm_scale"],
+                       sdpa_mask=amask)
+
+
+def k2f32_variants(gen, smi):
+    """Phase 2's fp32 K2 rows for the options phase 11 does not take: an
+    fp32 head bias at Flan-T5-XL's encoder shape (T5's sm_scale 1; timed at
+    scores of order 1, also checked at scores of std 8) and the causal mask
+    at OPT-2.7b's, with right-padded keys as the decoder rerankers pad."""
+    rows = []
+    for B, H, hd, causal in ((10, 32, 64, False), (5, 32, 80, True)):
+        L = 544
+        q, k, v = (torch.randn(B, L, H * hd, device="cuda", generator=gen) for _ in range(3))
+        lens = torch.randint(L // 2, L + 1, (B,), device="cuda", generator=gen)
+        keep = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+        bias = torch.where(keep, 0.0, -1e9)
+        if causal:
+            tri = torch.ones(L, L, dtype=torch.bool, device="cuda").tril()
+            row = k2f32_check("causal, head_dim 80 at OPT-2.7b's [5, 544, 32x80] "
+                              "(not on the main path)", q, k, v, bias, heads=H,
+                              scale=hd ** -0.5, causal=True,
+                              sdpa_mask=tri[None, None] & keep[:, None, None, :],
+                              flops=4 * B * H * (L * (L + 1) // 2) * hd)
+        else:
+            hb = torch.randn(H, L, L, device="cuda", generator=gen)
+            mask = bias[:, None, None, :] + hb[None]
+            # T5's unscaled q: scores of std 8 (|s| up to ~40), held at the
+            # same tolerance; both sides' distance from fp64 as information
+            big = k2f32_fp64_errors(q, k, v, bias, hb, heads=H, scale=1.0)
+            check(big["kernel_vs_plain_over_tol"] <= 0,
+                  f"fp32 K2 head_bias at scores of std 8: {big}")
+            row = k2f32_check("head_bias fp32 at Flan-T5-XL's [10, 544, 32x64] "
+                              "(not on the main path)", q * 0.125, k, v, bias, hb, heads=H,
+                              scale=1.0, sdpa_mask=mask)
+            row["scores_std_8"] = big
+            del hb, mask
+        row["launches"] = 0  # phase 11, the main path, takes neither option
+        emit({"phase": "kernel_check", "kernel": "K2 fused_self_attention fp32", "card": smi,
+              **row})
+        rows.append(row)
+        del q, k, v
+    return rows
+
+
+def k2f32_fp64_errors(q, k, v, bias, head_bias, *, heads, scale, causal=False):
+    """Max |error| of K2's fp32 path and of its plain version (fp32, TF32
+    off) against the same function in fp64 on the card, of the one against
+    the other, and by how much the largest of the latter exceeds
+    ``K2F32_ATOL + K2F32_RTOL * |plain|`` (<= 0: within)."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        causal_bias, fused_self_attention, fused_self_attention_reference)
+
+    kw = dict(num_heads=heads, sm_scale=scale, causal=causal)
+    got = fused_self_attention(q, k, v, bias, head_bias, **kw)
+    ref = fused_self_attention_reference(q, k, v, bias, head_bias, **kw)
+    B, L, HD = q.shape
+    qh, kh, vh = (x.double().view(B, L, heads, HD // heads) for x in (q, k, v))
+    sc = torch.einsum("bqnd,bknd->bnqk", qh, kh) * scale
+    if bias is not None:
+        sc += bias.double()[:, None, None, :]
+    if head_bias is not None:
+        sc += head_bias.double()[None]
+    if causal:
+        sc += causal_bias(L, q.device).double()
+    exact = torch.einsum("bnqk,bknd->bqnd", torch.softmax(sc, -1), vh).reshape(B, L, HD)
+    del sc
+    over = ((got - ref).abs() - K2F32_ATOL - K2F32_RTOL * ref.abs()).max().item()
+    return {"kernel_vs_fp64": (got.double() - exact).abs().max().item(),
+            "plain_fp32_vs_fp64": (ref.double() - exact).abs().max().item(),
+            "kernel_vs_plain": (got - ref).abs().max().item(),
+            "kernel_vs_plain_over_tol": over}
+
+
+def library_kernels(fn, reps=1):
+    """The device kernels ``reps`` calls of ``fn`` run, with their device
+    time in us and their count, from ``torch.profiler`` (empty if the
+    profiler sees no device)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and us > 0:
+            out.append({"name": e.key, "us": us, "count": e.count})
+    return out
+
+
+def device_ms(fn, reps=10):
+    """Device time of ``fn``'s kernels a call, from ``torch.profiler``: at
+    small shapes the time between launches (the host) sets ``cuda_ms``, this
+    the card's own. None unless the profiler saw each kernel ``reps`` times
+    (it can miss events)."""
+    kernels = library_kernels(fn, reps)
+    if not kernels or any(k["count"] != reps for k in kernels):
+        return None
+    return sum(k["us"] for k in kernels) / reps / 1e3
+
+
+def sass_counts(name):
+    """Instruction counts of the built library ``name`` from ``cuobjdump
+    -sass``: TF32 tensor-core products, cp.async copies, fp32 FFMA."""
+    import os
+    import re
+
+    from reranking_multimodal_retrievers_tpu_torch.ops import _build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    check(tool is not None, "cuobjdump not found")
+    text = subprocess.run([tool, "-sass", str(_build._target(name))], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", text, re.M)
+    return {"instructions": len(ops),
+            "HMMA_TF32": sum(op.startswith("HMMA") and "TF32" in op for op in ops),
+            "LDGSTS": sum(op.startswith("LDGSTS") for op in ops),
+            "FFMA": sum(op.startswith("FFMA") for op in ops)}
 
 
 def k3_line(Qq, qs, Dq, ds, M, name):
@@ -2489,9 +2650,12 @@ def main() -> int:
     attention_cuda._lib()
     attention_cuda._lib_f32()
     maxsim_int8_cuda._lib()
+    sass = sass_counts("attention_f32")
+    check(sass["HMMA_TF32"] > 0 and sass["LDGSTS"] > 0,
+          f"K2's fp32 library: no TF32 HMMA or no cp.async in its SASS: {sass}")
     emit({"phase": "build", "nvcc_seconds": build_s,
           "ptxas": {name: ptxas_report(name) for name in _build.SOURCES},
-          "seconds": time.perf_counter() - t0})
+          "attention_f32_sass": sass, "seconds": time.perf_counter() - t0})
     if "--probe-t5-init" in sys.argv[1:]:
         emit(t5_init_probe(smi))
         return 0
@@ -2547,6 +2711,15 @@ def main() -> int:
                      bound_ms=b_ms, bound_by=b_by, flops=flops, **times)
         emit({"phase": "kernel_check", "kernel": "K2 fused_self_attention", **k2[L]})
         del q, k, v, got, ref
+    k2f32_extra = k2f32_variants(gen, smi)
+    # what the fp32 yardstick runs at the cross-encoder's launch shape (11d)
+    q, k, v = (torch.randn(50, 12, 161, 64, device="cuda", generator=gen) for _ in range(3))
+    amask = (torch.rand(50, 161, device="cuda", generator=gen) > 0.2)[:, None, None, :]
+    emit({"phase": "library_kernels", "call": "scaled_dot_product_attention fp32, bool key "
+          "mask, [50, 12, 161, 64]", "card": smi,
+          "kernels": library_kernels(lambda: torch.nn.functional.scaled_dot_product_attention(
+              q, k, v, attn_mask=amask, scale=0.125))})
+    del q, k, v, amask
     emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0})
 
     # ---- 3. retrieve (main path)
@@ -2829,7 +3002,7 @@ def main() -> int:
              replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183", **k3_cli),
         *(dict(name=f"fused_self_attention fp32 {row['variant']}", route="cuda",
                source="reranking_multimodal_retrievers_tpu_torch/csrc/attention_f32.cu",
-               replaces=attention, **row) for row in k2f32_rows),
+               replaces=attention, **row) for row in k2f32_rows + k2f32_extra),
     ], "not_ported": []})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,139 +1,592 @@
-// K2, fp32 path: fused multi-head self-attention over fp32 q/k/v with a key
-// bias, head_dim 64 or 80, for Hopper (sm_90a) with plain SIMT FFMA.
+// K2, fp32 path: fused multi-head self-attention over fp32 q/k/v for Hopper
+// (sm_90a), head_dim 64 or 80, on the tensor cores in 3xTF32.
 //
 // Replaces reranking_multimodal_retrievers_tpu/ops/attention_pallas.py::
-// fused_self_attention (pallas_call at :175) where it is called with fp32
-// inputs: the TPU kernel takes any float dtype and accumulates in fp32
-// (preferred_element_type), and the executors keep their parameters in
-// fp32, so BERT under use_pallas_attention hands it fp32 q/k/v. The bf16
-// inputs go to csrc/attention.cu. It computes
-//     out = softmax(Q K^T * sm_scale + key_bias) V
+// fused_self_attention (pallas_call at :175, body _attn_kernel at :36) where
+// it is called with fp32 inputs: the TPU kernel takes any float dtype and
+// accumulates in fp32 (preferred_element_type), and the executors keep their
+// parameters in fp32, so BERT under use_pallas_attention (and an fp32 T5
+// encoder or OPT) hands it fp32 q/k/v. The bf16 inputs go to
+// csrc/attention.cu. It computes
+//     out = softmax(Q K^T * sm_scale + key_bias [+ head_bias] [+ causal]) V
 // per (batch row, head), reading Q/K/V in the projection layout
 // [B, L, heads * hd] through strides, with the padding mask as an additive
-// [B, L] fp32 key bias (0 keep / -1e9 drop), all in fp32.
+// [B, L] fp32 key bias (0 keep / -1e9 drop), an optional per-head additive
+// bias [heads, L, L] in bf16 or fp32 shared over the batch (T5's relative
+// positions) and an optional causal mask that adds -1e9 where key > query.
 //
-// What bounds it on an H100: outside the tensor cores fp32 peaks at 67
-// TFLOP/s. At the executors' shapes (L <= 80, BERT-base's 12 x 64 heads) it
-// does 4*B*H*L*L*hd operations against 16*B*L*H*hd bytes moved: L/4
-// operations a byte, below the card's 20 fp32 operations a byte for L < 80,
-// so bytes bound it there, operations above.
+// The route: 3xTF32 on the tensor cores. Each fp32 operand x is split into
+// hi, x rounded to TF32 (to nearest, ties away from zero: cvt.rna's
+// rounding, done in two integer operations), and lo, x - hi rounded the
+// same way, and each product is lo*hi + hi*lo + hi*hi, the two small terms
+// first, by mma.sync.m16n8k8.tf32 with fp32 sums, for Q K^T and for P V
+// alike: the error stays near fp32 round-off, as CUTLASS's
+// OpMultiplyAddFastF32 keeps it, where one TF32 product keeps about three
+// decimal digits. The tensor cores truncate each sum they keep, so Q K^T
+// sums its small terms apart from its large ones and P V sums each tile
+// from zero, adding to O in fp32 (at scores of std 8 that brings the
+// error against fp64 below the plain fp32 version's, see PERF.md). The
+// scores leave the tensor cores before any bias is added: -1e9 never meets
+// a TF32 operand. mma.sync and not wgmma: these shapes are bound by bytes
+// (below), and TF32 wgmma takes B only K-major, so P V would need V
+// transposed in shared memory.
 //
-// Design (simple first): one block of 128 threads takes 32 query rows of one
-// (batch row, head); each query row belongs to a quad of 4 threads, thread t
-// of the quad holding dims t, t+4, t+8, ... of the row's q and output
-// accumulator in registers (dims interleaved, so the quad's 4 threads read 4
-// consecutive words of a K or V row: no bank conflict; the 8 quads of a warp
-// read the same row, a broadcast). K and V pass through shared memory in
-// tiles of 64 keys. A score is the quad's partial dot products summed with
-// two shuffles; the softmax is online (running max and sum in fp32, expf),
-// as the bf16 kernel's. The -1e9 bias is added, not -inf, so a row whose
-// keys are all masked averages V uniformly, as JAX and the plain version do.
+// What bounds it on an H100: 4*B*H*L*L*hd operations, three times over in
+// TF32 (495 TFLOP/s), against q, k, v and out in fp32 (16*B*L*H*hd bytes)
+// plus the biases, at 3.35 TB/s. That is 3*L/4 TF32 operations a byte
+// against the card's 148: bytes bound every L below ~200, so at the
+// executors' shapes: 0.030 ms at the cross-encoder's [50, 161, 12 x 64],
+// 0.0056 ms at the doc encoder's [64, 24, 12 x 64]. What holds it back
+// (PERF.md): three mma.sync products for each fp32 product, and each warp
+// splitting every K and V fragment it reads.
+//
+// Design:
+// - A block is 4 warps; a work item is 64 query rows (16 a warp) of one
+//   (batch row, head). At L <= 32 an item is 2 heads of 32 rows, at L <= 16
+//   4 heads of 16: the 4 warps always have rows to do. Blocks are
+//   persistent (two an SM) and walk items blockIdx.x, + gridDim.x, ...;
+//   under the causal mask the heaviest query blocks come first. The 8-key
+//   column tiles of a head in a tile (8, 4 or 2) are a template constant,
+//   so the product loops have no branches and the compiler interleaves the
+//   independent sums.
+// - K and V tiles of 64 keys (and the key bias) come by 16-byte cp.async
+//   into a two-stage ring, Q by the same copies into its own buffer at an
+//   item's first tile; the copies of the next tile, of this item or of the
+//   next one, are in flight while the warps compute this one. A thread
+//   copies one 16-byte column of every eighth row, so its source moves by
+//   whole rows. Rows past L are zero-filled; their key bias is -inf, so
+//   they get no weight.
+// - No shuffles between the two products: the key order of each 8-key
+//   k-step of P V is permuted (k-slot t holds key 2t, slot t + 4 key 2t + 1),
+//   so the C fragment of Q K^T is the A fragment of P V as it stands, and V
+//   is read at those rows. The head dims are permuted likewise (a thread's
+//   k-slots of two k-steps are four consecutive dims), so Q, K and V
+//   fragments come as float4 shared loads. Q and K rows are unpadded (hd 64
+//   flips chunk bit 2 on odd rows, hd 80's 80-word rows need nothing) and V
+//   rows padded by 4 words: every fragment load is free of bank conflicts.
+// - S stays in registers; scale, key bias, head bias (loaded into registers
+//   before the products) and the causal -1e9 are added there in fp32, in
+//   the plain version's order; the online softmax runs once a tile (exp2f
+//   with log2 e folded in after the max is subtracted, so -1e9-sized scores
+//   cancel exactly). O stays in fp32 registers, is normalised once and
+//   written from registers.
+// - Under the causal mask, key tiles wholly above an item's last row are
+//   not visited. This equals the full sum whenever each query row keeps a
+//   key at or before it that its key bias leaves unmasked, or has none at
+//   all (a fully masked row averages V over the keys up to itself, as the
+//   plain version does); it differs only for a row whose keys up to itself
+//   are all masked while a later key is not (left padding), as in the bf16
+//   kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kQuad = 4;
-constexpr int kRowsPerBlock = 32;
-constexpr int kThreads = kRowsPerBlock * kQuad;
-constexpr int kKeyTile = 64;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBM = 64;  // query rows an item (16 a warp)
+constexpr int kBN = 64;  // keys a tile
+constexpr int kMaxDevices = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf = -1e9f;  // the TPU kernel's causal mask value
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ bias,
-                     float* __restrict__ out, int L, int heads, int q_tiles,
-                     int64_t qs0, int64_t qs1, int64_t ks0, int64_t ks1,
-                     int64_t vs0, int64_t vs1, float sm_scale) {
-  constexpr int kPer = HD / kQuad;
-  __shared__ float ks[kKeyTile][HD];
-  __shared__ float vsm[kKeyTile][HD];
-  __shared__ float bs[kKeyTile];
+struct Layout {
+  static_assert(HD == 64 || HD == 80, "head_dim 64 or 80");
+  static constexpr bool kSwizzle = HD == 64;
+  static constexpr int kVStride = HD + 4;  // V rows: 4 mod 16 words
+  // offsets in floats: the Q buffer, then two stages of K, V, key bias
+  static constexpr int kStage0 = kBM * HD;
+  static constexpr int kV = kBN * HD;
+  static constexpr int kKB = kV + kBN * kVStride;
+  static constexpr int kStage = kKB + kBN;
+  static constexpr int kBytes = (kStage0 + 2 * kStage) * 4;
+};
 
-  const int b = blockIdx.x / q_tiles;
-  const int tile = blockIdx.x % q_tiles;
-  const int h = blockIdx.y;
-  const int lane_q = threadIdx.x / kQuad;
-  const int t = threadIdx.x % kQuad;
-  const int row = tile * kRowsPerBlock + lane_q;
-  const bool live = row < L;
+// the word offset of chunk c of row r of a Q or K tile
+template <int HD>
+__device__ __forceinline__ int qk_off(int r, int c) {
+  return r * HD + 4 * (Layout<HD>::kSwizzle ? c ^ ((r & 1) << 2) : c);
+}
 
-  float qr[kPer], acc[kPer];
-  const float* qrow = q + b * qs0 + (int64_t)(live ? row : 0) * qs1 + h * HD;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    qr[i] = live ? qrow[t + kQuad * i] * sm_scale : 0.f;
-    acc[i] = 0.f;
+struct NoHeadBias {};
+
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* key_bias;   // [B, L] or null
+  const void* head_bias;   // [H, L, L] or null
+  float* out;              // [B, L, H * hd] contiguous
+  long long qs0, qs1, ks0, ks1, vs0, vs1;
+  int B, L, H;
+  int slot_shift;  // log2 of the rows of one head in an item: 6, 5 or 4
+  int groups;      // head groups of 64 >> slot_shift heads
+  int qblocks;     // query blocks of kBM rows (1 when an item holds several heads)
+  int items;
+  int causal;
+  float sm_scale;
+};
+
+struct Item {
+  int b, h0, qb, tiles;
+};
+
+__device__ __forceinline__ Item decode(const Params& p, int it) {
+  int qb, rest;
+  if (p.causal) {  // the heaviest query blocks first
+    qb = p.qblocks - 1 - it / (p.B * p.groups);
+    rest = it % (p.B * p.groups);
+  } else {  // the query blocks of one (batch row, head) side by side
+    qb = it % p.qblocks;
+    rest = it / p.qblocks;
   }
-  float m = -INFINITY, l = 0.f;
+  Item x;
+  x.b = rest / p.groups;
+  x.h0 = (rest % p.groups) << (6 - p.slot_shift);
+  x.qb = qb;
+  const int key_end = p.causal ? min(p.L, (qb + 1) * kBM) : p.L;
+  x.tiles = (key_end + kBN - 1) / kBN;
+  return x;
+}
 
-  for (int k0 = 0; k0 < L; k0 += kKeyTile) {
-    const int n = min(kKeyTile, L - k0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < n * HD; idx += kThreads) {
-      const int j = idx / HD, d = idx % HD;
-      ks[j][d] = k[b * ks0 + (int64_t)(k0 + j) * ks1 + h * HD + d];
-      vsm[j][d] = v[b * vs0 + (int64_t)(k0 + j) * vs1 + h * HD + d];
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes, or 16 zero bytes when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero), in two integer operations: half of the dropped bits' weight is
+// added to the magnitude bits, then the 13 dropped bits are cleared
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, each rounded to TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32 with B = (b0, b1) split here: small += Al Bh + Ah Bl (the two
+// small terms first), big += Ah Bh. The tensor cores truncate each sum they
+// keep, so Q K^T keeps its small terms apart from its large ones, where a
+// long chain of small terms added to a large sum would lose what they carry
+__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
+                                     const uint32_t (&ah)[4], const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(small, al, bh0, bh1);
+  mma(small, ah, bl0, bl1);
+  mma(big, ah, bh0, bh1);
+}
+
+// d += A B in 3xTF32, all three products in one sum
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0, float b1) {
+  mma3(d, d, ah, al, b0, b1);
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Copy 64 rows of one head-dim slice of q, k or v ([B, L, H * HD] with row
+// stride rs) into a tile whose rows are `stride` words apart: row r holds
+// row row0 + (r & (slot rows - 1)) of head h0 + (r >> kSlotShift), zeros
+// past L or past the heads. Thread t copies chunk t % 16 of rows t / 16 + 8i
+// (and, at hd 80, chunk 16 + t % 4 of rows t / 4 + 32i): with one head an
+// item its source moves by whole rows, and its destinations are constant
+// offsets.
+template <int HD, int kSlotShift, bool kQK>
+__device__ __forceinline__ void copy_rows(float* tile, int stride, const float* base,
+                                          long long rs, int row0, int h0, int L, int H) {
+  constexpr int kSlotRows = 1 << kSlotShift;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int pass = 0; pass < (HD == 80 ? 2 : 1); ++pass) {
+    const int c = pass == 0 ? t % 16 : 16 + t % 4;
+    const int r0 = pass == 0 ? t / 16 : t / 4;
+    const float* src = base + (long long)h0 * HD + 4 * c + (long long)(row0 + r0) * rs;
+    // the word offset of chunk c of row r0, swizzled as qk_off; r0 and
+    // r0 + 8i share their parity
+    const int dst0 = r0 * stride + 4 * ((kQK && HD == 64) ? c ^ ((r0 & 1) << 2) : c);
+#pragma unroll
+    for (int i = 0; i < (pass == 0 ? 8 : 2); ++i) {
+      const int rr = (pass == 0 ? 8 : 32) * i, r = r0 + rr;
+      // one head an item: row r is row row0 + r of head h0
+      const int slot = kSlotShift == 6 ? 0 : r >> kSlotShift;
+      const int j = kSlotShift == 6 ? r : r & (kSlotRows - 1);
+      const bool ok = row0 + j < L && h0 + slot < H;
+      const float* from = kSlotShift == 6
+          ? src + rr * rs
+          : base + (long long)(h0 + slot) * HD + 4 * c + (long long)(row0 + j) * rs;
+      cp_async16(tile + dst0 + rr * stride, ok ? from : base, ok);
     }
-    for (int j = threadIdx.x; j < n; j += kThreads)
-      bs[j] = bias ? bias[(int64_t)b * L + k0 + j] : 0.f;
-    __syncthreads();
-
-    for (int j = 0; j < n; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) s = fmaf(qr[i], ks[j][t + kQuad * i], s);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      s += bs[j];
-      const float m_new = fmaxf(m, s);
-      const float alpha = expf(m - m_new);
-      const float p = expf(s - m_new);
-      l = l * alpha + p;
-      m = m_new;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) acc[i] = fmaf(p, vsm[j][t + kQuad * i], acc[i] * alpha);
-    }
-  }
-
-  if (live) {
-    const float inv = 1.f / l;
-    float* orow = out + ((int64_t)b * L + row) * (int64_t)heads * HD + h * HD;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) orow[t + kQuad * i] = acc[i] * inv;
   }
 }
 
-template <int HD>
-int launch(const float* q, const float* k, const float* v, const float* bias, float* out,
-           int B, int L, int heads, int64_t qs0, int64_t qs1, int64_t ks0, int64_t ks1,
-           int64_t vs0, int64_t vs1, float sm_scale, cudaStream_t stream) {
-  const int q_tiles = (L + kRowsPerBlock - 1) / kRowsPerBlock;
-  const dim3 grid((unsigned)((int64_t)B * q_tiles), (unsigned)heads);
-  attention_f32_kernel<HD><<<grid, kThreads, 0, stream>>>(
-      q, k, v, bias, out, L, heads, q_tiles, qs0, qs1, ks0, ks1, vs0, vs1, sm_scale);
+// Issue the copies of one step: K, V and the key bias of key tile `tile` of
+// item `it` into stage `st`, and its Q rows into `qbuf` when with_q.
+template <int HD, int kSlotShift>
+__device__ __forceinline__ void load_step(const Params& p, const Item& it, int tile, float* st,
+                                          float* qbuf, bool with_q) {
+  using Ly = Layout<HD>;
+  constexpr int kSlotRows = 1 << kSlotShift;
+  const int k0 = tile * kBN;
+  copy_rows<HD, kSlotShift, true>(st, HD, p.k + it.b * p.ks0, p.ks1, k0, it.h0, p.L, p.H);
+  copy_rows<HD, kSlotShift, false>(st + Ly::kV, Ly::kVStride, p.v + it.b * p.vs0, p.vs1, k0,
+                                   it.h0, p.L, p.H);
+  if (threadIdx.x < kBN) {
+    const int r = threadIdx.x;
+    const int h = it.h0 + (r >> kSlotShift), key = k0 + (r & (kSlotRows - 1));
+    float* dst = st + Ly::kKB + r;
+    if (key >= p.L || h >= p.H)
+      *dst = -INFINITY;  // not a key: no weight
+    else if (p.key_bias)
+      cp_async4(dst, p.key_bias + (long long)it.b * p.L + key);
+    else
+      *dst = 0.f;
+  }
+  if (with_q)
+    copy_rows<HD, kSlotShift, true>(qbuf, HD, p.q + it.b * p.qs0, p.qs1, it.qb * kBM, it.h0,
+                                    p.L, p.H);
+}
+
+// NJ: the 8-key column tiles of one head's keys in a tile (8, or 4 and 2
+// when an item holds 2 or 4 heads), a constant so that the product loops
+// have no branches
+template <int HD, typename HB, int NJ>
+__global__ void __launch_bounds__(kThreads, 2) attention_f32_kernel(const Params p) {
+  using Ly = Layout<HD>;
+  constexpr bool kHB = !std::is_same<HB, NoHeadBias>::value;
+  constexpr int kSlotShift = NJ == 8 ? 6 : (NJ == 4 ? 5 : 4);
+  constexpr int kPairs = HD / 16;  // pairs of 8-dim k-steps of Q K^T (one float4 a thread)
+  constexpr int kNT = HD / 8;      // 8-dim n-tiles of P V
+  extern __shared__ __align__(16) float smem[];
+  float* const qbuf = smem;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the warp's head slot in an item, its first row in the slot, and the
+  // slot's first row in the Q, K and V tiles
+  const int slot = (warp * 16) >> kSlotShift;
+  const int row_in_slot = (warp * 16) & ((1 << kSlotShift) - 1);
+  const int slot_base = slot << kSlotShift;
+
+  int item = blockIdx.x;
+  if (item >= p.items) return;
+  Item cur = decode(p, item);
+  load_step<HD, kSlotShift>(p, cur, 0, smem + Ly::kStage0, qbuf, true);
+  cp_commit();
+
+  float qv[kPairs][2][4];  // the warp's Q rows g and g + 8, as loaded
+  float o[kNT][4];
+  float m[2], l[2];
+  int tile = 0, stage = 0;
+  for (;;) {
+    Item nxt = cur;
+    int ntile = tile + 1, nitem = item;
+    bool has_next = true;
+    if (ntile == cur.tiles) {
+      nitem = item + gridDim.x;
+      ntile = 0;
+      has_next = nitem < p.items;
+      if (has_next) nxt = decode(p, nitem);
+    }
+    cp_wait_all();
+    __syncthreads();  // this step's copies landed; every warp is done with the last step
+
+    const int h = cur.h0 + slot;
+    const int row0 = cur.qb * kBM + row_in_slot;  // the warp's first query row
+    const bool active = h < p.H && row0 < p.L;
+    if (tile == 0 && active) {
+#pragma unroll
+      for (int pp = 0; pp < kPairs; ++pp)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              qbuf + qk_off<HD>(warp * 16 + g + 8 * rr, 4 * pp + t));
+          qv[pp][rr][0] = x.x;
+          qv[pp][rr][1] = x.y;
+          qv[pp][rr][2] = x.z;
+          qv[pp][rr][3] = x.w;
+        }
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+    }
+    // an item of one tile reads Q in the step that would copy the next Q
+    if (has_next && ntile == 0 && tile == 0) __syncthreads();
+    if (has_next) {
+      load_step<HD, kSlotShift>(p, nxt, ntile, smem + Ly::kStage0 + (stage ^ 1) * Ly::kStage, qbuf,
+                    ntile == 0);
+      cp_commit();
+    }
+
+    if (active) {
+      const float* st = smem + Ly::kStage0 + stage * Ly::kStage;
+      const int k0 = tile * kBN;
+
+      float hb[NJ][4];
+      if constexpr (kHB) {
+        const HB* base = static_cast<const HB*>(p.head_bias) + (long long)h * p.L * p.L;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1), r = row0 + g + 8 * (e >> 1);
+            hb[j][e] = (key < p.L && r < p.L) ? to_float(base[(long long)r * p.L + key]) : 0.f;
+          }
+      }
+
+      // S = Q K^T: the large and the small products summed apart, then added
+      // in fp32
+      float s[NJ][4], ss[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = ss[j][e] = 0.f;
+#pragma unroll
+      for (int pp = 0; pp < kPairs; ++pp) {
+        // k-step 2pp + kk: slot t holds dim 16pp + 4t + 2kk, slot t + 4 the next
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          split(qv[pp][0][2 * kk], ah[kk][0], al[kk][0]);
+          split(qv[pp][1][2 * kk], ah[kk][1], al[kk][1]);
+          split(qv[pp][0][2 * kk + 1], ah[kk][2], al[kk][2]);
+          split(qv[pp][1][2 * kk + 1], ah[kk][3], al[kk][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float4 kv = *reinterpret_cast<const float4*>(
+              st + qk_off<HD>(slot_base + 8 * j + g, 4 * pp + t));
+          mma3(s[j], ss[j], ah[0], al[0], kv.x, kv.y);
+          mma3(s[j], ss[j], ah[1], al[1], kv.z, kv.w);
+        }
+      }
+
+      // scores in the plain version's order, then the online softmax
+      const float* kb = st + Ly::kKB + slot_base;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // kb is -inf past L: those keys get no weight
+          const int col = 8 * j + 2 * t + (e & 1);
+          float x = __fadd_rn(__fmul_rn(__fadd_rn(s[j][e], ss[j][e]), p.sm_scale), kb[col]);
+          if constexpr (kHB) x = __fadd_rn(x, hb[j][e]);
+          if (p.causal && k0 + col > row0 + g + 8 * (e >> 1)) x = __fadd_rn(x, kNegInf);
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2], ms[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        ms[rr] = fmaxf(m[rr], mx[rr]);  // finite: the tile's first key is < L
+        alpha[rr] = exp2f((m[rr] - ms[rr]) * kLog2e);
+        m[rr] = ms[rr];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = exp2f((s[j][e] - ms[e >> 1]) * kLog2e);
+          lsum[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * alpha[rr] + lsum[rr];
+      // O = alpha O + P V: the tile's P V summed from zero, then added in
+      // fp32 (the tensor cores truncate a tile's sum, not O's over every
+      // tile); the C fragment of S is P's A fragment (keys 2t, 2t + 1)
+      float pv[kNT][4];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t ah[4], al[4];
+        split(s[j][0], ah[0], al[0]);
+        split(s[j][2], ah[1], al[1]);
+        split(s[j][1], ah[2], al[2]);
+        split(s[j][3], ah[3], al[3]);
+        const float* v0 = st + Ly::kV + (slot_base + 8 * j + 2 * t) * Ly::kVStride;
+        const float* v1 = v0 + Ly::kVStride;
+#pragma unroll
+        for (int qq = 0; qq < 2; ++qq) {  // n-tile 4qq + u, column g: dim 32qq + 4g + u
+          const float4 x0 = *reinterpret_cast<const float4*>(v0 + 32 * qq + 4 * g);
+          const float4 x1 = *reinterpret_cast<const float4*>(v1 + 32 * qq + 4 * g);
+          mma3(pv[4 * qq + 0], ah, al, x0.x, x1.x);
+          mma3(pv[4 * qq + 1], ah, al, x0.y, x1.y);
+          mma3(pv[4 * qq + 2], ah, al, x0.z, x1.z);
+          mma3(pv[4 * qq + 3], ah, al, x0.w, x1.w);
+        }
+        if constexpr (HD == 80) {  // n-tile 8 + u, column g: dim 64 + 2g + u
+          const float2 y0 = *reinterpret_cast<const float2*>(v0 + 64 + 2 * g);
+          const float2 y1 = *reinterpret_cast<const float2*>(v1 + 64 + 2 * g);
+          mma3(pv[8], ah, al, y0.x, y1.x);
+          mma3(pv[9], ah, al, y0.y, y1.y);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[n][e] = __fmaf_rn(o[n][e], alpha[e >> 1], pv[n][e]);
+
+      if (tile == cur.tiles - 1) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float sum = l[rr];
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          const float inv = 1.f / sum;
+          const int row = row0 + g + 8 * rr;
+          if (row < p.L) {
+            float* orow = p.out + ((long long)cur.b * p.L + row) * p.H * HD + (long long)h * HD;
+            const int c0 = 2 * rr, c1 = 2 * rr + 1;  // C columns 2t and 2t + 1
+#pragma unroll
+            for (int qq = 0; qq < 2; ++qq) {
+              *reinterpret_cast<float4*>(orow + 32 * qq + 8 * t) =
+                  make_float4(o[4 * qq][c0] * inv, o[4 * qq + 1][c0] * inv,
+                              o[4 * qq + 2][c0] * inv, o[4 * qq + 3][c0] * inv);
+              *reinterpret_cast<float4*>(orow + 32 * qq + 8 * t + 4) =
+                  make_float4(o[4 * qq][c1] * inv, o[4 * qq + 1][c1] * inv,
+                              o[4 * qq + 2][c1] * inv, o[4 * qq + 3][c1] * inv);
+            }
+            if constexpr (HD == 80)
+              *reinterpret_cast<float4*>(orow + 64 + 4 * t) =
+                  make_float4(o[8][c0] * inv, o[9][c0] * inv, o[8][c1] * inv, o[9][c1] * inv);
+          }
+        }
+      }
+    }
+
+    if (!has_next) break;
+    cur = nxt;
+    item = nitem;
+    tile = ntile;
+    stage ^= 1;
+  }
+}
+
+template <int HD, typename HB, int NJ>
+int launch(const Params& p, cudaStream_t stream) {
+  using Ly = Layout<HD>;
+  // blocks resident on the whole card, per device (0 until first asked)
+  static int resident[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return -2;
+  if (resident[dev] == 0) {
+    auto kern = attention_f32_kernel<HD, HB, NJ>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Ly::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, Ly::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    resident[dev] = (per_sm > 0 ? per_sm : 1) * sms;
+  }
+  const int grid = p.items < resident[dev] ? p.items : resident[dev];
+  attention_f32_kernel<HD, HB, NJ><<<grid, kThreads, Ly::kBytes, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int HD, typename HB>
+int launch_slots(const Params& p, cudaStream_t stream) {
+  if (p.slot_shift == 6) return launch<HD, HB, 8>(p, stream);
+  if (p.slot_shift == 5) return launch<HD, HB, 4>(p, stream);
+  return launch<HD, HB, 2>(p, stream);
+}
+
+template <int HD>
+int launch_head_bias(const Params& p, int hb_mode, cudaStream_t stream) {
+  if (hb_mode == 0) return launch_slots<HD, NoHeadBias>(p, stream);
+  if (hb_mode == 1) return launch_slots<HD, __nv_bfloat16>(p, stream);
+  return launch_slots<HD, float>(p, stream);
 }
 
 }  // namespace
 
-// q/k/v: fp32 [B, L, heads * hd] with unit stride in the last dim and the
-// given batch and row strides (elements); bias: fp32 [B, L] contiguous or
-// NULL; out: fp32 [B, L, heads * hd] contiguous. Returns a cudaError_t, or
-// -1 for a head_dim other than 64 or 80, or -2 for a grid too large.
+// q/k/v: fp32 [B, L, heads * hd] with unit stride in the last dim, batch and
+// row strides (elements) that are multiples of 4 and 16-byte-aligned data;
+// key_bias: fp32 [B, L] contiguous or NULL; head_bias: [heads, L, L]
+// contiguous, bf16 when head_bias_bf16 is non-zero, else fp32, or NULL;
+// causal 0 or 1; out: fp32 [B, L, heads * hd] contiguous. Returns a
+// cudaError_t, or -1 for a head_dim other than 64 or 80, -2 for a grid too
+// large, -3 for q/k/v the 16-byte copies cannot read.
 extern "C" int attention_f32(const float* q, const float* k, const float* v,
-                             const float* bias, float* out, int B, int L, int heads,
-                             int head_dim, int64_t qs0, int64_t qs1, int64_t ks0,
-                             int64_t ks1, int64_t vs0, int64_t vs1, float sm_scale,
-                             void* stream) {
-  const int64_t blocks = (int64_t)B * ((L + kRowsPerBlock - 1) / kRowsPerBlock);
-  if (blocks > 0x7fffffff || heads > 65535) return -2;
+                             const float* key_bias, const void* head_bias, int head_bias_bf16,
+                             float* out, int B, int L, int heads, int head_dim, long long qs0,
+                             long long qs1, long long ks0, long long ks1, long long vs0,
+                             long long vs1, float sm_scale, int causal, void* stream) {
+  if (head_dim != 64 && head_dim != 80) return -1;
+  const uintptr_t ptr_bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  if ((ptr_bits & 15) || ((qs0 | qs1 | ks0 | ks1 | vs0 | vs1) & 3)) return -3;
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.key_bias = key_bias;
+  p.head_bias = head_bias;
+  p.out = out;
+  p.qs0 = qs0;
+  p.qs1 = qs1;
+  p.ks0 = ks0;
+  p.ks1 = ks1;
+  p.vs0 = vs0;
+  p.vs1 = vs1;
+  p.B = B;
+  p.L = L;
+  p.H = heads;
+  p.slot_shift = L <= 16 ? 4 : (L <= 32 ? 5 : 6);
+  const int per_item = 1 << (6 - p.slot_shift);
+  p.groups = (heads + per_item - 1) / per_item;
+  p.qblocks = p.slot_shift == 6 ? (L + kBM - 1) / kBM : 1;
+  const long long items = (long long)B * p.groups * p.qblocks;
+  if (items > 0x7fffffffLL) return -2;
+  p.items = (int)items;
+  p.causal = causal != 0;
+  p.sm_scale = sm_scale;
+  const int hb_mode = head_bias ? (head_bias_bf16 ? 1 : 2) : 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (head_dim == 64)
-    return launch<64>(q, k, v, bias, out, B, L, heads, qs0, qs1, ks0, ks1, vs0, vs1, sm_scale, s);
-  if (head_dim == 80)
-    return launch<80>(q, k, v, bias, out, B, L, heads, qs0, qs1, ks0, ks1, vs0, vs1, sm_scale, s);
-  return -1;
+  if (head_dim == 64) return launch_head_bias<64>(p, hb_mode, s);
+  return launch_head_bias<80>(p, hb_mode, s);
 }

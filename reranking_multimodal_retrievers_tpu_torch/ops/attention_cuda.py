@@ -2,8 +2,8 @@
 
 Replaces ``reranking_multimodal_retrievers_tpu/ops/attention_pallas.py::
 fused_self_attention``. The CUDA kernels are ``csrc/attention.cu`` (bf16)
-and ``csrc/attention_f32.cu`` (fp32, key bias only); their headers say what
-bounds them on an H100 and how their designs answer that.
+and ``csrc/attention_f32.cu`` (fp32, 3xTF32 on the tensor cores); their
+headers say what bounds them on an H100 and how their designs answer that.
 
 :func:`fused_self_attention` takes the plain version for CPU tensors and
 launches the kernel for CUDA tensors (or raises: there is no fallback).
@@ -111,13 +111,13 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
     [num_heads, L, L] additive bias; causal: -1e9 where key > query.
     Returns [B, L, num_heads * head_dim] in q's dtype.
 
-    On CUDA, fp32 q/k/v (with no head_bias and no causal mask) go to
-    :func:`fused_self_attention_f32`; otherwise q/k/v are bf16 with head_dim 64 or 80, unit stride in the last
-    dim and row/batch strides that are multiples of 8 elements (the kernel
-    reads them by TMA through tensor maps built per call); head_bias is a
-    contiguous bf16 or fp32 tensor on the same device, passed to the kernel
-    in its own dtype (a bf16 one at L % 8 == 0 also by TMA, any other read
-    directly); any L is taken.
+    On CUDA, fp32 q/k/v go to :func:`fused_self_attention_f32` with every
+    option; otherwise q/k/v are bf16 with head_dim 64 or 80, unit stride in
+    the last dim and row/batch strides that are multiples of 8 elements (the
+    kernel reads them by TMA through tensor maps built per call); head_bias
+    is a contiguous bf16 or fp32 tensor on the same device, passed to the
+    kernel in its own dtype (a bf16 one at L % 8 == 0 also by TMA, any other
+    read directly); any L is taken.
 
     There is no backward: with grad enabled, an input that requires grad
     raises ``NotImplementedError`` on the CPU and on CUDA alike.
@@ -142,11 +142,7 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
             f"{HD} channels over {num_heads} heads")
     hd = HD // num_heads
     if q.dtype == k.dtype == v.dtype == torch.float32:
-        if head_bias is not None or causal:
-            raise NotImplementedError("the fp32 CUDA attention kernel takes a key bias only "
-                                      "(no head_bias, no causal mask)")
-        return fused_self_attention_f32(q, k, v, mask_bias, num_heads=num_heads,
-                                        sm_scale=sm_scale)
+        return _launch_f32(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal)
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"the CUDA attention kernels take bf16 or fp32, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
@@ -181,15 +177,19 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
 fused_self_attention.launches = 0
 
 
-def fused_self_attention_f32(q, k, v, mask_bias=None, *, num_heads: int,
-                             sm_scale: float) -> torch.Tensor:
+def fused_self_attention_f32(q, k, v, mask_bias=None, head_bias=None, *, num_heads: int,
+                             sm_scale: float, causal: bool = False) -> torch.Tensor:
     """K2's fp32 path on CUDA (``csrc/attention_f32.cu``): softmax(Q K^T *
-    sm_scale + key bias) V for fp32 q/k/v ``[B, L, num_heads * head_dim]``
-    with head_dim 64 or 80 and unit stride in the last dim, and an optional
-    [B, L] key bias; returns fp32 ``[B, L, num_heads * head_dim]``. Called by
-    :func:`fused_self_attention` for fp32 CUDA tensors; it takes CUDA tensors
-    only."""
-    refuse_grad("fused_self_attention_f32", q, k, v, mask_bias,
+    sm_scale + key bias [+ head bias] [+ causal]) V for fp32 q/k/v
+    ``[B, L, num_heads * head_dim]`` with head_dim 64 or 80, an optional
+    [B, L] key bias, an optional contiguous bf16 or fp32 [num_heads, L, L]
+    head bias and the causal mask; returns fp32 ``[B, L, num_heads *
+    head_dim]``. The kernel copies q/k/v in 16-byte pieces, so each needs
+    unit stride in the last dim, batch and row strides that are multiples of
+    4 elements and 16-byte-aligned data (views of one fused projection at
+    these widths are). Called by :func:`fused_self_attention` for fp32 CUDA
+    tensors; it takes CUDA tensors only."""
+    refuse_grad("fused_self_attention_f32", q, k, v, mask_bias, head_bias,
                 hint="or train with use_pallas_attention=False, as the JAX package does")
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k, v must share one CUDA device: {q.device}, {k.device}, "
@@ -203,9 +203,22 @@ def fused_self_attention_f32(q, k, v, mask_bias=None, *, num_heads: int,
         raise NotImplementedError(
             f"the CUDA attention kernel takes head_dim {KERNEL_HEAD_DIMS}; got "
             f"{HD} channels over {num_heads} heads")
+    if head_bias is not None:
+        _check_head_bias(head_bias, num_heads, L, q.device)
+    return _launch_f32(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal)
+
+
+fused_self_attention_f32.launches = 0
+
+
+def _launch_f32(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal):
+    """The fp32 kernel's launch, on inputs checked by either caller but for
+    the layout its 16-byte copies need."""
     for x in (q, k, v):
-        if x.stride(2) != 1:
-            raise ValueError(f"unsupported q/k/v layout: strides {x.stride()}")
+        if x.stride(2) != 1 or x.stride(1) % 4 or x.stride(0) % 4 or x.data_ptr() % 16:
+            raise ValueError(f"unsupported q/k/v layout for 16-byte copies: strides "
+                             f"{x.stride()}, data at {x.data_ptr() % 16} bytes past 16")
+    B, L, HD = q.shape
     bias = None
     if mask_bias is not None:
         if mask_bias.shape != (B, L):
@@ -216,18 +229,17 @@ def fused_self_attention_f32(q, k, v, mask_bias=None, *, num_heads: int,
         return out
     err = _lib_f32().attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if head_bias is None else head_bias.data_ptr(),
+        int(head_bias is not None and head_bias.dtype == torch.bfloat16), out.data_ptr(),
         B, L, num_heads, HD // num_heads, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), float(sm_scale),
+        v.stride(0), v.stride(1), float(sm_scale), int(bool(causal)),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err < 0:
         raise ValueError(f"fused_self_attention_f32: shape refused by the kernel ({err})")
     _build.check(err, "fused_self_attention_f32")
     fused_self_attention_f32.launches += 1
     return out
-
-
-fused_self_attention_f32.launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -244,7 +256,7 @@ def _lib_f32() -> ctypes.CDLL:
     lib = _build.load("attention_f32")
     if lib.attention_f32.argtypes is None:
         lib.attention_f32.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 6
-            + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+            + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.attention_f32.restype = ctypes.c_int
     return lib

@@ -128,8 +128,6 @@ def test_k2_rejects_other_head_dims_and_dtypes(gen):
     y = torch.randn(1, 8, 128, device="cuda", generator=gen)
     with pytest.raises(TypeError):
         fused_self_attention(*(y.half(),) * 3, num_heads=2, sm_scale=0.125)  # fp16
-    with pytest.raises(NotImplementedError):  # fp32 takes a key bias only
-        fused_self_attention(y, y, y, num_heads=2, sm_scale=0.125, causal=True)
     z = y.to(torch.bfloat16)
     for hb, err in ((torch.zeros(2, 8, 8, device="cuda", dtype=torch.float16), TypeError),
                     (torch.zeros(2, 8, 9, device="cuda"), ValueError),
@@ -333,14 +331,82 @@ def test_bert_fp32_kernel_path_matches_plain_path(gen):
     torch.testing.assert_close(a, b, rtol=1e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("B,L,H,HD,masked,strided", [
-    (3, 24, 12, 64, True, False),   # the FLMR doc encoder's L, one query tile
-    (2, 45, 2, 80, True, True),     # head_dim 80, two query tiles, strided q/k/v
-    (5, 80, 12, 64, True, False),   # the cross-encoder's L: two key tiles
-    (1, 1, 4, 64, False, False),    # L = 1
-    (2, 130, 3, 80, False, False),  # three key tiles, no mask
+def test_t5_fp32_kernel_path_matches_plain_path(gen):
+    """An fp32 T5 encoder under use_pallas_attention, as an executor would
+    build it, fuses each encoder self-attention into K2's fp32 path with the
+    relative-position bias as an fp32 head bias (before the fp32 kernel took
+    one, the wrapper raised NotImplementedError); the same weights without
+    the flag take the plain path. TF32 off, as in the BERT case."""
+    from reranking_multimodal_retrievers_tpu_torch.models.t5 import (
+        T5Config, T5ForConditionalGeneration)
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_f32)
+
+    kw = dict(vocab_size=96, d_model=128, d_kv=64, d_ff=256, num_layers=2,
+              num_decoder_layers=1, num_heads=2)
+    fused = T5ForConditionalGeneration(T5Config(use_pallas_attention=True, **kw), generator=gen)
+    plain = T5ForConditionalGeneration(T5Config(**kw))
+    plain.load_state_dict(fused.state_dict())
+    ids = torch.randint(2, 96, (3, 45), device="cuda", generator=gen)
+    am = torch.ones_like(ids)
+    am[2, 30:] = 0
+    launches = fused_self_attention_f32.launches
+    with torch.inference_mode():
+        a = fused.encode(ids, am)
+        b = plain.encode(ids, am)
+    assert a.dtype == torch.float32
+    assert fused_self_attention_f32.launches == launches + 2  # one per encoder layer
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("L,heads,hd", [(45, 2, 80), (37, 3, 64)])
+def test_opt_fp32_kernel_path_matches_plain_path(gen, L, heads, hd):
+    """An fp32 OPT under use_pallas_attention fuses each masked
+    self-attention into K2's fp32 path with the causal mask (before, the
+    wrapper raised NotImplementedError); the same weights without the flag
+    take the plain path."""
+    from reranking_multimodal_retrievers_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_f32)
+
+    kw = dict(hidden_size=heads * hd, num_attention_heads=heads, ffn_dim=256)
+    fused = OPTForCausalLM(OPTConfig.tiny(use_pallas_attention=True, **kw), generator=gen)
+    plain = OPTForCausalLM(OPTConfig.tiny(**kw))
+    plain.load_state_dict(fused.state_dict())
+    ids = torch.randint(2, 64, (3, L), device="cuda", generator=gen)
+    am = torch.ones_like(ids)
+    am[1, L - 9:] = 0
+    launches = fused_self_attention_f32.launches
+    with torch.inference_mode():
+        a = fused.hidden_states(ids, am)
+        b = plain.hidden_states(ids, am)
+    assert a.dtype == torch.float32
+    assert fused_self_attention_f32.launches == launches + 2  # one per layer
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,L,H,HD,masked,strided,hb_dtype,causal,scale", [
+    (3, 24, 12, 64, True, False, None, False, None),   # the FLMR doc encoder's L: 2 heads an item
+    (2, 45, 2, 80, True, True, None, False, None),     # head_dim 80, strided q/k/v
+    (5, 80, 12, 64, True, False, None, False, None),   # two key tiles
+    (1, 1, 4, 64, False, False, None, False, None),    # L = 1: 4 heads an item
+    (2, 130, 3, 80, False, False, None, False, None),  # three key tiles, no mask
+    (2, 1, 3, 80, True, False, None, True, None),      # L = 1, causal, one row all masked
+    (3, 16, 5, 64, True, False, torch.float32, True, None),  # 4 heads an item, a partial group
+    (3, 24, 3, 80, True, True, torch.bfloat16, False, None),  # 2 heads an item, bf16 head bias
+    (3, 24, 12, 64, True, False, torch.float32, True, None),  # every option at the doc encoder's L
+    (2, 37, 2, 80, True, False, torch.bfloat16, True, None),  # hd 80, every option, ragged tiles
+    (2, 37, 3, 64, True, True, None, True, None),      # causal, strided
+    (3, 130, 2, 64, True, False, torch.float32, False, None),  # fp32 head bias, ragged key tile
+    (2, 130, 2, 80, True, True, None, True, None),     # causal hd 80 across three query blocks
+    (4, 161, 12, 64, True, False, None, False, None),  # the cross-encoder's L
+    (2, 161, 4, 64, True, False, torch.float32, False, 1.0),  # T5's sm_scale 1: |scores| ~ 30
+    (2, 161, 2, 80, True, True, torch.bfloat16, True, None),  # every option at 161
+    (2, 300, 2, 64, True, False, None, True, None),    # causal: tiles above the diagonal skipped
+    (2, 300, 2, 80, False, False, torch.float32, False, None),  # five key tiles, fp32 head bias
+    (2, 300, 3, 64, True, True, torch.bfloat16, True, None),  # every option, five query blocks
 ])
-def test_k2_f32_matches_plain(gen, B, L, H, HD, masked, strided):
+def test_k2_f32_matches_plain(gen, B, L, H, HD, masked, strided, hb_dtype, causal, scale):
     from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
         fused_self_attention_f32)
 
@@ -356,13 +422,43 @@ def test_k2_f32_matches_plain(gen, B, L, H, HD, masked, strided):
         keep[:, 0] = True
         keep[-1] = False  # a row whose keys are all masked
         bias = torch.where(keep, 0.0, -1e9)
+    hb = None
+    if hb_dtype is not None:
+        hb = torch.randn(H, L, L, device="cuda", generator=gen).to(hb_dtype)
+    kw = dict(num_heads=H, sm_scale=HD ** -0.5 if scale is None else scale, causal=causal)
     launches = fused_self_attention_f32.launches
-    got = fused_self_attention(q, k, v, bias, num_heads=H, sm_scale=HD ** -0.5)
-    ref = fused_self_attention_reference(q, k, v, bias, num_heads=H, sm_scale=HD ** -0.5)
+    got = fused_self_attention(q, k, v, bias, hb, **kw)
+    ref = fused_self_attention_reference(q, k, v, bias, hb, **kw)
     torch.cuda.synchronize()
     assert fused_self_attention_f32.launches == launches + 1
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-5)
+
+
+def test_k2_f32_refuses_layouts_its_copies_cannot_read(gen):
+    """K2's fp32 path copies q/k/v in 16-byte pieces: a view 4 bytes into
+    its storage, or a row stride that is not a multiple of 4 elements, is
+    refused with ValueError, not copied; other dtypes and head dims raise
+    as the bf16 path does."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_f32)
+
+    x = torch.randn(2, 8, 128, device="cuda", generator=gen)
+    buf = torch.randn(2 * 8 * 128 + 1, device="cuda", generator=gen)
+    moved = buf[1:].view(2, 8, 128)
+    assert moved.data_ptr() % 16 != 0
+    wide = torch.randn(2, 8, 130, device="cuda", generator=gen)[..., :128]  # row stride 130
+    for bad in (moved, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            fused_self_attention(bad, x, x, num_heads=2, sm_scale=0.125)
+    with pytest.raises(TypeError):
+        fused_self_attention_f32(*(x.to(torch.bfloat16),) * 3, num_heads=2, sm_scale=0.125)
+    with pytest.raises(NotImplementedError):
+        fused_self_attention(*(torch.randn(1, 8, 192, device="cuda", generator=gen),) * 3,
+                             num_heads=2, sm_scale=0.1)  # head_dim 96
+    launches = fused_self_attention_f32.launches
+    fused_self_attention(x, x, x, num_heads=2, sm_scale=0.125)
+    assert fused_self_attention_f32.launches == launches + 1
 
 
 @pytest.mark.parametrize("L", [640, 369])
