@@ -144,12 +144,36 @@ Phases, each printing one JSON line with its elapsed seconds:
      queries x 100 candidates, none missing its static retrieval, four
      logits against the checkpoint's weights on the CPU in fp32,
      candidates/s and the reranked against the raw recall;
-  7. after phase 11: the ``kernels`` line (K1 and K3 with their times at
+  12. the other reranker families and RAG from the CLI at full width, over
+     phase 11's dataset, 11a's FLMR checkpoint (the frozen retriever,
+     ``retriever_model_path``) and 11b's dump, each run in fp32 with
+     ``use_pallas_attention`` on in every encoder at test time and off in
+     training (no launch): 12a. the interaction rerankers (MORES, then the
+     CrossEncoder type; ModPreFLMR-BERT's 3 BERT-base layers, dim 128), 10
+     steps each, then 64 queries x 100 candidates (a cut of the 500 for
+     time); 12b. the spliced reranker under PreFLMR attention fusion,
+     warm-started from 11a (``reranker_backbone_path``), the same; 12c.
+     monoBLIP2-Flan-T5-XL through the decoder branch (ViT-g, the Q-Former,
+     Flan-T5-XL; weights drawn on the card from the seed), 5 steps of 2
+     queries x 3 rows with the vision tower frozen, then 8 queries x 100
+     (K2's fp32 head-bias variant in the T5 encoder); 12d.
+     monoBLIP2-Opt-2.7b's head model, 8 x 100 from the seed's weights (K2's
+     fp32 causal variant at head_dim 80); 12e. RAG with the BLIP-2
+     Flan-T5-XL generator (3 docs a question in training, 5 in test,
+     8-token answers), 3 steps, then 8 queries. Each part holds four
+     candidates' scores (12e: the first query's per-doc tokens, up to
+     near-ties, and losses) against the same model without the kernel on
+     the card, 12a and 12b also against the checkpoint's weights on the
+     CPU in fp32; fp32 K2 against its plain version at the first inputs of
+     each launch shape (with the largest |head bias| where there is one);
+     candidates/s (answers/s), steps/s, checkpoint seconds and sizes, peak
+     memory and wall seconds of each run;
+  7. after phase 12: the ``kernels`` line (K1 and K3 with their times at
      ``bench.py``'s batch and the 100k searches of phases 3 and 3b beside
      the bound, K1 at stage 1's, the pooled index's and 11b's launch
      shapes, K3 at 11c's, K2 at each main-path variant's launch shape,
-     and K2's fp32 path at each of phase 11's and at phase 2's head-bias
-     and causal shapes, each with the bound of 3xTF32 products and the
+     and K2's fp32 path at each of phase 11's and 12's launch shapes and at
+     phase 2's head-bias and causal shapes, each with the bound of 3xTF32 products and the
      bound of fp32 FFMA beside it), then the result line.
 
 ``python3 chip_smoke.py --probe-t5-init`` instead builds the kernels and
@@ -159,8 +183,8 @@ bf16, and in fp32, as information.
 
 The launch counters are set to 0 just before each main-path phase (3, 3b,
 3c, 4, 4b, 5, 6, 8's training run, 9a, 9b, 9c, 9d's timed steps, 10a, 10b,
-10c, 10d and each CLI run of 11) and read just after it; phases 8, 9b, 9d,
-10d, 11a and 11d's training must launch none. Phase 3's index stays on the card until phase 10b. Each decoder
+10c, 10d and each CLI run of 11 and 12) and read just after it; phases 8,
+9b, 9d, 10d, 11a, 11d's and every phase-12 training run must launch none. Phase 3's index stays on the card until phase 10b. Each decoder
 family is built, run and freed before the next (about 8 GB each in bf16).
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits non-zero before printing anything.
@@ -2179,12 +2203,39 @@ def k2f32_check(name, q, k, v, bias, head_bias=None, *, heads, scale, causal=Fal
 
 def k2f32_line(entry, name):
     """K2's fp32 path against its plain version on the first inputs a phase
-    gave it at one launch shape (``k2f32_check``)."""
-    q, k, v, bias = (entry["args"] + [None])[:4]
-    heads = entry["kwargs"]["num_heads"]
-    amask = None if bias is None else (bias == 0)[:, None, None, :]
-    return k2f32_check(name, q, k, v, bias, heads=heads, scale=entry["kwargs"]["sm_scale"],
-                       sdpa_mask=amask)
+    gave it at one launch shape, whatever the variant (key bias, head bias,
+    causal), with the library's call on the same mask (``k2f32_check``)."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import causal_bias
+
+    args, kw = entry["args"], entry["kwargs"]
+    q, k, v = args[:3]
+    bias = args[3] if len(args) > 3 else kw.get("mask_bias")
+    hb = args[4] if len(args) > 4 else kw.get("head_bias")
+    causal = bool(kw.get("causal", False))
+    heads = kw["num_heads"]
+    B, L, HD = q.shape
+    hd = HD // heads
+    if hb is None and not causal:
+        mask = None if bias is None else (bias == 0)[:, None, None, :]
+    else:
+        mask = torch.zeros(B, 1, L, L, device="cuda")
+        if bias is not None:
+            mask += bias[:, None, None, :]
+        if hb is not None:
+            mask = mask + hb.float()[None]
+        if causal:
+            mask += causal_bias(L, "cuda")
+    pairs = L * (L + 1) // 2 if causal else L * L
+    row = k2f32_check(name, q, k, v, bias, hb, heads=heads, scale=kw["sm_scale"],
+                      causal=causal, sdpa_mask=mask, flops=4 * B * heads * pairs * hd)
+    if hb is not None:
+        row["max_abs_head_bias"] = hb.abs().max().item()
+        if row["max_abs_head_bias"] < 1.0:
+            row["head_bias_note"] = ("near zero at T5's init (relative-position tables at "
+                                     "std d_model^-1/2): phase 2's check at scores of std 8 "
+                                     "is the strong one")
+    del mask
+    return row
 
 
 def k2f32_variants(gen, smi):
@@ -2407,6 +2458,7 @@ def cli_phases(smi):
             return CLI_DIR / "experiments" / json.load(f)["meta"]["experiment_name"] / "version_0"
 
     flmr_dir, rr_dir = exp_dir(FLMR_CONFIG), exp_dir(RERANK_CONFIG)
+    # CLI_DIR stays for phase 12, which removes it
     try:
         # -- 11a. FLMR train
         t0 = time.perf_counter()
@@ -2603,15 +2655,471 @@ def cli_phases(smi):
                                        for key, e in k2_in.items()},
                       "launches": parts["11d_test"], "card": smi,
                       "seconds": time.perf_counter() - t0})
-    finally:
+    except BaseException:
         if CLI_DIR.exists():
             shutil.rmtree(CLI_DIR)
+        raise
 
     k1_row["launches"] = parts["11b"]["K1"]
     k3_row["launches"] = parts["11c"]["K3"]
     # K2's fp32 rows: one a launch shape, on the first inputs there, with
     # the launches at that shape
     return lines, k1_row, k3_row, list(k2_rows.values()) + list(rr_rows.values()), parts
+
+
+# ---- phase 12: the interaction, fusion and decoder rerankers and RAG from
+# cli.main at full width, over phase 11's dataset, 11a's FLMR checkpoint and
+# 11b's dump
+
+P12_DIR = CLI_DIR / "p12"
+# 12a, 12b: 10 training steps, then 64 test queries x 100 candidates (of
+# the 500 queries 11d reranks: a cut for time)
+P12_STEPS, P12_QUERIES, P12_TEST_BATCH = 10, 64, 8
+# 12c, 12d, 12e: 8 test queries (x 100 candidates, x 5 docs for RAG)
+P12_DEC_QUERIES, P12_DEC_STEPS, P12_RAG_STEPS = 8, 5, 3
+# greedy decoding: tokens are compared up to the first step whose top-2
+# logit gap on the kernel path is under this (past it either token is fp32's)
+NEAR_TIE = 1e-5
+# ModPreFLMR-BERT's cross-encoder (bench.py:187-242): 3 BERT-base layers
+MODPREFLMR_CE = {"num_hidden_layers": 3, "max_position_embeddings": 512}
+RETRIEVED = ["train_with_retrieved_docs", "neg_sample_retrieved"]
+
+
+def _without_kernel(cfg):
+    """A model config (nested dataclasses) with every
+    ``use_pallas_attention`` off."""
+    changes = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if f.name == "use_pallas_attention" and v:
+            changes[f.name] = False
+        elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+            changes[f.name] = _without_kernel(v)
+    return dataclasses.replace(cfg, **changes)
+
+
+def _plain_twin(model):
+    """``model``'s class over its config without the kernel, sharing its
+    tensors: the same weights through the plain attention."""
+    twin = type(model)(_without_kernel(model.config), device="meta")
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin.eval()
+
+
+def _keep_self(store):
+    """A method wrapper that appends (seconds, the object it was called on)
+    after a synchronize: the executor a CLI run made."""
+    def make(orig):
+        def kept(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            store.append((time.perf_counter() - t, self))
+            return out
+        return kept
+    return make
+
+
+def _one_query(batch, docs, n=4):
+    """The first query of a collated batch with its first ``n`` docs."""
+    rows = len(batch["question_ids"])
+    one = {k: (v[:1] if hasattr(v, "__len__") and not isinstance(v, str) and len(v) == rows
+               else v) for k, v in batch.items()}
+    return one, [d["content"] for d in docs[:n]]
+
+
+def _first_candidates(ex, n=4):
+    """(first test query's batch, its first n docs, their model inputs)."""
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import (
+        remove_instruction_prefix)
+
+    batch = next(iter(next(iter(ex.eval_dataloaders("test").values()))))
+    docs = ex.static_retrieve(batch["question_ids"][0])[:n]
+    one, contents = _one_query(batch, docs, n)
+    mb = ex._build_rerank_inputs(one, [remove_instruction_prefix(batch["questions"][0])],
+                                 contents, n)
+    return batch, docs, mb
+
+
+def _rerank_logits(ex, mb, n=4):
+    with torch.inference_mode():
+        return ex.reranker(**mb, num_negative_examples=n - 1).logits.reshape(-1).float().cpu()
+
+
+def _plain_logits(ex, n=4):
+    """The first test query's first ``n`` candidates through the executor's
+    models without the kernel (its frozen retriever too), on the card."""
+    saved = ex.reranker, ex.retriever
+    ex.reranker = _plain_twin(ex.reranker)
+    if ex.retriever is not None:
+        ex.retriever = _plain_twin(ex.retriever)
+    try:
+        _, docs, mb = _first_candidates(ex, n)
+        return docs, _rerank_logits(ex, mb, n)
+    finally:
+        ex.reranker, ex.retriever = saved
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(1.0, np.abs(want))))
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def p12_run(name, mode, exp, opts, want_launch=True, k2_stores=None):
+    """One CLI run of phase 12 in experiment dir ``exp``: the launch counts
+    (reset just before, read just after), the executor it made, the
+    timed calls, peak memory and wall seconds. Training must launch
+    nothing; a test run with ``want_launch`` must launch fp32 K2 and no
+    other kernel."""
+    from reranking_multimodal_retrievers_tpu_torch.executors import (RagExecutor,
+                                                                     RerankerExecutor)
+    from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
+    from reranking_multimodal_retrievers_tpu_torch.models import opt as opt_mod
+    from reranking_multimodal_retrievers_tpu_torch.models import t5 as t5_mod
+    from reranking_multimodal_retrievers_tpu_torch.training.checkpointing import (
+        CheckpointManager)
+
+    rag = any("RagExecutor" in o for o in opts)
+    cls = RagExecutor if rag else RerankerExecutor
+    steps, evals, saves, loads = [], [], [], []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_counts()
+    with _Recorder() as rec:
+        rec.patch(cls, "training_step", _clock(steps))
+        rec.patch(cls, "evaluate", _keep_self(evals))
+        rec.patch(CheckpointManager, "save", _clock(saves))
+        rec.patch(cls, "load_checkpoint", _clock(loads))
+        for mod, tag in ((bert_mod, "bert"), (t5_mod, "t5"), (opt_mod, "opt")):
+            if k2_stores is not None:
+                rec.patch(mod, "fused_self_attention",
+                          _first_inputs(k2_stores.setdefault(tag, {}), _k2_key))
+        _cli(RERANK_CONFIG, mode, f"meta.experiment_dir='{exp}'", *opts)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    if mode == "train":
+        check(sum(launches.values()) == 0, f"{name} training launched kernels: {launches}")
+    elif want_launch:
+        check(launches["K2f32"] > 0 and launches["K1"] == launches["K2"] == launches["K3"] == 0,
+              f"{name} test launches {launches}")
+    line = {"phase": name, "mode": mode, "launches": launches, "wall_seconds": wall,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if steps:
+        t = [dt for dt, _ in steps]
+        line.update(steps=len(t), step_seconds=t,
+                    steps_per_s=(len(t) - 1) / sum(t[1:]) if len(t) > 1 else 1 / t[0])
+    if saves:
+        line.update(checkpoint_save_seconds=sum(dt for dt, _ in saves),
+                    checkpoint_gb=_dir_bytes(Path(exp) / "ckpts") / 1e9)
+    if loads:
+        line["checkpoint_load_seconds"] = sum(dt for dt, _ in loads)
+    ex = evals[-1][1] if evals else None
+    if evals:
+        line["evaluate_seconds"] = evals[-1][0]
+    return line, ex
+
+
+def _k2_rows(stores, part, launch_total):
+    """One kernels-line row per fp32 K2 launch shape a part met, checked on
+    the first inputs there, with the launches at that shape; they must sum
+    to the part's launch count."""
+    rows = []
+    for tag, store in stores.items():
+        for (shape, _), entry in store.items():
+            variant = {"bert": "key bias", "t5": "head_bias (T5 encoder)",
+                       "opt": "causal (OPT)"}[tag]
+            row = k2f32_line(entry, f"{variant} {'x'.join(map(str, shape))} ({part})")
+            row["launches"] = entry["calls"]
+            rows.append(row)
+    check(sum(r["launches"] for r in rows) == launch_total,
+          f"{part}: fp32 K2 launches at shapes not recorded")
+    return rows
+
+
+def _cpu_logits(opts, exp, docs):
+    """The first test query's candidates ``docs`` through the checkpoint's
+    weights on the CPU in fp32 (``_cpu_executor``)."""
+    from reranking_multimodal_retrievers_tpu_torch.executors import RerankerExecutor
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import (
+        remove_instruction_prefix)
+
+    cpu_ex = _cpu_executor(RerankerExecutor, RERANK_CONFIG, "test", *opts,
+                           f"meta.experiment_dir='{exp}'")
+    cpu_ex.load_checkpoint(cpu_ex.ckpt_manager.resolve())
+    batch = next(iter(next(iter(cpu_ex.eval_dataloaders("test").values()))))
+    one, contents = _one_query(batch, docs, len(docs))
+    mb = cpu_ex._build_rerank_inputs(one, [remove_instruction_prefix(batch["questions"][0])],
+                                     contents, len(docs))
+    out = _rerank_logits(cpu_ex, mb, len(docs))
+    del cpu_ex
+    return out
+
+
+def p12_encoder_family(name, train_opts, test_opts, smi):
+    """12a/12b: train P12_STEPS steps, test P12_QUERIES x 100 over 11b's
+    dump with fp32 K2 in the encoders; four candidates' logits against the
+    same models without the kernel on the card and against the
+    checkpoint's weights on the CPU. Returns (line, K2 rows, launches)."""
+    exp = P12_DIR / name
+    train, _ = p12_run(f"{name}_train", "train", exp, [
+        *train_opts, f"train.trainer_paras.limit_train_batches={P12_STEPS}"])
+    stores = {}
+    test, ex = p12_run(f"{name}_test", "test", exp, [
+        *test_opts, f"test.batch_size={P12_TEST_BATCH}",
+        f"test.trainer_paras.limit_test_batches={P12_QUERIES // P12_TEST_BATCH}"],
+        k2_stores=stores)
+    preds = _dump(exp)["predictions"]
+    check(len(preds) == P12_QUERIES and all(
+        len(p["top_ranking_passages"]) == 100 and not p.get("static_retrieval_missing")
+        and np.isfinite([d["score"] for d in p["top_ranking_passages"]]).all()
+        for p in preds), f"{name}: the rerank dump")
+    scores = {d["passage_id"]: d["score"] for d in preds[0]["top_ranking_passages"]}
+    docs, plain = _plain_logits(ex)
+    got = np.array([scores[d["passage_id"]] for d in docs])
+    plain_err = _rel_err(got, plain)
+    check(plain_err <= CLI_LOGIT_TOL, f"{name}: logits {got} vs the plain path {plain}")
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    cpu = _cpu_logits(test_opts, exp, docs)
+    cpu_err = _rel_err(got, cpu)
+    check(cpu_err <= CLI_LOGIT_TOL, f"{name}: logits {got} vs CPU fp32 {cpu}")
+    m = _dump(exp)["metrics"]
+    rows = _k2_rows(stores, name, test["launches"]["K2f32"])
+    test.update(queries=len(preds), candidates=100 * len(preds),
+                candidates_per_s=100 * len(preds) / test["evaluate_seconds"],
+                logits_vs_plain={"card": got.tolist(), "plain": plain.tolist(),
+                                 "rel_err": plain_err, "tol": CLI_LOGIT_TOL},
+                logits_vs_cpu_fp32={"cpu": cpu.tolist(), "rel_err": cpu_err,
+                                    "tol": CLI_LOGIT_TOL},
+                cpu_check_seconds=time.perf_counter() - t1,
+                k2f32_shapes={r["variant"]: r["launches"] for r in rows},
+                **{k: m[k] for k in ("recall_at_5", "raw_recall_at_5", "pos_item_ids_recall_at_5",
+                                     "pos_item_ids_raw_recall_at_5")})
+    return {"phase": name, "card": smi, "train": train, "test": test}, rows
+
+
+def _decoder_dict(backbone, text_config, yes_no, pallas):
+    tc = dict(dataclasses.asdict(text_config), use_pallas_attention=pallas)
+    return {"backbone": backbone, "text_config": tc, "num_query_tokens": 32,
+            "yes_token_id": yes_no[0], "no_token_id": yes_no[1]}
+
+
+def p12_decoder(name, backbone, text_config, yes_no, head, train_steps, dump, smi):
+    """12c/12d: the decoder branch at full width. ``train_steps`` steps
+    (vision frozen) unless 0, then P12_DEC_QUERIES x 100 with K2's fp32
+    path in the language model; four candidates' scores against the same
+    model without the kernel on the card."""
+    exp = P12_DIR / name
+    mods = ["decoder_reranker", *RETRIEVED, "freeze_reranker_vision_encoder"]
+    common = [dump, f"model_config.modules={mods!r}", f"model_config.decoder_head={head}",
+              "model_config.num_negative_samples=2",
+              "train.optimizer_config.scheduler_params.num_warmup_steps=0"]
+    lines = {}
+    if train_steps:
+        lines["train"], _ = p12_run(f"{name}_train", "train", exp, [
+            *common, f"model_config.decoder={_decoder_dict(backbone, text_config, yes_no, False)!r}",
+            "train.batch_size=2", f"train.trainer_paras.limit_train_batches={train_steps}"])
+        losses = [r["loss"] for r in _metrics_lines(exp) if "loss" in r]
+        check(len(losses) == train_steps and np.isfinite(losses).all(), f"{name} losses {losses}")
+        lines["train"]["losses"] = losses
+    stores = {}
+    test, ex = p12_run(f"{name}_test", "test", exp, [
+        *common, f"model_config.decoder={_decoder_dict(backbone, text_config, yes_no, True)!r}",
+        f"test.batch_size={P12_DEC_QUERIES}", "test.trainer_paras.limit_test_batches=1"],
+        k2_stores=stores)
+    if train_steps:
+        check("checkpoint_load_seconds" in test, f"{name}: the test loaded no checkpoint")
+    preds = _dump(exp)["predictions"]
+    check(len(preds) == P12_DEC_QUERIES and all(
+        len(p["top_ranking_passages"]) == 100 and not p.get("static_retrieval_missing")
+        and np.isfinite([d["score"] for d in p["top_ranking_passages"]]).all()
+        for p in preds), f"{name}: the rerank dump")
+    scores = {d["passage_id"]: d["score"] for d in preds[0]["top_ranking_passages"]}
+    docs, plain = _plain_logits(ex)
+    got = np.array([scores[d["passage_id"]] for d in docs])
+    err = _rel_err(got, plain)
+    check(err <= CLI_LOGIT_TOL, f"{name}: scores {got} vs the plain path {plain}")
+    n_params = sum(p.numel() for p in ex.reranker.parameters())
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = _k2_rows(stores, name, test["launches"]["K2f32"])
+    test.update(queries=len(preds), candidates=100 * len(preds),
+                candidates_per_s=100 * len(preds) / test["evaluate_seconds"],
+                scores_vs_plain={"card": got.tolist(), "plain": plain.tolist(), "rel_err": err,
+                                 "tol": CLI_LOGIT_TOL},
+                k2f32_shapes={r["variant"]: r["launches"] for r in rows})
+    shutil.rmtree(exp / "ckpts", ignore_errors=True)
+    return {"phase": name, "card": smi, "params": n_params, **lines, "test": test}, rows
+
+
+def _greedy_with_gaps(ex, ids, am, pix):
+    """The executor's generate_with_losses, with each greedy step's top-2
+    logit gap [rows, steps]."""
+    steps = []
+    orig = ex._decode_logits
+
+    def record(*args):
+        out = orig(*args)
+        steps.append(out)
+        return out
+
+    ex._decode_logits = record
+    try:
+        tokens, losses = ex.generate_with_losses(ids, am, pix)
+    finally:
+        ex._decode_logits = orig
+    L = ex.max_answer_length
+    gaps = torch.stack([torch.topk(s[:, t].float(), 2).values.diff(dim=-1).abs()[:, 0]
+                        for t, s in enumerate(steps[:L])], dim=1).cpu().numpy()
+    return tokens, losses, gaps
+
+
+def p12_rag(text_config, dump, smi):
+    """12e: RAG with the BLIP-2 Flan-T5-XL generator: P12_RAG_STEPS
+    RAG-sequence steps (vision frozen), then per-doc greedy generation for
+    P12_DEC_QUERIES queries x 5 docs with K2's fp32 path in the T5 encoder;
+    the first query's per-doc tokens (up to near-ties) and losses against
+    the same model without the kernel on the card."""
+    name = "p12e_rag_blip2_flan_t5_xl"
+    exp = P12_DIR / name
+    dec = {"backbone": "blip2", "text_config": dataclasses.asdict(text_config),
+           "num_query_tokens": 32}
+    common = [dump, "executor.ExecutorClass='RagExecutor'",
+              "metrics=[{'name': 'compute_exact_match'}, {'name': 'compute_okvqa_scores'}]",
+              "model_config.modules=['rag_generation', 'freeze_reranker_vision_encoder']",
+              "model_config.rag_num_docs=3", "model_config.docs_to_rerank=5",
+              "model_config.max_answer_length=8", "model_config.max_source_length=64",
+              "model_config.Ks=[1, 5]",
+              "train.optimizer_config.scheduler_params.num_warmup_steps=0"]
+    train, _ = p12_run(f"{name}_train", "train", exp, [
+        *common, f"model_config.decoder={dec!r}", "train.batch_size=2",
+        f"train.trainer_paras.limit_train_batches={P12_RAG_STEPS}"])
+    losses = [r["loss"] for r in _metrics_lines(exp) if "loss" in r]
+    check(len(losses) == P12_RAG_STEPS and np.isfinite(losses).all(), f"{name} losses {losses}")
+    train["losses"] = losses
+    dec["text_config"]["use_pallas_attention"] = True
+    stores = {}
+    test, ex = p12_run(f"{name}_test", "test", exp, [
+        *common, f"model_config.decoder={dec!r}", f"test.batch_size={P12_DEC_QUERIES}",
+        "test.trainer_paras.limit_test_batches=1"], k2_stores=stores)
+    check("checkpoint_load_seconds" in test, f"{name}: the test loaded no checkpoint")
+    dump = _dump(exp)
+    preds = dump["predictions"]
+    check(len(preds) == P12_DEC_QUERIES and "exact_match_at_1" in dump["metrics"]
+          and all(len(p["per_doc_predictions"]) == len(p["loss_with_doc_scores"]) == 5
+                  and np.isfinite(p["loss_with_doc_scores"]).all() for p in preds),
+          f"{name}: the generation dump")
+    # the first query's docs, with and without the kernel
+    tok = ex.tokenizers["decoder_tokenizer"].tok
+    batch = next(iter(next(iter(ex.eval_dataloaders("test").values()))))
+    prompts = [f"question: {batch['questions'][0]} context: {d['content']}"
+               for d in ex.static_retrieve(batch["question_ids"][0])[:5]]
+    enc = tok(prompts, padding="max_length", truncation=True, max_length=ex.max_source_length,
+              return_tensors="np")
+    ids = torch.as_tensor(enc["input_ids"]).long().cuda()
+    am = torch.as_tensor(enc["attention_mask"]).long().cuda()
+    pix = torch.as_tensor(np.asarray(batch["pixel_values"])[:1]).float().cuda()
+    tokens, k_losses, gaps = _greedy_with_gaps(ex, ids, am, pix)
+    check([tok.decode(t, skip_special_tokens=True) for t in tokens]
+          == preds[0]["per_doc_predictions"], f"{name}: the dump's first query")
+    lm = ex.lm
+    ex.lm = _plain_twin(lm)
+    try:
+        p_tokens, p_losses = ex.generate_with_losses(ids, am, pix)
+    finally:
+        ex.lm = lm
+    n_params = sum(p.numel() for p in lm.parameters())
+    del ex, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    ties, compared = [], 0
+    for r in range(tokens.shape[0]):
+        low = np.nonzero(gaps[r] < NEAR_TIE)[0]
+        upto = int(low[0]) + 1 if len(low) else tokens.shape[1]
+        ties.append(None if not len(low) else int(low[0]))
+        check(np.array_equal(tokens[r, :upto], p_tokens[r, :upto]),
+              f"{name}: doc {r} tokens {tokens[r]} vs the plain path {p_tokens[r]}")
+        if not len(low):
+            compared += 1
+            err = _rel_err(k_losses[r], p_losses[r])
+            check(err <= CLI_LOGIT_TOL, f"{name}: doc {r} loss {k_losses[r]} vs {p_losses[r]}")
+    rows = _k2_rows(stores, name, test["launches"]["K2f32"])
+    answers = P12_DEC_QUERIES * 5
+    test.update(queries=len(preds), generated_answers=answers,
+                answers_per_s=answers / test["evaluate_seconds"],
+                first_query={"tokens_equal_up_to_near_ties": True, "near_tie_step": ties,
+                             "losses": np.asarray(k_losses).tolist(),
+                             "plain_losses": np.asarray(p_losses).tolist(),
+                             "losses_compared": compared, "tol": CLI_LOGIT_TOL,
+                             "min_top2_gap": float(gaps.min())},
+                k2f32_shapes={r["variant"]: r["launches"] for r in rows},
+                **{k: v for k, v in dump["metrics"].items() if k.startswith("exact_match")})
+    shutil.rmtree(exp / "ckpts", ignore_errors=True)
+    return {"phase": name, "card": smi, "params": n_params, "train": train, "test": test}, rows
+
+
+def p12_phases(smi):
+    """Phase 12, after phase 11 (its dataset, 11a's checkpoint and 11b's
+    dump under CLI_DIR); prints each part's line as it ends. Returns (K2
+    rows, launch counts of each CLI run)."""
+    from reranking_multimodal_retrievers_tpu_torch.models import OPTConfig, T5Config
+
+    ckpts = CLI_DIR / "experiments" / "synth_flmr_fullsize" / "version_0" / "ckpts"
+    with open(ckpts / "index.json") as f:
+        flmr_ckpt = ckpts / json.load(f)["last"]
+    with open(CONFIGS / FLMR_CONFIG) as f:
+        dim = json.load(f)["model_config"]["flmr"]["dim"]
+    dump = f"model_config.retrieve_result_path='{CLI_DIR / 'flmr_dump.json'}'"
+    retriever = f"model_config.retriever_model_path='{flmr_ckpt}'"
+    pallas = "model_config.flmr.text_config.use_pallas_attention=true"
+    rows, parts = [], {}
+
+    def done(line, r):
+        emit(line)
+        rows.extend(r)
+        for mode in ("train", "test"):
+            if mode in line:
+                parts[f"{line['phase']}_{mode}"] = line[mode]["launches"]
+
+    # 12a: the interaction rerankers over the frozen 11a retriever
+    for itype in ("MORES", "CrossEncoder"):
+        ce = dict(MODPREFLMR_CE, use_pallas_attention=itype == "CrossEncoder")
+        base = [dump, retriever, f"model_config.interaction_type='{itype}'",
+                f"model_config.late_interaction_dim={dim}",
+                f"model_config.modules={['interaction_reranker', *RETRIEVED]!r}"]
+        done(*p12_encoder_family(
+            f"p12a_interaction_{itype.lower()}",
+            [*base, f"model_config.cross_encoder={MODPREFLMR_CE!r}"],
+            [*base, f"model_config.cross_encoder={ce!r}", pallas], smi))
+    # 12b: the spliced reranker warm-started from 11a, biased by 11a's scores
+    base = [dump, retriever, f"model_config.reranker_backbone_path='{flmr_ckpt}'",
+            f"model_config.modules={[*RETRIEVED, 'preflmr_attention_fusion']!r}"]
+    done(*p12_encoder_family("p12b_fusion", base, [*base, pallas], smi))
+    # 12c: monoBLIP2-Flan-T5-XL, 12d: monoBLIP2-Opt-2.7b (head model)
+    t5 = T5Config.flan_t5_xl()
+    t_host = time.perf_counter()
+    torch.empty(250_000_000).normal_(0.0, 0.02, generator=torch.Generator().manual_seed(SEED))
+    host_draw_s = (time.perf_counter() - t_host) / 0.25  # a billion weights
+    line, r = p12_decoder("p12c_blip2_flan_t5_xl", "blip2", t5, T5_YES_NO, False,
+                          P12_DEC_STEPS, dump, smi)
+    line["host_draw_seconds_per_1e9_weights"] = host_draw_s
+    done(line, r)
+    done(*p12_decoder("p12d_blip2_opt_2_7b_head", "blip2_opt", OPTConfig.opt_2_7b(),
+                      OPT_YES_NO, True, 0, dump, smi))
+    # 12e: RAG with the BLIP-2 Flan-T5-XL generator
+    done(*p12_rag(t5, dump, smi))
+    return rows, parts
 
 
 def main() -> int:
@@ -2943,11 +3451,21 @@ def main() -> int:
         emit(line)
     emit({"phase": "cli", "seconds": time.perf_counter() - t0})
 
+    # ---- 12. the interaction, fusion and decoder rerankers and RAG from the
+    # CLI at full width (main path), over phase 11's dataset and checkpoint
+    t0 = time.perf_counter()
+    try:
+        k2f32_p12, p12_parts = p12_phases(smi)
+    finally:
+        if CLI_DIR.exists():
+            shutil.rmtree(CLI_DIR)
+    emit({"phase": "cli_families", "seconds": time.perf_counter() - t0})
+
     # ---- 7. the kernels line and the result
     torch.cuda.synchronize()
     phases = (retrieve_launches, int8_launches, stream_launches, rerank_launches, w8a8_launches,
               plaid_launches, pooled_launches, baleen_launches, triples_launches,
-              *cli_parts.values())
+              *cli_parts.values(), *p12_parts.values())
 
     def launches(name):
         return sum(p[name] for p in phases)
@@ -3002,7 +3520,7 @@ def main() -> int:
              replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183", **k3_cli),
         *(dict(name=f"fused_self_attention fp32 {row['variant']}", route="cuda",
                source="reranking_multimodal_retrievers_tpu_torch/csrc/attention_f32.cu",
-               replaces=attention, **row) for row in k2f32_rows + k2f32_extra),
+               replaces=attention, **row) for row in k2f32_rows + k2f32_p12 + k2f32_extra),
     ], "not_ported": []})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -77,6 +77,14 @@ class BaseExecutor(MetricsProcessor):
         self.data_loaders = self.prepared_data["data_loaders"]
         self.tokenizers = self.prepared_data.get("tokenizers", {})
 
+    def device_generator(self) -> torch.Generator:
+        """A generator on the executor's device seeded with ``meta.seed``,
+        for a model drawn where it runs: the decoder rerankers and the RAG
+        generators, billions of weights that a serial host draw makes slowly
+        (their weights then depend on the device)."""
+        seed = self.config.get_path("meta.seed", 42) or 42
+        return torch.Generator(device=self.device).manual_seed(seed)
+
     def train_dataloader(self):
         loaders = self.data_loaders.get("train", {})
         return next(iter(loaders.values())) if loaders else None

@@ -16,11 +16,13 @@ package built it:
   by logit, keep the raw (retriever-ordered) list for the side-by-side
   rerank-vs-raw metrics (`:651-1030`).
 
-This port covers the encoder families, ``full_context`` and ``spliced``
-(without attention fusion). The ``interaction`` and ``decoder`` families and
-``preflmr_attention_fusion`` raise ``NotImplementedError``; their models are
-ported, and the input builders of the interaction rerankers and of fusion,
-:func:`interaction_inputs` and :func:`fusion_inputs`, are here.
+Every family of the JAX package is here: the encoder families
+(``full_context``, ``spliced``, with or without PreFLMR attention fusion),
+the ``interaction`` rerankers over a frozen retriever's token matrices
+(:func:`interaction_inputs`; fusion's bias from :func:`fusion_inputs`), and
+the ``decoder`` rerankers (the native backbone and BLIP-2 over Flan-T5 or
+OPT, a ``decoder_checkpoint_dir`` read by ``models/checkpoint_dir.py``).
+The frozen retriever runs under ``torch.no_grad`` and is in no optimizer.
 """
 
 from __future__ import annotations
@@ -35,9 +37,19 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models import FLMRModelForRetrieval
 from ..models.bert import BertConfig
-from ..models.rerankers import FullContextRerankModel, RerankConfig, RerankModel
+from ..models.blip2 import Blip2Config, Blip2QFormerConfig, Blip2VisionConfig
+from ..models.checkpoint_dir import load_checkpoint_dir, load_into
+from ..models.opt import OPTConfig
+from ..models.rerankers import (Blip2DecoderHeadRerankModel, Blip2DecoderRerankModel,
+                                Blip2RerankConfig, DecoderHeadRerankModel, DecoderRerankConfig,
+                                DecoderRerankModel, FullContextRerankModel,
+                                InteractionRerankConfig, InteractionRerankModel, RerankConfig,
+                                RerankModel, prepare_decoder_rerank_inputs)
+from ..models.t5 import T5Config
 from ..models.tokenization import prepare_full_context_inputs, remove_instruction_prefix
+from ..training.checkpointing import CheckpointManager
 from ..training import TrainState, make_rerank_train_step
 from ..utils.config_system import ConfigDict
 from ..utils.registries import register_executor
@@ -45,10 +57,6 @@ from .base import BaseExecutor
 from .flmr_executor import flmr_config_from
 
 logger = logging.getLogger(__name__)
-
-FAMILY_TODO = ("the {} reranker family is not ported to the executor yet: ROADMAP.md, "
-               "queue A item 2")
-
 
 @torch.no_grad()
 def interaction_inputs(retriever, query_input_ids, query_attention_mask, context_input_ids,
@@ -133,6 +141,33 @@ def warm_start_from_retriever(state_dict: Dict[str, torch.Tensor],
     return merged, restored
 
 
+def decoder_reranker_config(mc, loss_fn: str, pos_weight: Optional[float]):
+    """``(config, model class)`` of the decoder family from
+    ``model_config.decoder`` (JAX ``reranker_executor.py:142-194``): the
+    ``native`` backbone over a BERT text config, or BLIP-2 (``blip2``:
+    Flan-T5, ``blip2_opt``: OPT). ``decoder_head`` picks the two-head
+    model (Model B) over yes/no scoring (Model A)."""
+    dec_kwargs = dict(mc.get("decoder", {}))
+    backbone = dec_kwargs.pop("backbone", "native")
+    head = mc.get("decoder_head", False)
+    if backbone in ("blip2", "blip2_opt"):
+        text_cls = OPTConfig if backbone == "blip2_opt" else T5Config
+        blip2 = Blip2Config(
+            vision_config=Blip2VisionConfig(**dec_kwargs.pop("vision_config", {})),
+            qformer_config=Blip2QFormerConfig(**dec_kwargs.pop("qformer_config", {})),
+            text_config=text_cls(**dec_kwargs.pop("text_config", {})),
+            num_query_tokens=dec_kwargs.pop("num_query_tokens", 32))
+        cfg = Blip2RerankConfig(blip2=blip2, loss_fn=loss_fn, pos_weight=pos_weight,
+                                **dec_kwargs)
+        return cfg, (Blip2DecoderHeadRerankModel if head else Blip2DecoderRerankModel)
+    if backbone != "native":
+        raise ValueError(f"model_config.decoder.backbone must be 'native', 'blip2' or "
+                         f"'blip2_opt', got {backbone!r}")
+    cfg = DecoderRerankConfig(text_config=BertConfig(**dec_kwargs.pop("text_config", {})),
+                              loss_fn=loss_fn, pos_weight=pos_weight, **dec_kwargs)
+    return cfg, (DecoderHeadRerankModel if head else DecoderRerankModel)
+
+
 @register_executor
 class RerankerExecutor(BaseExecutor):
     # ------------------------------------------------------------ model
@@ -145,46 +180,67 @@ class RerankerExecutor(BaseExecutor):
         self.fusion_multiplier = mc.get("fusion_multiplier", 1.0)
         self._rng = random.Random(self.config.get_path("meta.seed", 42) or 42)
 
-        for flag, family in (("interaction_reranker", "interaction"),
-                             ("decoder_reranker", "decoder"),
-                             ("preflmr_attention_fusion", "preflmr_attention_fusion")):
-            if flag in self.modules:
-                raise NotImplementedError(FAMILY_TODO.format(family))
-
         ce_cfg = BertConfig(**mc.get("cross_encoder", {"num_hidden_layers": 1}))
+        loss_fn = mc.get("loss_fn", "BCE")
         pos_weight = mc.get("pos_weight")
         if "weighted_regression" in self.modules and pos_weight is None:
             # reference `Reranker_base_executor.py:196-199`: weight the BCE
             # positive class by the group size (1 pos : N negs); an explicit
             # pos_weight in the config wins over the flag's derived value
             pos_weight = float(self.num_negative_samples + 1)
-        # encoder family: joint-retokenization FullContext when flagged,
-        # otherwise the spliced-query RerankModel — the reference's
-        # module→class mapping (`Reranker_base_executor.py:151-183`)
-        flmr_cfg = flmr_config_from(
-            mc,
-            query_tokenizer=self.tokenizers.get("tokenizer"),
-            context_tokenizer=self.tokenizers.get("decoder_tokenizer"),
-        )
-        self.reranker_config = RerankConfig(
-            flmr=flmr_cfg,
-            cross_encoder=ce_cfg,
-            loss_fn=mc.get("loss_fn", "BCE"),
-            pos_weight=pos_weight,
-            max_query_length=mc.get("max_query_length", 32),
-            max_decoder_source_length=mc.get("max_decoder_source_length", 512),
-        )
-        if "full_context_reranker" in self.modules:
-            self.reranker_family = "full_context"
-            cls = FullContextRerankModel
+        # weights are drawn on the CPU from the seeded generator, then moved
+        # (the same weights on any device); the decoder family is drawn on
+        # its device (``device_generator``)
+        where, gen = "cpu", self.generator
+        if "interaction_reranker" in self.modules:
+            self.reranker_family = "interaction"
+            # fusion x MORES is supported (JAX ``reranker_executor.py:127-131``):
+            # the fusion block biases MORES's cross-attention
+            self.reranker_config = InteractionRerankConfig(
+                cross_encoder=ce_cfg, interaction_type=mc.get("interaction_type", "CrossEncoder"),
+                loss_fn=loss_fn, pos_weight=pos_weight,
+                late_interaction_dim=mc.get("late_interaction_dim", 128))
+            cls = InteractionRerankModel
+        elif "decoder_reranker" in self.modules:
+            self.reranker_family = "decoder"
+            self.reranker_config, cls = decoder_reranker_config(mc, loss_fn, pos_weight)
+            where, gen = self.device, self.device_generator()
         else:
-            self.reranker_family = "spliced"
-            cls = RerankModel
-        # drawn on the CPU from the seeded generator, then moved (the same
-        # weights on any device)
-        self.reranker = cls(self.reranker_config, device="cpu",
-                            generator=self.generator).to(self.device)
+            # encoder family: joint-retokenization FullContext when flagged,
+            # otherwise the spliced-query RerankModel — the reference's
+            # module→class mapping (`Reranker_base_executor.py:151-183`)
+            flmr_cfg = flmr_config_from(
+                mc,
+                query_tokenizer=self.tokenizers.get("tokenizer"),
+                context_tokenizer=self.tokenizers.get("decoder_tokenizer"),
+            )
+            self.reranker_config = RerankConfig(
+                flmr=flmr_cfg,
+                cross_encoder=ce_cfg,
+                loss_fn=loss_fn,
+                pos_weight=pos_weight,
+                max_query_length=mc.get("max_query_length", 32),
+                max_decoder_source_length=mc.get("max_decoder_source_length", 512),
+            )
+            if "full_context_reranker" in self.modules:
+                self.reranker_family = "full_context"
+                cls = FullContextRerankModel
+            else:
+                self.reranker_family = "spliced"
+                cls = RerankModel
+        self.reranker = cls(self.reranker_config, device=where, generator=gen).to(self.device)
+        if self.reranker_family == "decoder":
+            ckpt_dir = mc.get("decoder_checkpoint_dir")
+            if ckpt_dir and os.path.isdir(ckpt_dir) and isinstance(self.reranker_config,
+                                                                   Blip2RerankConfig):
+                # the HF BLIP-2 state dict goes into the backbone; a head
+                # model's classifier1/classifier2 keep their init (JAX
+                # ``reranker_executor.py:195-210``, ``_init_params:283-288``)
+                logger.info("loading the BLIP-2 checkpoint %s", ckpt_dir)
+                load_into(self.reranker.model, load_checkpoint_dir(ckpt_dir))
         self.retriever = None
+        if self.reranker_family == "interaction" or "preflmr_attention_fusion" in self.modules:
+            self._build_retriever(mc)
 
         self._setup_corpus()
         self.init_retrieve()
@@ -192,6 +248,38 @@ class RerankerExecutor(BaseExecutor):
         self._train_state = None
         self._restored = None
         self._rerank_fn = None
+
+    def _build_retriever(self, mc):
+        """The frozen retriever of the interaction rerankers and of attention
+        fusion (JAX ``reranker_executor.py:237-256, 312-353``): built from
+        ``model_config.retriever_flmr`` when given, else from the reranker's
+        ``flmr``, and loaded from ``retriever_model_path``, an
+        ``FLMRExecutor`` checkpoint whose parameters must be exactly this
+        model's (a mismatched config raises instead of scoring with random
+        weights)."""
+        r_mc = mc
+        if mc.get("retriever_flmr"):
+            r_mc = ConfigDict(dict(mc, flmr=mc["retriever_flmr"]))
+        self.retriever_config = flmr_config_from(
+            r_mc,
+            query_tokenizer=self.tokenizers.get("tokenizer"),
+            context_tokenizer=self.tokenizers.get("decoder_tokenizer"),
+        )
+        self.retriever = FLMRModelForRetrieval(self.retriever_config, device="cpu",
+                                               generator=self.generator).to(self.device)
+        self.retriever.eval().requires_grad_(False)
+        rpath = mc.get("retriever_model_path")
+        if not rpath:
+            return
+        restored = CheckpointManager.restore(rpath, device="cpu", mmap=True)
+        got = restored["model"]
+        want = self.retriever.state_dict()
+        if set(got) != set(want) or any(tuple(got[k].shape) != tuple(want[k].shape)
+                                        for k in want):
+            raise ValueError(f"retriever_model_path {rpath}: the checkpoint's parameters do "
+                             "not match model_config.flmr (the frozen retriever)")
+        self.retriever.load_state_dict(got)
+        logger.info("loaded the frozen retriever from %s", rpath)
 
     def _setup_corpus(self):
         self.id2doc: Dict[str, str] = {}
@@ -212,8 +300,6 @@ class RerankerExecutor(BaseExecutor):
         bpath = self.config.get_path("model_config.reranker_backbone_path", None)
         if not bpath:
             return
-        from ..training.checkpointing import CheckpointManager
-
         restored_ckpt = CheckpointManager.restore(bpath, device=self.device)
         merged, restored = warm_start_from_retriever(self.reranker.state_dict(),
                                                      restored_ckpt["model"])
@@ -326,16 +412,27 @@ class RerankerExecutor(BaseExecutor):
         return docs
 
     # ------------------------------------------------------------ train
-    def prepare_training(self, total_steps: int):
-        optimizer, scheduler, _ = self.build_optimizer(self.reranker, total_steps)
-        state = TrainState.create(self.reranker, optimizer, scheduler)
+    def trained_model(self) -> torch.nn.Module:
+        """The model that trains, is saved and is restored."""
+        return self.reranker
+
+    def _create_train_state(self, total_steps: int) -> TrainState:
+        """A TrainState over :meth:`trained_model` with its optimizer, the
+        restored optimizer and scheduler state when a checkpoint was loaded."""
+        model = self.trained_model()
+        optimizer, scheduler, _ = self.build_optimizer(model, total_steps)
+        state = TrainState.create(model, optimizer, scheduler)
         if self._restored is not None and "optimizer" in self._restored:
             optimizer.load_state_dict(self._restored["optimizer"])
             scheduler.load_state_dict(self._restored["scheduler"])
             state.step = int(self._restored["step"])
         self._restored = None
         self._train_state = state
-        self._step = make_rerank_train_step(self.reranker, optimizer, scheduler,
+        return state
+
+    def prepare_training(self, total_steps: int):
+        state = self._create_train_state(total_steps)
+        self._step = make_rerank_train_step(self.reranker, state.optimizer, state.scheduler,
                                             num_negative_examples=self.num_negative_samples)
 
     def _select_training_docs(self, qid, pos_ids):
@@ -412,28 +509,45 @@ class RerankerExecutor(BaseExecutor):
         return {"loss": float(metrics["loss"])}
 
     def _build_rerank_inputs(self, batch, queries, contents, nway) -> Dict[str, object]:
-        """Tensors on the executor's device for the spliced or the
-        full-context reranker."""
-        pix = None
-        if "text_only" not in self.modules and "pixel_values" in batch:
-            pix = torch.as_tensor(batch["pixel_values"]).to(self.device)
-
+        """The reranker's forward arguments on the executor's device for
+        ``queries`` and their ``nway`` candidates each (JAX
+        ``reranker_executor.py:602-672``)."""
         def dev(x):
             return torch.as_tensor(x).to(self.device)
 
+        if self.reranker_family == "interaction":
+            model_batch = self._interaction_inputs(batch, contents)
+            self._maybe_attach_fusion(model_batch, batch, contents, nway)
+            return model_batch
+        if self.reranker_family == "decoder":
+            tok = getattr(self.tokenizers.get("decoder_tokenizer"), "tok", None)
+            mc = self.config.get_path("model_config", ConfigDict())
+            enc = prepare_decoder_rerank_inputs(
+                queries, contents, tok,
+                max_query_length=mc.get("max_query_length", 32),
+                max_context_length=mc.get("max_context_length", 64),
+                max_decoder_source_length=mc.get("max_decoder_source_length", 128),
+                docs_per_query=nway)
+            return dict(input_ids=dev(enc["input_ids"]),
+                        attention_mask=dev(enc["attention_mask"]),
+                        pixel_values=(dev(batch["pixel_values"]) if "pixel_values" in batch
+                                      else None))
+        pix = None
+        if "text_only" not in self.modules and "pixel_values" in batch:
+            pix = dev(batch["pixel_values"])
         if self.reranker_family == "spliced":
             # raw query tokens + separately tokenized contexts; the model
             # splices them (reference `rerank_model.py:204-224`)
-            ct = self.tokenizers["decoder_tokenizer"]
-            dlen = self.config.get_path("model_config.doc_maxlen", 64)
-            enc_d = ct(contents, max_length=dlen)
-            return dict(
+            enc_d = self._tokenize_contexts(contents)
+            model_batch = dict(
                 query_input_ids=dev(batch["input_ids"]),
                 query_attention_mask=dev(batch["attention_mask"]),
                 query_pixel_values=pix,
                 context_input_ids=dev(enc_d["input_ids"]),
                 context_attention_mask=dev(enc_d["attention_mask"]),
             )
+            self._maybe_attach_fusion(model_batch, batch, contents, nway)
+            return model_batch
         cfg = self.reranker_config
         tok = getattr(self.tokenizers.get("tokenizer"), "tok", None) or getattr(
             self.tokenizers.get("decoder_tokenizer"), "tok", None)
@@ -451,16 +565,59 @@ class RerankerExecutor(BaseExecutor):
             "query_pixel_values": pix,
         }
 
+    def _tokenize_contexts(self, contents):
+        ct = self.tokenizers["decoder_tokenizer"]
+        return ct(contents, max_length=self.config.get_path("model_config.doc_maxlen", 64))
+
+    def _retriever_pixels(self, batch):
+        """The query images for the frozen retriever: none under
+        ``text_only`` (its token scores carry the same query rows as the
+        text-only reranker they bias) or for a retriever without vision."""
+        if ("pixel_values" not in batch or "text_only" in self.modules
+                or not self.retriever_config.use_vision_encoder):
+            return None
+        return torch.as_tensor(batch["pixel_values"]).to(self.device)
+
+    def _maybe_attach_fusion(self, model_batch, batch, contents, nway):
+        """PreFLMR attention fusion (JAX ``reranker_executor.py:674-712``):
+        the frozen retriever's masked token scores become an additive
+        attention bias in the cross-encoder."""
+        if "preflmr_attention_fusion" not in self.modules:
+            return
+        if "context_input_ids" in model_batch:
+            ctx_ids = model_batch["context_input_ids"]
+            ctx_mask = model_batch["context_attention_mask"]
+        else:
+            enc_d = self._tokenize_contexts(contents)
+            ctx_ids = torch.as_tensor(enc_d["input_ids"]).to(self.device)
+            ctx_mask = torch.as_tensor(enc_d["attention_mask"]).to(self.device)
+        model_batch.update(fusion_inputs(
+            self.retriever, torch.as_tensor(batch["input_ids"]).to(self.device),
+            torch.as_tensor(batch["attention_mask"]).to(self.device), ctx_ids, ctx_mask,
+            num_negative_examples=nway - 1, query_pixel_values=self._retriever_pixels(batch),
+            fusion_multiplier=self.fusion_multiplier))
+
+    def _interaction_inputs(self, batch, contents):
+        """The frozen retriever's late-interaction matrices of the queries
+        and of their candidates (JAX ``reranker_executor.py:714-748``)."""
+        enc_d = self._tokenize_contexts(contents)
+        return interaction_inputs(
+            self.retriever, torch.as_tensor(batch["input_ids"]).to(self.device),
+            torch.as_tensor(batch["attention_mask"]).to(self.device),
+            torch.as_tensor(enc_d["input_ids"]).to(self.device),
+            torch.as_tensor(enc_d["attention_mask"]).to(self.device),
+            query_pixel_values=self._retriever_pixels(batch))
+
     def state_to_save(self):
         if self._train_state is None:
-            return {"model": self.reranker.state_dict(), "step": self.global_step}
+            return {"model": self.trained_model().state_dict(), "step": self.global_step}
         return self._train_state
 
     def load_checkpoint(self, path: str):
-        from ..training.checkpointing import CheckpointManager
-
-        restored = CheckpointManager.restore(path, device=self.device)
-        self.reranker.load_state_dict(restored["model"])
+        # on the host, mapped: the model's tensors are copied to the device,
+        # and the optimizer's are read only if a resume needs them
+        restored = CheckpointManager.restore(path, device="cpu", mmap=True)
+        self.trained_model().load_state_dict(restored["model"])
         # optimizer and scheduler state are loaded into the optimizer that
         # prepare_training builds
         self._restored = restored

@@ -113,23 +113,31 @@ class _DecoderLayer(nn.Module):
 
 
 class VisionSeq2SeqLM(nn.Module):
-    """Compact vision-conditioned encoder-decoder LM with LoRA adapters
-    (built on ``meta`` by its parent)."""
+    """Compact vision-conditioned encoder-decoder LM with LoRA adapters.
+    Built on ``device`` (CUDA by default) with weights drawn from
+    ``generator``; ``device="meta"`` builds it for a parent that
+    materialises it."""
 
-    def __init__(self, config: DecoderRerankConfig):
+    def __init__(self, config: DecoderRerankConfig, *, device: DeviceLike = "cuda",
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = self.config = config
         tc = cfg.text_config
-        self.vision_encoder = CLIPVisionModel(cfg.vision_config, device="meta")
-        self.vision_projection = nn.Linear(cfg.vision_config.hidden_size,
-                                           tc.hidden_size * cfg.vision_prefix_length)
-        self.embed = nn.Embedding(tc.vocab_size, tc.hidden_size)
-        self.pos_embed = nn.Embedding(tc.max_position_embeddings, tc.hidden_size)
-        self.encoder_layers = nn.ModuleList(BertLayer(tc) for _ in range(tc.num_hidden_layers))
-        self.decoder_layers = nn.ModuleList(
-            _DecoderLayer(tc, cfg.lora_r, cfg.lora_alpha) for _ in range(cfg.num_decoder_layers))
-        self.final_norm = nn.LayerNorm(tc.hidden_size, eps=tc.layer_norm_eps)
-        self.lm_head = nn.Linear(tc.hidden_size, tc.vocab_size, bias=False)
+        with torch.device("meta"):
+            self.vision_encoder = CLIPVisionModel(cfg.vision_config, device="meta")
+            self.vision_projection = nn.Linear(cfg.vision_config.hidden_size,
+                                               tc.hidden_size * cfg.vision_prefix_length)
+            self.embed = nn.Embedding(tc.vocab_size, tc.hidden_size)
+            self.pos_embed = nn.Embedding(tc.max_position_embeddings, tc.hidden_size)
+            self.encoder_layers = nn.ModuleList(
+                BertLayer(tc) for _ in range(tc.num_hidden_layers))
+            self.decoder_layers = nn.ModuleList(
+                _DecoderLayer(tc, cfg.lora_r, cfg.lora_alpha)
+                for _ in range(cfg.num_decoder_layers))
+            self.final_norm = nn.LayerNorm(tc.hidden_size, eps=tc.layer_norm_eps)
+            self.lm_head = nn.Linear(tc.hidden_size, tc.vocab_size, bias=False)
+        materialize_(self, device, dtype, generator, tc.initializer_range)
 
     def vision_prefix(self, pixel_values):
         """[B, vision_prefix_length, H] projected vision tokens."""
@@ -205,7 +213,7 @@ class DecoderRerankModel(nn.Module):
         materialize_(self, device, dtype, generator, config.text_config.initializer_range)
 
     def _build(self):
-        self.model = VisionSeq2SeqLM(self.config)
+        self.model = VisionSeq2SeqLM(self.config, device="meta")
 
     def _hidden_and_logits(self, input_ids, attention_mask, pixel_values, nway):
         cfg = self.config

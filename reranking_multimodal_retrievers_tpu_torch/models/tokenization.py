@@ -252,10 +252,13 @@ class WordPieceTokenizer:
     def decode(self, ids: Iterable[int], skip_special_tokens: bool = False,
                clean_up_tokenization_spaces: Optional[bool] = None) -> str:
         """``BertTokenizerFast.decode``: tokens joined by spaces, ``##``
-        continuations glued on, then the tokenization-space clean-up."""
+        continuations glued on, then the tokenization-space clean-up. An id
+        outside the vocabulary (a model's vocabulary may be larger) is
+        skipped, as HF's tokenizers skip it."""
         special = set(self.all_special_ids)
         toks = [self.ids_to_tokens[int(i)] for i in ids
-                if not (skip_special_tokens and int(i) in special)]
+                if int(i) in self.ids_to_tokens
+                and not (skip_special_tokens and int(i) in special)]
         parts = []
         for i, tok in enumerate(toks):
             if i and tok.startswith("##"):

@@ -363,30 +363,42 @@ def _bert_layer(sd: StateDict, lpre: str, lp: Tree) -> None:
     _layernorm(sd, f"{lpre}.output.LayerNorm", lp["layernorm"])
 
 
-def decoder_rerank_state_dict(params: Tree) -> StateDict:
-    """Flax ``DecoderRerankModel`` / ``DecoderHeadRerankModel`` params (the
-    compact ``VisionSeq2SeqLM`` backbone) -> the port's state dict."""
-    sd: StateDict = {}
-    mp = params["model"]
-    _clip(sd, "model.vision_encoder.vision_model.", mp["vision_encoder"])
-    _dense(sd, "model.vision_projection", mp["vision_projection"])
-    _embed(sd, "model.embed", mp["embed"])
-    _embed(sd, "model.pos_embed", mp["pos_embed"])
+def _vision_seq2seq(sd: StateDict, prefix: str, mp: Tree) -> None:
+    if "vision_encoder" in mp:  # flax made none where init saw no pixels
+        _clip(sd, f"{prefix}vision_encoder.vision_model.", mp["vision_encoder"])
+        _dense(sd, f"{prefix}vision_projection", mp["vision_projection"])
+    _embed(sd, f"{prefix}embed", mp["embed"])
+    _embed(sd, f"{prefix}pos_embed", mp["pos_embed"])
     i = 0
     while f"encoder_layer_{i}" in mp:
-        _bert_layer(sd, f"model.encoder_layers.{i}", mp[f"encoder_layer_{i}"])
+        _bert_layer(sd, f"{prefix}encoder_layers.{i}", mp[f"encoder_layer_{i}"])
         i += 1
     i = 0
     while f"decoder_layer_{i}" in mp:
-        lp, lpre = mp[f"decoder_layer_{i}"], f"model.decoder_layers.{i}"
+        lp, lpre = mp[f"decoder_layer_{i}"], f"{prefix}decoder_layers.{i}"
         _bert_attention(sd, f"{lpre}.self_attention", lp["self_attention"])
         _bert_attention(sd, f"{lpre}.cross_attention", lp["cross_attention"])
         _linear(sd, f"{lpre}.intermediate", lp["intermediate"])
         _linear(sd, f"{lpre}.output", lp["output"])
         _layernorm(sd, f"{lpre}.layernorm", lp["layernorm"])
         i += 1
-    _layernorm(sd, "model.final_norm", mp["final_norm"])
-    _dense(sd, "model.lm_head", mp["lm_head"])
+    _layernorm(sd, f"{prefix}final_norm", mp["final_norm"])
+    _dense(sd, f"{prefix}lm_head", mp["lm_head"])
+
+
+def vision_seq2seq_state_dict(params: Tree) -> StateDict:
+    """Flax ``VisionSeq2SeqLM`` params (the native RAG generator) -> the
+    port's ``VisionSeq2SeqLM`` state dict."""
+    sd: StateDict = {}
+    _vision_seq2seq(sd, "", params)
+    return sd
+
+
+def decoder_rerank_state_dict(params: Tree) -> StateDict:
+    """Flax ``DecoderRerankModel`` / ``DecoderHeadRerankModel`` params (the
+    compact ``VisionSeq2SeqLM`` backbone) -> the port's state dict."""
+    sd: StateDict = {}
+    _vision_seq2seq(sd, "model.", params["model"])
     for n in ("classifier1", "classifier2"):
         if n in params:
             _dense(sd, n, params[n])

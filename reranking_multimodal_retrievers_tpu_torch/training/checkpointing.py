@@ -127,9 +127,10 @@ class CheckpointManager:
         return None
 
     @staticmethod
-    def restore(path: str, target=None, device: DeviceLike = "cuda"):
+    def restore(path: str, target=None, device: DeviceLike = "cuda", mmap: bool = False):
         """Load checkpoint ``path``. Without ``target``, return what was saved,
-        its tensors on ``device``. With a :class:`TrainState`, load the
+        its tensors on ``device`` (with ``mmap``, on the CPU and mapped from
+        the file: a tensor is read when it is used). With a :class:`TrainState`, load the
         model's entries it has (``strict=False``: the target keeps the rest),
         the optimizer's and the scheduler's state and the step into it, on
         the model's device, and return it. With nested dicts, return the
@@ -138,8 +139,10 @@ class CheckpointManager:
             dev = next(target.model.parameters()).device
         else:
             dev = resolve_device(device)
+        if mmap and dev.type != "cpu":
+            raise ValueError("mmap restores to the CPU")
         restored = torch.load(os.path.join(os.path.abspath(path), STATE_FILE),
-                              map_location=dev, weights_only=True)
+                              map_location=dev, weights_only=True, mmap=mmap)
         if target is None:
             return restored
         if isinstance(target, TrainState):

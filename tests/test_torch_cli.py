@@ -1,13 +1,16 @@
 """End to end through the port's CLI (``cli/main.py``) on dummy data, under
 ``RMRT_PLATFORM=cpu``: the port's counterparts of ``tests/test_cli_e2e.py``'s
-FLMR train -> test -> eval, reranker train -> test, and FLMR train -> test
--> rerank over the FLMR dump. Each run writes the JAX CLI's artifacts
+FLMR train -> test -> eval, reranker train -> test, FLMR train -> test
+-> rerank over the FLMR dump, the fusion reranker (with and without
+``text_only``), the BLIP-2 decoder reranker, RAG train -> test, and the
+interaction reranker over a trained FLMR checkpoint. Each run writes the JAX CLI's artifacts
 (``metrics.jsonl``, ``config.json``, ``test_predictions_rank_0.json``), and
 the JAX package's metrics processor, run over the port's predictions,
 gives the dump's metrics (the same keys and values). Without a card and
 without ``RMRT_PLATFORM`` the CLI raises."""
 
 import json
+import math
 import os
 
 import pytest
@@ -36,6 +39,11 @@ def _opts(tmp_path):
 def _run(config, mode, tmp_path, *opts):
     return main(["--config", os.path.join(ROOT, "configs", config), "--mode", mode,
                  "--use_dummy_data", "--opts", *_opts(tmp_path), *opts])
+
+
+def _metrics(exp_dir):
+    with open(os.path.join(exp_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
 
 
 def _dump(exp_dir, prefix="test"):
@@ -120,6 +128,84 @@ def test_retrieve_then_rerank(cpu, tmp_path):
         raw = [d["passage_id"] for d in p["raw_top_ranking_passages"]]
         assert raw[:len(retrieved[p["question_id"]])] == retrieved[p["question_id"]][:len(raw)]
     _assert_jax_metrics("evqa_rerank_full_context.json", dump)
+
+
+@pytest.mark.parametrize("text_only", [False, True])
+def test_fusion_reranker_train_then_test(cpu, tmp_path, text_only):
+    """The spliced reranker under PreFLMR attention fusion (the frozen
+    retriever's token scores bias the cross-encoder), with and without
+    ``text_only`` (then no pixels anywhere)."""
+    with open(os.path.join(ROOT, "configs", "okvqa_rerank_fusion.json")) as f:
+        cfg = json.load(f)
+    if text_only:
+        cfg["model_config"]["modules"].append("text_only")
+    path = str(tmp_path / "fusion.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    run = ["--config", path, "--use_dummy_data", "--opts", *_opts(tmp_path)]
+    assert main(["--mode", "train", *run, "train.trainer_paras.max_epochs=1",
+                 "train.trainer_paras.limit_train_batches=2"]) == 0
+    exp_dir = str(tmp_path / "experiments" / "okvqa_rerank_fusion" / "version_0")
+    assert main(["--mode", "test", *run, f"meta.experiment_dir='{exp_dir}'",
+                 "test.trainer_paras.limit_test_batches=1"]) == 0
+    dump = _dump(exp_dir)
+    assert "recall_at_5" in dump["metrics"] and dump["predictions"][0]["top_ranking_passages"]
+    _assert_jax_metrics("okvqa_rerank_fusion.json", dump)
+
+
+def test_blip2_decoder_reranker_train_then_test(cpu, tmp_path):
+    """monoBLIP-2 (Flan-T5 with LoRA) through the decoder branch."""
+    config = "okvqa_rerank_decoder_blip2.json"
+    assert _run(config, "train", tmp_path, "train.trainer_paras.max_epochs=1",
+                "train.trainer_paras.limit_train_batches=2") == 0
+    exp_dir = str(tmp_path / "experiments" / "okvqa_rerank_decoder_blip2" / "version_0")
+    losses = [r["loss"] for r in _metrics(exp_dir) if "loss" in r]
+    assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+    assert _run(config, "test", tmp_path, f"meta.experiment_dir='{exp_dir}'",
+                "test.trainer_paras.limit_test_batches=1") == 0
+    dump = _dump(exp_dir)
+    assert "recall_at_5" in dump["metrics"]
+    assert all(0.0 <= p["score"] <= 1.0 for p in dump["predictions"][0]["top_ranking_passages"])
+    _assert_jax_metrics(config, dump)
+
+
+def test_rag_train_then_test(cpu, tmp_path):
+    """RAG with the BLIP-2 generator: the RAG-sequence loss, then per-doc
+    greedy generation scored by exact match."""
+    config = "okvqa_rag_blip2.json"
+    assert _run(config, "train", tmp_path, "train.trainer_paras.max_epochs=1",
+                "valid.trainer_paras.limit_val_batches=0") == 0
+    exp_dir = str(tmp_path / "experiments" / "okvqa_rag_blip2" / "version_0")
+    losses = [r["loss"] for r in _metrics(exp_dir) if "loss" in r]
+    assert losses and all(math.isfinite(x) for x in losses)
+    assert _run(config, "test", tmp_path, f"meta.experiment_dir='{exp_dir}'",
+                "test.trainer_paras.limit_test_batches=1") == 0
+    dump = _dump(exp_dir)
+    assert "exact_match_at_1" in dump["metrics"] and "exact_match_at_5" in dump["metrics"]
+    entry = dump["predictions"][0]
+    assert len(entry["per_doc_predictions"]) == len(entry["loss_with_doc_scores"]) == 5
+    assert entry["prediction"] in entry["per_doc_predictions"]
+
+
+def test_interaction_reranker_over_a_trained_retriever(cpu, tmp_path):
+    """FLMR train, then the interaction reranker with that checkpoint as its
+    frozen retriever (``retriever_model_path``); a retriever config the
+    checkpoint does not fit raises before anything runs."""
+    assert _run("okvqa_flmr.json", "train", tmp_path, "train.trainer_paras.max_epochs=1",
+                "train.trainer_paras.limit_train_batches=1",
+                "valid.trainer_paras.limit_val_batches=0") == 0
+    flmr_dir = tmp_path / "experiments" / "okvqa_flmr" / "version_0"
+    with open(flmr_dir / "ckpts" / "index.json") as f:
+        ckpt = str(flmr_dir / "ckpts" / json.load(f)["last"])
+    # the reranker config's flmr has okvqa_flmr.json's parameters
+    config, path = "okvqa_rerank_interaction.json", f"model_config.retriever_model_path='{ckpt}'"
+    rr_dir = str(tmp_path / "experiments" / "okvqa_rerank_interaction" / "version_0")
+    assert _run(config, "test", tmp_path, path, f"meta.experiment_dir='{rr_dir}'",
+                "test.trainer_paras.limit_test_batches=1") == 0
+    _assert_jax_metrics(config, _dump(rr_dir))
+    with pytest.raises(ValueError, match="retriever_model_path"):
+        _run(config, "test", tmp_path, path, "model_config.flmr.text_config.num_hidden_layers=1",
+             "test.trainer_paras.limit_test_batches=1")
 
 
 def test_prepare_data_mode(cpu, tmp_path):

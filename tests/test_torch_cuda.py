@@ -918,3 +918,68 @@ def test_compress_keeps_a_card_tensor_on_the_card(gen, monkeypatch):
     codec.compress(emb, mask, list(range(64)), num_centroids=16, sample_size=512, device="cuda")
     # the mask and the centroids come to the host; the embeddings never do
     assert tuple(emb.shape) not in [tuple(s) for s in copies]
+
+
+@pytest.mark.parametrize("config,text_opts,variant", [
+    # d_kv 64 (the config's 32 is not a head_dim K2 takes): the head bias
+    ("synth_rerank_decoder_blip2_t5.json", ("d_kv=64",), (True, False)),
+    # 2 heads x 80: the causal mask at OPT-2.7b's head_dim
+    ("synth_rerank_decoder_blip2_opt.json", ("hidden_size=160", "num_attention_heads=2"),
+     (False, True)),
+])
+def test_decoder_executor_kernel_path_matches_plain_path(gen, tmp_path, monkeypatch, config,
+                                                         text_opts, variant):
+    """An fp32 decoder reranker executor on the card, its language model's
+    self-attention through K2's fp32 path (``use_pallas_attention``: the
+    T5 encoder with its relative-position head bias, or OPT with the causal
+    mask), against the same executor without the flag: the rerank logits
+    within rtol 1e-4 / atol 2e-5, and every launch of that variant."""
+    from pathlib import Path
+
+    from reranking_multimodal_retrievers_tpu_torch.data import ops  # noqa: F401
+    from reranking_multimodal_retrievers_tpu_torch.executors import RerankerExecutor
+    from reranking_multimodal_retrievers_tpu_torch.ops import attention_cuda
+    from reranking_multimodal_retrievers_tpu_torch.utils.config_system import (apply_opts,
+                                                                               load_config)
+
+    root = Path(__file__).resolve().parents[1]
+    monkeypatch.chdir(tmp_path)
+
+    def build(pallas):
+        cfg = load_config(str(root / "configs" / config))
+        apply_opts(cfg, [f"data_pipeline.cache_dir='{tmp_path}/cache'",
+                         f"meta.experiment_dir='{tmp_path}/exp{int(pallas)}'",
+                         "model_config.docs_to_rerank=20", "valid.batch_size=4",
+                         "valid.trainer_paras.limit_val_batches=1",
+                         "model_config.modules=['decoder_reranker','train_with_retrieved_docs',"
+                         "'neg_sample_retrieved','full_validation']",
+                         *(f"model_config.decoder.text_config.{o}" for o in text_opts),
+                         f"model_config.decoder.text_config.use_pallas_attention={pallas}"])
+        cfg.set_path("mode", "train")
+        return RerankerExecutor(cfg, use_dummy_data=True, device="cuda")
+
+    def scores(ex):
+        out = ex.evaluate("valid")["batch_retrieval_result"]
+        return torch.tensor([[p["score"] for p in sorted(r["top_ranking_passages"],
+                                                         key=lambda p: p["passage_id"])]
+                             for r in out])
+
+    seen = []
+    launch = attention_cuda._launch_f32
+
+    def record(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal):
+        seen.append((head_bias is not None, bool(causal)))
+        return launch(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal)
+
+    fused, plain = build(True), build(False)
+    for a, b in zip(fused.reranker.state_dict().values(), plain.reranker.state_dict().values()):
+        assert torch.equal(a, b)  # drawn on the card from the same seed
+    monkeypatch.setattr(attention_cuda, "_launch_f32", record)
+    launches = attention_cuda.fused_self_attention_f32.launches
+    got = scores(fused)
+    n = attention_cuda.fused_self_attention_f32.launches - launches
+    assert n > 0 and len(seen) == n and set(seen) == {variant}
+    want = scores(plain)
+    assert attention_cuda.fused_self_attention_f32.launches == launches + n
+    assert got.shape == want.shape and got.numel() > 0
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-5)

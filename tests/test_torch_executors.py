@@ -2,7 +2,10 @@
 reranker_executor}.py``) against the JAX package's on the same tiny
 configs and dummy data, in fp32 on the CPU (JAX at matmul precision
 "highest"). JAX's initial weights are carried into the port's models by
-``models/weights.py``.
+``models/weights.py``; the reranker cases cover every family (the encoder
+families with and without attention fusion, the interaction rerankers of
+both types over the frozen retriever, and the decoder rerankers: native,
+BLIP-2 Flan-T5 and BLIP-2 OPT, each as Model A and Model B).
 
 The FLMR executor is evaluated over the bf16 index and over an int8 one
 (``use_int8_index``). Tolerances: a training step's ``loss`` and ``ib_loss``, and reranker
@@ -49,16 +52,26 @@ def _executor(pkg, config, workdir, mode, *opts):
     return cls(cfg, use_dummy_data=True, **kw)
 
 
-def _pair(tmp_path, monkeypatch, config, mode, *opts):
-    """(JAX executor, port executor) on the same config, the port's model
-    holding JAX's initial weights."""
-    monkeypatch.chdir(tmp_path)
-    jex = _executor(J, config, tmp_path / "jax", mode, *opts)
-    tex = _executor(T, config, tmp_path / "port", mode, *opts)
+def _carry_weights(jex, tex):
+    """Load the JAX executor's initial weights into the port executor's
+    models: the FLMR model, or the reranker (any family) and its frozen
+    retriever."""
     params = jax.device_get(jex.params)
     if hasattr(tex, "model"):
         tex.model.load_state_dict(weights.flmr_state_dict(params))
-        return jex, tex
+        return
+    if jex.retriever is not None:
+        tex.retriever.load_state_dict(
+            weights.flmr_state_dict(jax.device_get(jex._retriever_params)))
+    family = tex.reranker_family
+    if family == "interaction":
+        tex.reranker.load_state_dict(weights.interaction_rerank_state_dict(params))
+        return
+    if family == "decoder":
+        blip2 = hasattr(tex.reranker_config, "blip2")
+        carry = weights.blip2_rerank_state_dict if blip2 else weights.decoder_rerank_state_dict
+        tex.reranker.load_state_dict(carry(params))
+        return
     missing, unexpected = tex.reranker.load_state_dict(weights.rerank_state_dict(params),
                                                        strict=False)
     # a text-only JAX reranker never ran its vision tower, so flax made no
@@ -66,6 +79,15 @@ def _pair(tmp_path, monkeypatch, config, mode, *opts):
     assert not unexpected
     assert not missing or "text_only" in tex.modules
     assert all(k.startswith(("context_vision_", "transformer_mapping_")) for k in missing)
+
+
+def _pair(tmp_path, monkeypatch, config, mode, *opts):
+    """(JAX executor, port executor) on the same config, the port's models
+    holding JAX's initial weights."""
+    monkeypatch.chdir(tmp_path)
+    jex = _executor(J, config, tmp_path / "jax", mode, *opts)
+    tex = _executor(T, config, tmp_path / "port", mode, *opts)
+    _carry_weights(jex, tex)
     return jex, tex
 
 
@@ -142,20 +164,49 @@ RERANK_OPTS = ("model_config.docs_to_rerank=12", "valid.trainer_paras.limit_val_
 RETRIEVED = ["train_with_retrieved_docs", "neg_sample_retrieved"]
 
 
-@pytest.mark.parametrize("config,modules", [
-    ("synth_rerank_full_context.json", ["full_context_reranker", "text_only", *RETRIEVED]),
-    ("synth_rerank_full_context_vision.json", ["full_context_reranker", *RETRIEVED]),
-    ("synth_rerank_full_context.json", ["text_only", *RETRIEVED]),
-    ("synth_rerank_full_context_vision.json", ["train_with_retrieved_docs"]),
-], ids=["full_context_text", "full_context_vision", "spliced_text", "spliced_vision_labels"])
-def test_reranker_executor_matches_jax(tmp_path, monkeypatch, config, modules):
+INTERACTION = ["interaction_reranker", *RETRIEVED]
+FUSION = "preflmr_attention_fusion"
+DECODER = ["decoder_reranker", *RETRIEVED]
+
+
+@pytest.mark.parametrize("config,modules,extra", [
+    ("synth_rerank_full_context.json", ["full_context_reranker", "text_only", *RETRIEVED], ()),
+    ("synth_rerank_full_context_vision.json", ["full_context_reranker", *RETRIEVED], ()),
+    ("synth_rerank_full_context.json", ["text_only", *RETRIEVED], ()),
+    ("synth_rerank_full_context_vision.json", ["train_with_retrieved_docs"], ()),
+    ("synth_rerank_interaction.json", ["text_only", *INTERACTION], ()),
+    ("synth_rerank_interaction.json", ["text_only", *INTERACTION],
+     ("model_config.interaction_type='CrossEncoder'",)),
+    ("synth_rerank_interaction_vision.json", INTERACTION, ()),
+    ("synth_rerank_interaction.json", ["text_only", *INTERACTION, FUSION], ()),
+    ("synth_rerank_fusion.json", ["text_only", *RETRIEVED, FUSION], ()),
+    ("synth_rerank_fusion_vision.json", [*RETRIEVED, FUSION], ()),
+    ("okvqa_rerank_decoder.json", DECODER, ()),
+    ("okvqa_rerank_decoder.json", DECODER, ("model_config.decoder_head=True",)),
+    ("synth_rerank_decoder_blip2_t5.json", DECODER, ()),
+    ("synth_rerank_decoder_blip2_t5.json", DECODER, ("model_config.decoder_head=True",)),
+    ("okvqa_rerank_decoder_blip2_opt.json", DECODER, ()),
+    ("okvqa_rerank_decoder_blip2_opt.json", DECODER, ("model_config.decoder_head=False",)),
+], ids=["full_context_text", "full_context_vision", "spliced_text", "spliced_vision_labels",
+        "interaction_mores", "interaction_cross_encoder", "interaction_mores_vision",
+        "interaction_mores_fusion", "fusion_spliced_text", "fusion_spliced_vision",
+        "decoder_native", "decoder_native_head", "decoder_blip2_t5", "decoder_blip2_t5_head",
+        "decoder_blip2_opt_head", "decoder_blip2_opt"])
+def test_reranker_executor_matches_jax(tmp_path, monkeypatch, config, modules, extra):
     """'full_validation' makes validation the full rerank of the test path."""
-    opts = RERANK_OPTS + (f"model_config.modules={modules + ['full_validation']!r}",)
+    opts = RERANK_OPTS + (f"model_config.modules={modules + ['full_validation']!r}", *extra)
     jex, tex = _pair(tmp_path, monkeypatch, config, "train", *opts)
     assert tex.reranker_family == jex.reranker_family
+    assert type(tex.reranker).__name__ == type(jex.reranker).__name__
+    if config.startswith("okvqa_"):
+        # the dummy OK-VQA images are resized, and the port's bicubic lies
+        # within two 8-bit levels of PIL's (test_torch_data.py): both
+        # executors read the JAX pipeline's batches
+        tex.data_loaders = jex.data_loaders
     assert tex.questionId2topPassages == jex.questionId2topPassages
 
     want, got = jex.evaluate("valid"), tex.evaluate("valid")
+    assert len(got["batch_retrieval_result"]) == len(want["batch_retrieval_result"]) > 0
     for w, g in zip(want["batch_retrieval_result"], got["batch_retrieval_result"]):
         ws = {p["passage_id"]: p["score"] for p in w["top_ranking_passages"]}
         gs = {p["passage_id"]: p["score"] for p in g["top_ranking_passages"]}
@@ -166,12 +217,38 @@ def test_reranker_executor_matches_jax(tmp_path, monkeypatch, config, modules):
 
     # one training step from the same weights on the same sampled docs
     jb = next(iter(jex.train_dataloader()))
-    tb = next(iter(tex.train_dataloader()))
+    tb = jb if tex.data_loaders is jex.data_loaders else next(iter(tex.train_dataloader()))
     _assert_batches_equal(jb, tb)
     jex.prepare_training(10)
     tex.prepare_training(10)
     assert tex.training_step(tb)["loss"] == pytest.approx(jex.training_step(jb)["loss"],
                                                          rel=1e-5, abs=1e-5)
+    if tex.retriever is not None:  # frozen: in no optimizer, never updated
+        trained = {id(p) for g in tex._train_state.optimizer.param_groups for p in g["params"]}
+        assert not any(id(p) in trained for p in tex.retriever.parameters())
+        want_r = weights.flmr_state_dict(jax.device_get(jex._retriever_params))
+        for k, v in tex.retriever.state_dict().items():
+            assert torch.equal(v, want_r[k]), k
+
+
+def test_frozen_retriever_checkpoint_must_match(tmp_path, monkeypatch):
+    """retriever_model_path: an FLMRExecutor checkpoint is loaded into the
+    frozen retriever; one of another FLMR config raises."""
+    monkeypatch.chdir(tmp_path)
+    flmr = _executor(T, "synth_flmr.json", tmp_path / "f", "train", *FLMR_OPTS)
+    flmr.global_step = 3
+    flmr.save_checkpoint()
+    ckpt = flmr.ckpt_manager.resolve()
+    opts = (*RERANK_OPTS, f"model_config.retriever_model_path='{ckpt}'")
+    # the interaction config's flmr is synth_flmr.json's
+    ex = _executor(T, "synth_rerank_interaction.json", tmp_path / "a", "train", *opts)
+    for k, v in flmr.model.state_dict().items():
+        assert torch.equal(ex.retriever.state_dict()[k], v), k
+    for layers, dim in ((1, 64), (2, 32)):
+        with pytest.raises(ValueError, match="retriever_model_path"):
+            _executor(T, "synth_rerank_interaction.json", tmp_path / f"b{dim}", "train", *opts,
+                      f"model_config.flmr.text_config.num_hidden_layers={layers}",
+                      f"model_config.flmr.dim={dim}", f"model_config.late_interaction_dim={dim}")
 
 
 def test_warm_start_from_retriever_matches_jax(tmp_path, monkeypatch):
@@ -230,15 +307,6 @@ def test_checkpoint_save_resolve_load_roundtrip(tmp_path, monkeypatch):
                       "meta.seed=7", f"model_config.checkpoint_dir='{tmp_path / 'hf'}'")
     for k, v in ex.model.state_dict().items():
         assert torch.equal(again.model.state_dict()[k], v), k
-
-
-@pytest.mark.parametrize("module", ["interaction_reranker", "decoder_reranker",
-                                    "preflmr_attention_fusion"])
-def test_unported_reranker_families_raise(tmp_path, monkeypatch, module):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _executor(T, "synth_rerank_full_context.json", tmp_path, "train", *RERANK_OPTS,
-                  f"model_config.modules=['{module}']")
 
 
 def test_mesh_raises(tmp_path, monkeypatch):

@@ -1,5 +1,6 @@
 """The port stands alone: it imports no JAX, flax, optax, orbax, transformers,
-datasets, PIL, tests or the JAX package, it imports with those modules
+datasets, PIL, safetensors (``models/checkpoint_dir.py`` reads the format
+itself), tests or the JAX package, it imports with those modules
 blocked, and its entry points (the CLI, ``Experiment`` and the executors
 among them) refuse to fall back to the CPU when CUDA is absent. The two
 exceptions are imports inside a function: ``transformers`` in
@@ -24,7 +25,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "reranking_multimodal_retrievers_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "transformers", "tests",
-             "reranking_multimodal_retrievers_tpu", "datasets", "PIL"}
+             "reranking_multimodal_retrievers_tpu", "datasets", "PIL", "safetensors"}
 # imports allowed inside a function body (not at module level) of a file
 LAZY_ALLOWED = {PORT / "models" / "tokenization.py": {"transformers"},
                 PORT / "data" / "image_io.py": {"PIL"}}
@@ -74,7 +75,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'optax', 'orbax', 'transformers', 'datasets', 'PIL',\n"
-        "          'reranking_multimodal_retrievers_tpu'):\n"
+        "          'safetensors', 'reranking_multimodal_retrievers_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {_modules()!r} + ['chip_smoke']:\n"
@@ -92,7 +93,7 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
         pytest.skip("a CUDA device is present: the default device is usable")
     monkeypatch.delenv("RMRT_PLATFORM", raising=False)
     from reranking_multimodal_retrievers_tpu_torch.cli.main import main
-    from reranking_multimodal_retrievers_tpu_torch.executors import (FLMRExecutor,
+    from reranking_multimodal_retrievers_tpu_torch.executors import (FLMRExecutor, RagExecutor,
                                                                      RerankerExecutor)
     from reranking_multimodal_retrievers_tpu_torch.executors.experiment import Experiment
     from reranking_multimodal_retrievers_tpu_torch.utils import ConfigDict
@@ -110,6 +111,8 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
         DecoderHeadRerankModel, DecoderRerankConfig, DecoderRerankModel,
         FullContextRerankModel, InteractionRerankConfig, InteractionRerankModel,
         RerankConfig)
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers.decoder import (
+        VisionSeq2SeqLM)
     from reranking_multimodal_retrievers_tpu_torch.serving import RerankService
 
     calls = [
@@ -145,6 +148,8 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
         lambda: Experiment(ConfigDict()),
         lambda: FLMRExecutor(ConfigDict()),
         lambda: RerankerExecutor(ConfigDict()),
+        lambda: RagExecutor(ConfigDict()),
+        lambda: VisionSeq2SeqLM(DecoderRerankConfig.tiny()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
