@@ -168,11 +168,35 @@ Phases, each printing one JSON line with its elapsed seconds:
      each launch shape (with the largest |head bias| where there is one);
      candidates/s (answers/s), steps/s, checkpoint seconds and sizes, peak
      memory and wall seconds of each run;
-  7. after phase 12: the ``kernels`` line (K1 and K3 with their times at
+  13. real M2KR-format data and its preprocessing, from the CLI, on the
+     card: 13a. an M2KR-shaped ``DatasetDict`` (``make_dummy_m2kr``'s
+     columns; 2,048 train and 512 test questions, 30,000 passages in
+     ``train_passages``/``test_passages``; 256 distinct images, PNGs and
+     the committed baseline JPEG ``tests/fixtures/baseline_420_rst.jpg``,
+     repeated across questions) written with ``data/arrow_io.py`` in the
+     ``datasets`` ``save_to_disk`` layout and read back, every column
+     equal; the JPEG decoded without PIL equal to its PIL pixels; 13b.
+     ``cli.main --mode prepare_data`` over it: ``LoadPreprocessedData``
+     (256 train and 256 test rows) -> ``CaptionImageWithBLIP2v3`` (BLIP-2
+     Flan-T5-XL, 3.94 B, fp32, its HF-named checkpoint written first from
+     the seed; K2's fp32 head-bias path in the T5 encoder at [8, 33,
+     32x64]) -> ``ExtractImageFeaturesWithViTv2`` (CLIP ViT-L/14 at 224)
+     -> ``PrepareDistillationScores`` (a live FLMR teacher at BERT-base
+     width, 1 positive + 4 negatives; K2's fp32 key bias at [8, 32, 768]
+     and [40, 64, 768]) -> ``PrepareDataloaders``; the first caption batch
+     against the plain path (greedy tokens up to near-ties), the first
+     teacher batch against it (rtol 1e-4 / atol 2e-5), the first ViT rows
+     against the CPU in fp32; 13c. ``--mode train`` (20 steps) and
+     ``--mode test`` (K1, then K3 over an int8 index, both at L_d = 64)
+     with ``configs/evqa_flmr.json``'s pipeline over 13a's directories at
+     ``synth_flmr_fullsize.json``'s widths. Everything under
+     ``build/chip_smoke_p13/``, removed after;
+  7. after phase 13: the ``kernels`` line (K1 and K3 with their times at
      ``bench.py``'s batch and the 100k searches of phases 3 and 3b beside
      the bound, K1 at stage 1's, the pooled index's and 11b's launch
      shapes, K3 at 11c's, K2 at each main-path variant's launch shape,
-     and K2's fp32 path at each of phase 11's and 12's launch shapes and at
+     and K2's fp32 path at each of phase 11's, 12's and 13's launch shapes
+     (K1 and K3 also at 13c's) and at
      phase 2's head-bias and causal shapes, each with the bound of 3xTF32 products and the
      bound of fp32 FFMA beside it), then the result line.
 
@@ -183,8 +207,9 @@ bf16, and in fp32, as information.
 
 The launch counters are set to 0 just before each main-path phase (3, 3b,
 3c, 4, 4b, 5, 6, 8's training run, 9a, 9b, 9c, 9d's timed steps, 10a, 10b,
-10c, 10d and each CLI run of 11 and 12) and read just after it; phases 8,
-9b, 9d, 10d, 11a, 11d's and every phase-12 training run must launch none. Phase 3's index stays on the card until phase 10b. Each decoder
+10c, 10d and each CLI run of 11, 12 and 13) and read just after it; phases 8,
+9b, 9d, 10d, 11a, 11d's, every phase-12 training run and 13c's must launch
+none. Phase 3's index stays on the card until phase 10b. Each decoder
 family is built, run and freed before the next (about 8 GB each in bf16).
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits non-zero before printing anything.
@@ -3122,6 +3147,527 @@ def p12_phases(smi):
     return rows, parts
 
 
+# ---- phase 13: real-format M2KR data (save_to_disk directories, baseline
+# JPEG) and cli.main --mode prepare_data through the captioner, ViT features
+# and the live distillation teacher, then FLMR train and test over it
+
+P13_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_p13"
+FIXTURE_JPEG = Path(__file__).resolve().parent / "tests" / "fixtures" / "baseline_420_rst.jpg"
+# 13a: M2KR-shaped data: questions, the passage corpus (phase 11's size),
+# distinct images (PNGs of photograph-like sizes, plus the committed JPEG)
+P13_TRAIN, P13_TEST, P13_PASSAGES, P13_IMAGES, P13_WORDS = 2048, 512, 30_000, 256, 2000
+# 13b: rows of each split prepared (LoadPreprocessedData's num_data), the
+# teacher's negatives, the ViT rows held against the CPU (a cut of its first
+# batch of 16, for time)
+P13_NUM_DATA, P13_NEGATIVES, P13_VIT_CPU_ROWS = 256, 4, 4
+# 13b's models: the captioner (bench.py:260-390's BLIP-2 Flan-T5-XL), CLIP
+# ViT-L/14 at 224, and the teacher at configs/synth_flmr_fullsize.json's
+# widths (BERT-base, ViT-B/32, dim 128)
+P13_VIT = {"hidden_size": 1024, "intermediate_size": 4096, "num_hidden_layers": 24,
+           "num_attention_heads": 16, "image_size": 224, "patch_size": 14}
+# 13c: configs/evqa_flmr.json's pipeline over 13a's directories
+P13_STEPS = 20
+
+
+def _p13_captioner_config():
+    """BLIP-2 Flan-T5-XL (ViT-g, the BERT-base Q-Former, 32 query tokens,
+    Flan-T5-XL) with ``use_pallas_attention`` in the T5 config."""
+    from reranking_multimodal_retrievers_tpu_torch.models.blip2 import Blip2Config
+    from reranking_multimodal_retrievers_tpu_torch.models.t5 import T5Config
+
+    return Blip2Config(text_config=T5Config.flan_t5_xl(use_pallas_attention=True))
+
+
+def _p13_words(n):
+    """``n`` distinct lower-case pseudo-words (the text of 13a's rows)."""
+    syll = ["ka", "lo", "mi", "ne", "ru", "sa", "ti", "vo", "ze", "po", "da", "fu", "gi", "ho"]
+    out = []
+    for i in range(n):
+        w, j = "", i
+        while True:
+            w += syll[j % len(syll)]
+            j //= len(syll)
+            if not j:
+                break
+        out.append(w + "x")
+    return out
+
+
+def _p13_image(rng, h, w):
+    """A photograph-like RGB image: smooth colour fields in 8 x 8 blocks."""
+    small = rng.integers(0, 256, (h // 8 + 1, w // 8 + 1, 3), dtype=np.uint8)
+    return np.ascontiguousarray(np.repeat(np.repeat(small, 8, 0), 8, 1)[:h, :w])
+
+
+def p13_real_format_data(smi):
+    """13a. Writes the M2KR-shaped ``save_to_disk`` directories with the
+    port's own writer, reads them back and checks every column. Returns
+    (the line, the vocabulary's words)."""
+    import os
+
+    from reranking_multimodal_retrievers_tpu_torch.data import arrow_io
+    from reranking_multimodal_retrievers_tpu_torch.data.image_io import read_image, write_png
+    from reranking_multimodal_retrievers_tpu_torch.data.table import Table
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    words = _p13_words(P13_WORDS)
+    img_dir = P13_DIR / "images"
+    img_dir.mkdir(parents=True)
+    images, img_bytes = [str(FIXTURE_JPEG)], 0
+    for i in range(P13_IMAGES - 1):
+        h, w = int(rng.integers(200, 481)), int(rng.integers(240, 641))
+        p = str(img_dir / f"{i:06d}.png")
+        write_png(p, _p13_image(rng, h, w))
+        images.append(p)
+    img_bytes = sum(os.path.getsize(p) for p in images)
+    images_s = time.perf_counter() - t0
+    # the committed JPEG decodes to the pixels PIL gave for it
+    want = np.load(FIXTURE_JPEG.with_name("baseline_420_rst.pil.npy"))
+    check(np.array_equal(read_image(str(FIXTURE_JPEG)), want),
+          "13a: the JPEG fixture differs from its PIL pixels")
+
+    def text(n):
+        return " ".join(words[j] for j in rng.integers(0, len(words), n))
+
+    passages = Table.from_dict({
+        "passage_id": [f"evqa_p{i}" for i in range(P13_PASSAGES)],
+        "passage_content": [text(int(rng.integers(30, 60))) for _ in range(P13_PASSAGES)],
+        "source_name": ["evqa"] * P13_PASSAGES})
+
+    def questions(n, prefix):
+        pos = rng.integers(0, P13_PASSAGES, n)
+        content = passages["passage_content"]
+        rows = {"question_id": [f"{prefix}{i}" for i in range(n)],
+                # each question shares words with its positive passage
+                "question": [" ".join(content[p].split()[:6]) + " " + text(4) for p in pos],
+                "instruction": ["Answer the following question with the image:"] * n,
+                "img_path": [images[int(j)] for j in rng.integers(0, len(images), n)],
+                "answers": [[words[int(j)]] for j in rng.integers(0, len(words), n)],
+                "pos_item_ids": [[f"evqa_p{p}"] for p in pos],
+                "source_name": ["evqa"] * n}
+        rows["gold_answer"] = [a[0] for a in rows["answers"]]
+        return Table.from_dict(rows)
+
+    data = {"train": questions(P13_TRAIN, "train_q"), "test": questions(P13_TEST, "test_q")}
+    corpus = {"train_passages": passages, "test_passages": passages}
+    t1 = time.perf_counter()
+    arrow_io.save_to_disk(data, str(P13_DIR / "EVQA_data"))
+    arrow_io.save_to_disk(corpus, str(P13_DIR / "EVQA_passages"))
+    write_s = time.perf_counter() - t1
+    nbytes = sum(f.stat().st_size for d in ("EVQA_data", "EVQA_passages")
+                 for f in (P13_DIR / d).rglob("*.arrow"))
+    t1 = time.perf_counter()
+    back = {**arrow_io.load_from_disk(str(P13_DIR / "EVQA_data")),
+            **arrow_io.load_from_disk(str(P13_DIR / "EVQA_passages"))}
+    read_s = time.perf_counter() - t1
+    for split, table in {**data, **corpus}.items():
+        check(back[split] == table, f"13a: {split} read back differs from what was written")
+    distinct = len(set(back["train"]["img_path"]) | set(back["test"]["img_path"]))
+    check(distinct >= P13_IMAGES // 2, f"13a: {distinct} distinct images")
+    return {"phase": "p13a_real_format_data", "questions": {k: len(v) for k, v in data.items()},
+            "passages": P13_PASSAGES, "arrow_bytes": nbytes,
+            "write_seconds": write_s, "write_mb_per_s": nbytes / write_s / 1e6,
+            "read_seconds": read_s, "read_mb_per_s": nbytes / read_s / 1e6,
+            "images": len(images), "distinct_images_used": distinct,
+            "jpeg_fixture": {"path": str(FIXTURE_JPEG.relative_to(FIXTURE_JPEG.parents[2])),
+                             "equals_pil_pixels": True},
+            "image_bytes": img_bytes, "image_write_seconds": images_s,
+            "host_seconds_note": "host clock; the card is idle in 13a", "card": smi,
+            "seconds": time.perf_counter() - t0}, words
+
+
+def _p13_config(base, transforms):
+    """``configs/evqa_flmr.json`` with its M2KR node pointed at 13a's
+    directories (through the ``///`` convention), 13's paths, the
+    vocabulary of 13a, and ``transforms`` inserted before its Wrap node."""
+    import copy
+
+    cfg = copy.deepcopy(base)
+    cfg["meta"]["EXPERIMENT_FOLDER"] = str(P13_DIR / "experiments")
+    dp = cfg["data_pipeline"]
+    dp["cache_dir"] = str(P13_DIR / "cache")
+    t = dp["transforms"]
+    t["input:LoadM2KR"]["setup_kwargs"].update(
+        data_path=f"{P13_DIR / 'EVQA_data'}///EVQA_data",
+        passage_path=f"{P13_DIR / 'EVQA_passages'}///EVQA_passages")
+    last = "input:LoadM2KR"
+    for node, spec in transforms.items():
+        t[node] = {**spec, "input_node": last}
+        last = node
+    t["process:Wrap"]["input_node"] = last
+    out = t["output:PrepareDataloaders"]["setup_kwargs"]
+    out["datasets_config"]["valid"][0]["split"] = "test"  # 13a writes train and test
+    for tok in out["tokenizer_config"].values():
+        tok["TokenizerModelVersion"] = str(P13_DIR / "vocab")
+    return cfg
+
+
+def _p13_cli(cfg, name, mode, *opts):
+    from reranking_multimodal_retrievers_tpu_torch.cli.main import main as cli_main
+
+    path = P13_DIR / f"{name}.json"
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    rc = cli_main(["--config", str(path), "--mode", mode, "--opts", *opts])
+    check(rc == 0, f"cli {name} --mode {mode}: exit {rc}")
+
+
+def _keep_calls(store):
+    """A function wrapper that keeps (args, kwargs, result) of the first
+    call and the seconds of every call."""
+    def make(orig):
+        def kept(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            store.setdefault("seconds", []).append(dt)
+            if not store.setdefault("calls", []):
+                store["calls"].append((args, kwargs, out))
+            return out
+        return kept
+    return make
+
+
+def _step_logits(model, images, kwargs):
+    """The logits of each greedy step of ``blip2_greedy_captions`` on
+    ``images`` (each decoder pass's row of the step's position), and the
+    captions."""
+    from reranking_multimodal_retrievers_tpu_torch.data.ops import infoseek_ops
+
+    steps, orig = [], model.decode_logits
+
+    def record(*args):
+        out = orig(*args)
+        steps.append(out[:, len(steps)].float())
+        return out
+
+    model.decode_logits = record
+    try:
+        caps = infoseek_ops.blip2_greedy_captions(model, *images, **kwargs)
+    finally:
+        del model.decode_logits
+    return steps, caps
+
+
+def _node_timer(store):
+    """``BaseTransform.__call__`` wrapped: each node's (seconds, output) by
+    its node id."""
+    def make(orig):
+        def timed(self, data=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig(self, data)
+            torch.cuda.synchronize()
+            store[self.name] = (time.perf_counter() - t, out)
+            return out
+        return timed
+    return make
+
+
+def p13_prepare(smi, words, base):
+    """13b: ``cli.main --mode prepare_data`` over 13a's directories through
+    CaptionImageWithBLIP2v3 (its checkpoint written here first),
+    ExtractImageFeaturesWithViTv2 and PrepareDistillationScores, each
+    model on the card; the first batch of each held against its plain
+    version (the CPU for the ViT). Returns (the line, K2 rows, launches)."""
+    from reranking_multimodal_retrievers_tpu_torch.data.ops import (distillation_ops,
+                                                                    feature_ops, infoseek_ops)
+    from reranking_multimodal_retrievers_tpu_torch.data.transforms import BaseTransform
+    from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
+    from reranking_multimodal_retrievers_tpu_torch.models import checkpoint_dir
+    from reranking_multimodal_retrievers_tpu_torch.models import t5 as t5_mod
+    from reranking_multimodal_retrievers_tpu_torch.models.blip2 import (
+        Blip2ForConditionalGeneration)
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import write_test_vocab
+    from reranking_multimodal_retrievers_tpu_torch.models.vit import (CLIPVisionConfig,
+                                                                       CLIPVisionModel)
+
+    t0 = time.perf_counter()
+    write_test_vocab(str(P13_DIR / "vocab" / "vocab.txt"), words)
+    # the captioner's HF-named checkpoint: random weights from the seed
+    # (T5's relative-position tables at std REL_BIAS_STD, as phase 5 draws
+    # them, so that the head bias moves attention), fp32 as HF stores them
+    cap_cfg = _p13_captioner_config()
+    wgen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = Blip2ForConditionalGeneration(_without_kernel(cap_cfg), device="cuda",
+                                          generator=wgen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("relative_attention_bias.weight"):
+                p.copy_(torch.randn(p.shape, device="cuda", generator=wgen) * REL_BIAS_STD)
+    n_params = sum(p.numel() for p in model.parameters())
+    (P13_DIR / "captioner").mkdir()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ckpt_bytes = checkpoint_dir.write_safetensors(
+        str(P13_DIR / "captioner" / "model.safetensors"), model.state_dict())
+    ckpt_write_s = time.perf_counter() - t1
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with open(CONFIGS / FLMR_CONFIG) as f:
+        teacher = json.load(f)["model_config"]["flmr"]
+    teacher["text_config"]["use_pallas_attention"] = True
+    blip2 = {k: dataclasses.asdict(getattr(cap_cfg, k))
+             for k in ("vision_config", "qformer_config", "text_config")}
+    blip2["num_query_tokens"] = cap_cfg.num_query_tokens
+    cfg = _p13_config(base, {
+        "process:Caption": {"transform_name": "CaptionImageWithBLIP2v3", "setup_kwargs": {
+            "captioner_checkpoint": str(P13_DIR / "captioner"),
+            "tokenizer_name": str(P13_DIR / "vocab"), "blip2_config": blip2,
+            "max_caption_length": 20, "batch_size": 8,
+            "caption_store_dir": str(P13_DIR / "store")}},
+        "process:ViT": {"transform_name": "ExtractImageFeaturesWithViTv2", "setup_kwargs": {
+            "vision_config": P13_VIT, "batch_size": 16, "cache_folder": str(P13_DIR / "store")}},
+        "process:Distill": {"transform_name": "PrepareDistillationScores", "setup_kwargs": {
+            "flmr_config": teacher, "num_negatives": P13_NEGATIVES}}})
+    cfg["data_pipeline"]["transforms"]["input:LoadM2KR"]["setup_kwargs"]["num_data"] = {
+        "train": P13_NUM_DATA, "test": P13_NUM_DATA}
+    caps, vits, scores, loads, nodes, stores = {}, {}, {}, [], {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    reset_counts()
+    with _Recorder() as rec:
+        rec.patch(infoseek_ops, "blip2_greedy_captions", _keep_calls(caps))
+        rec.patch(checkpoint_dir, "load_checkpoint_dir", _clock(loads))
+        rec.patch(feature_ops.ExtractImageFeaturesWithViT, "_encode_batch", _keep_calls(vits))
+        rec.patch(distillation_ops.PrepareDistillationScores, "score", _keep_calls(scores))
+        rec.patch(BaseTransform, "__call__", _node_timer(nodes))
+        rec.patch(t5_mod, "fused_self_attention", _first_inputs(stores.setdefault("t5", {}),
+                                                                _k2_key))
+        rec.patch(bert_mod, "fused_self_attention", _first_inputs(stores.setdefault("bert", {}),
+                                                                  _k2_key))
+        _p13_cli(cfg, "p13_prepare", "prepare_data")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t1
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["K2f32"] > 0 and launches["K1"] == launches["K2"] == launches["K3"] == 0,
+          f"13b launches {launches}")
+    out = nodes["process:Distill"][1]
+    for split in ("train", "test"):
+        t = out[split]
+        check(len(t) == P13_NUM_DATA and all(isinstance(c, str) for c in t["caption"])
+              and all(len(f) == P13_VIT["hidden_size"] and np.isfinite(f).all()
+                      for f in t["image_features"]), f"13b: the {split} split's outputs")
+    check(all(len(s) == 1 + P13_NEGATIVES and np.isfinite(s).all()
+              for s in out["train"]["scores"]), "13b: the teacher's scores")
+
+    # the first caption batch through the plain path: greedy tokens equal up
+    # to near-ties
+    (args, kwargs, first_caps), = caps["calls"]
+    model, rest = args[0], args[1:3]  # (tokenizer, images)
+    k_steps, again = _step_logits(model, rest, kwargs)
+    check(again == first_caps, "13b: the first caption batch is not deterministic")
+    plain = _plain_twin(model)
+    p_steps, _ = _step_logits(plain, rest, kwargs)
+    k_tok = torch.stack([s.argmax(-1) for s in k_steps], 1).cpu().numpy()
+    p_tok = torch.stack([s.argmax(-1) for s in p_steps], 1).cpu().numpy()
+    gaps = torch.stack([torch.topk(s, 2).values.diff(dim=-1).abs()[:, 0] for s in k_steps],
+                       1).cpu().numpy()
+    ties = []
+    for r in range(k_tok.shape[0]):
+        low = np.nonzero(gaps[r] < NEAR_TIE)[0]
+        upto = int(low[0]) + 1 if len(low) else k_tok.shape[1]
+        ties.append(None if not len(low) else int(low[0]))
+        check(np.array_equal(k_tok[r, :upto], p_tok[r, :upto]),
+              f"13b: caption {r} tokens {k_tok[r]} vs the plain path {p_tok[r]}")
+    step_err = max((a - b).abs().max().item() for a, b in zip(k_steps, p_steps))
+    del plain, model, k_steps, p_steps
+    caps["calls"].clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first teacher batch through the plain path
+    (args, _, first_scores), = scores["calls"]
+    node, teacher_model, q_enc, d_enc = args
+    s_kernel = node.score(teacher_model, q_enc, d_enc)
+    s_plain = node.score(_plain_twin(teacher_model), q_enc, d_enc)
+    check(np.array_equal(s_kernel, first_scores), "13b: the first teacher batch is not "
+          "deterministic")
+    check(np.allclose(s_kernel, s_plain, rtol=K2F32_RTOL, atol=K2F32_ATOL),
+          f"13b: teacher scores {s_kernel[:2]} vs the plain path {s_plain[:2]}")
+    teacher_err = float(np.abs(s_kernel - s_plain).max())
+    del args, node, teacher_model
+    scores["calls"].clear()
+
+    # the first ViT rows on the CPU in fp32
+    (args, _, first_vit), = vits["calls"]
+    vit_node = args[0]
+    paths = first_vit["img_path"][:P13_VIT_CPU_ROWS]
+    cpu_vit = CLIPVisionModel(CLIPVisionConfig(**P13_VIT), device="meta")
+    cpu_vit.load_state_dict({k: v.cpu() for k, v in vit_node._model.state_dict().items()},
+                            assign=True)
+    _, proc, _ = vit_node._build_encoder()
+    pix = torch.as_tensor(proc([feature_ops._read_or_blank(p, P13_VIT["image_size"])
+                                for p in paths]))
+    with torch.no_grad():
+        want = cpu_vit.eval()(pix)["last_hidden_state"][:, 0].numpy()
+    got = np.asarray(first_vit["image_features"][:P13_VIT_CPU_ROWS], np.float32)
+    vit_err = _rel_err(got, want)
+    check(vit_err <= CLI_LOGIT_TOL, f"13b: ViT features vs CPU fp32: {vit_err}")
+    del args, vit_node, cpu_vit, first_vit
+    vits["calls"].clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = _k2_rows(stores, "13b", launches["K2f32"])
+    cap_s = nodes["process:Caption"][0]
+    vit_s, dist_s = nodes["process:ViT"][0], nodes["process:Distill"][0]
+    n_rows = 2 * P13_NUM_DATA
+    line = {"phase": "p13b_prepare_data", "captioner_params": n_params,
+            "checkpoint_bytes": ckpt_bytes, "checkpoint_write_seconds": ckpt_write_s,
+            "checkpoint_write_gb_per_s": ckpt_bytes / ckpt_write_s / 1e9,
+            "checkpoint_read_seconds": sum(t for t, _ in loads),
+            "node_seconds": {k: v[0] for k, v in nodes.items()},
+            "captions": n_rows, "captions_per_s": n_rows / cap_s,
+            "caption_batch_seconds": caps["seconds"],
+            "images_per_s": n_rows / vit_s, "teacher_questions": P13_NUM_DATA,
+            "teacher_questions_per_s": P13_NUM_DATA / dist_s,
+            "first_caption_batch": {"captions": first_caps[:2], "tokens_equal_up_to_near_ties":
+                                    True, "near_tie_step": ties,
+                                    "min_top2_gap": float(gaps.min()),
+                                    "max_abs_logit_diff": step_err},
+            "first_teacher_batch": {"max_abs_err_vs_plain": teacher_err,
+                                    "tol": [K2F32_RTOL, K2F32_ATOL]},
+            "first_vit_rows_vs_cpu_fp32": {"rows": P13_VIT_CPU_ROWS, "rel_err": vit_err,
+                                           "tol": CLI_LOGIT_TOL},
+            "cuts": {"rows_prepared": f"{P13_NUM_DATA} of each split (LoadPreprocessedData's "
+                                      "num_data)",
+                     "vit_rows_vs_cpu": f"{P13_VIT_CPU_ROWS} of the first batch's 16, for time"},
+            "k2f32_shapes": {r["variant"]: r["launches"] for r in rows},
+            "launches": launches, "peak_memory_gb": peak_gb, "wall_seconds": wall, "card": smi,
+            "seconds": time.perf_counter() - t0}
+    return line, rows, launches
+
+
+def p13_train_test(smi, base):
+    """13c: FLMR ``--mode train`` (P13_STEPS steps) and ``--mode test`` (K1,
+    then K3 over an int8 index) with ``configs/evqa_flmr.json``'s pipeline
+    over 13a's directories at ``synth_flmr_fullsize.json``'s widths.
+    Returns (the lines, K1 row, K3 row, K2 rows, launch counts)."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import search as search_mod
+    from reranking_multimodal_retrievers_tpu_torch.executors import FLMRExecutor
+    from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
+
+    with open(CONFIGS / FLMR_CONFIG) as f:
+        full = json.load(f)
+    cfg = _p13_config(base, {})
+    cfg["model_config"]["flmr"] = full["model_config"]["flmr"]
+    cfg["model_config"]["Ks"] = full["model_config"]["Ks"]
+    for mode in ("train", "valid", "test"):
+        cfg[mode] = full[mode]
+    exp = P13_DIR / "experiments" / cfg["meta"]["experiment_name"] / "version_0"
+    lines, parts = [], {}
+
+    t0 = time.perf_counter()
+    steps = []
+    reset_counts()
+    with _Recorder() as rec:
+        rec.patch(FLMRExecutor, "training_step", _clock(steps))
+        _p13_cli(cfg, "p13_flmr", "train", f"train.trainer_paras.limit_train_batches={P13_STEPS}",
+                 "train.trainer_paras.max_epochs=1", "train.trainer_paras.log_every_n_steps=1",
+                 "valid.trainer_paras.limit_val_batches=0")
+    parts["13c_train"] = read_counts()
+    check(sum(parts["13c_train"].values()) == 0, f"13c training launched {parts['13c_train']}")
+    check(len(steps) == P13_STEPS, f"13c took {len(steps)} steps")
+    losses = [m["ib_loss"] for m in _metrics_lines(exp) if "ib_loss" in m]
+    check(len(losses) > 0 and np.isfinite(losses).all(), f"13c losses {losses}")
+    batch = cfg["train"]["batch_size"]
+    lines.append({"phase": "p13c_flmr_train", "steps": len(steps), "batch": batch,
+                  "cuts": {"steps": f"{P13_STEPS} of an epoch's {P13_TRAIN // batch}"},
+                  "steps_per_s": _steps_per_s(steps), "examples_per_s": batch * _steps_per_s(steps),
+                  "ib_losses": losses, "launches": parts["13c_train"], "card": smi,
+                  "seconds": time.perf_counter() - t0})
+
+    def test(name, *opts):
+        t0 = time.perf_counter()
+        idx_log, q_log, s_log, k1_in, k3_in, k2_in = [], [], [], {}, {}, {}
+        reset_counts()
+        with _Recorder() as rec:
+            rec.patch(FLMRExecutor, "build_index", _clock(idx_log))
+            rec.patch(FLMRExecutor, "encode_queries", _clock(q_log))
+            rec.patch(search_mod.Searcher, "search", _clock(s_log))
+            rec.patch(search_mod, "maxsim_scores",
+                      _first_inputs(k1_in, lambda Q, D, M=None, *r: tuple(Q.shape)))
+            rec.patch(search_mod, "maxsim_scores_int8",
+                      _first_inputs(k3_in, lambda Qq, *r: tuple(Qq.shape)))
+            rec.patch(bert_mod, "fused_self_attention", _first_inputs(k2_in, _k2_key))
+            _p13_cli(cfg, "p13_flmr", "test", f"meta.experiment_dir='{exp}'",
+                     "model_config.flmr.text_config.use_pallas_attention=true", *opts)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        preds = _dump(exp)["predictions"]
+        check(len(preds) == P13_TEST and all(
+            np.isfinite([d["score"] for d in p["top_ranking_passages"]]).all() for p in preds),
+            f"{name}: the prediction dump")
+        index = idx_log[0][1]
+        index_s = sum(t for t, _ in idx_log)
+        query_s = sum(t for t, _ in q_log) + sum(t for t, _ in s_log)
+        m = _dump(exp)["metrics"]
+        line = {"phase": name, "docs": index.num_docs, "doc_tokens": list(index.mask.shape),
+                "queries": len(preds), "corpus_docs_per_s": index.num_docs / index_s,
+                "index_seconds": index_s, "queries_per_s": len(preds) / query_s,
+                **{k: v for k, v in m.items() if "recall_at_5" in k},
+                "launches": launches, "card": smi, "seconds": time.perf_counter() - t0}
+        return line, k1_in, k3_in, k2_in
+
+    line, k1_in, _, k2_in = test("p13c_flmr_test")
+    parts["13c_test"] = line["launches"]
+    check(parts["13c_test"]["K1"] > 0 and parts["13c_test"]["K2f32"] > 0
+          and parts["13c_test"]["K3"] == 0, f"13c test launches {parts['13c_test']}")
+    lines.append(line)
+    (_, k1_entry), = k1_in.items()
+    k1_row = dict(k1_line(*k1_entry["args"][:3], "CLI test over 13a's corpus, L_d = 64 (13c)"),
+                  launches=parts["13c_test"]["K1"])
+    line, _, k3_in, k2_in_int8 = test("p13c_flmr_test_int8", "model_config.modules="
+                                      "['freeze_vision_encoders','use_int8_index']")
+    parts["13c_test_int8"] = line["launches"]
+    check(parts["13c_test_int8"]["K3"] > 0 and parts["13c_test_int8"]["K1"] == 0,
+          f"13c int8 test launches {parts['13c_test_int8']}")
+    lines.append(line)
+    (_, k3_entry), = k3_in.items()
+    k3_row = dict(k3_line(*k3_entry["args"][:5], "CLI int8 test over 13a's corpus, L_d = 64 "
+                          "(13c)"), launches=parts["13c_test_int8"]["K3"])
+    for key, entry in k2_in_int8.items():  # the int8 test's encoders run the same shapes
+        k2_in.setdefault(key, {"calls": 0, **{k: v for k, v in entry.items() if k != "calls"}})
+        k2_in[key]["calls"] += entry["calls"]
+    rows = _k2_rows({"bert": k2_in}, "13c",
+                    parts["13c_test"]["K2f32"] + parts["13c_test_int8"]["K2f32"])
+    return lines, k1_row, k3_row, rows, parts
+
+
+def p13_phases(smi):
+    """Phase 13 (13a-13c); prints each part's line. Returns (K1 rows, K3
+    rows, K2 rows, launch counts of each part)."""
+    import os
+
+    os.environ.pop("RMRT_PLATFORM", None)  # the CLI and its nodes run on the card
+    if P13_DIR.exists():
+        shutil.rmtree(P13_DIR)
+    with open(CONFIGS / "evqa_flmr.json") as f:
+        base = json.load(f)
+    try:
+        line, words = p13_real_format_data(smi)
+        emit(line)
+        line, k2_rows, launches = p13_prepare(smi, words, base)
+        emit(line)
+        lines, k1_row, k3_row, rows, parts = p13_train_test(smi, base)
+        for line in lines:
+            emit(line)
+    finally:
+        if P13_DIR.exists():
+            shutil.rmtree(P13_DIR)
+    parts["13b"] = launches
+    return [k1_row], [k3_row], k2_rows + rows, parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3461,11 +4007,18 @@ def main() -> int:
             shutil.rmtree(CLI_DIR)
     emit({"phase": "cli_families", "seconds": time.perf_counter() - t0})
 
+    # ---- 13. real-format M2KR data (save_to_disk directories, the baseline
+    # JPEG), prepare_data through the captioner, ViT features and the live
+    # teacher, then FLMR train and test over it (main path)
+    t0 = time.perf_counter()
+    k1_p13, k3_p13, k2f32_p13, p13_parts = p13_phases(smi)
+    emit({"phase": "real_data", "seconds": time.perf_counter() - t0})
+
     # ---- 7. the kernels line and the result
     torch.cuda.synchronize()
     phases = (retrieve_launches, int8_launches, stream_launches, rerank_launches, w8a8_launches,
               plaid_launches, pooled_launches, baleen_launches, triples_launches,
-              *cli_parts.values(), *p12_parts.values())
+              *cli_parts.values(), *p12_parts.values(), *p13_parts.values())
 
     def launches(name):
         return sum(p[name] for p in phases)
@@ -3518,9 +4071,18 @@ def main() -> int:
         dict(name="maxsim_scores_int8 CLI int8 test (11c)", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim_int8.cu",
              replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183", **k3_cli),
+        *(dict(name=f"maxsim_scores {row['variant']}", route="cuda",
+               source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
+               replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:67", **row)
+          for row in k1_p13),
+        *(dict(name=f"maxsim_scores_int8 {row['variant']}", route="cuda",
+               source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim_int8.cu",
+               replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183", **row)
+          for row in k3_p13),
         *(dict(name=f"fused_self_attention fp32 {row['variant']}", route="cuda",
                source="reranking_multimodal_retrievers_tpu_torch/csrc/attention_f32.cu",
-               replaces=attention, **row) for row in k2f32_rows + k2f32_p12 + k2f32_extra),
+               replaces=attention, **row)
+          for row in k2f32_rows + k2f32_p12 + k2f32_p13 + k2f32_extra),
     ], "not_ported": []})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

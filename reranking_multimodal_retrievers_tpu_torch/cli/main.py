@@ -5,9 +5,11 @@ Parity with the reference `src/main.py:20-224`: ``--config`` (jsonnet/json/py)
 ``--use_dummy_data``; user modules named in the config are imported so their
 registries populate.
 
-The executors run on the CUDA card, or on the CPU when ``RMRT_PLATFORM=cpu``
-is set (the JAX CLI's own switch); without a card and without that variable
-the CLI raises rather than run on the CPU.
+The executors, and in ``--mode prepare_data`` the data nodes that run a model
+(captioner, ViT and VAE features, the distillation teacher), run on the CUDA
+card, or on the CPU when ``RMRT_PLATFORM=cpu`` is set (the JAX CLI's own
+switch; ``device.py::platform_device``); without a card and without that
+variable they raise rather than run on the CPU.
 
 Usage:
   python -m reranking_multimodal_retrievers_tpu_torch.cli.main \
@@ -19,10 +21,9 @@ from __future__ import annotations
 
 import argparse
 import logging
-import os
 import sys
 
-import torch
+from ..device import platform_device
 
 
 def parse_sys_args(argv=None):
@@ -51,20 +52,6 @@ def build_config(args):
         config.set_path("meta.experiment_name", args.experiment_name)
     import_user_modules(config.get_path("meta.user_modules", []))
     return config
-
-
-def platform_device() -> torch.device:
-    """``cpu`` when ``RMRT_PLATFORM=cpu``, else the CUDA card; raises when
-    ``RMRT_PLATFORM`` names another platform, or no card is visible."""
-    from ..device import resolve_device
-
-    plat = os.environ.get("RMRT_PLATFORM")
-    if plat == "cpu":
-        return torch.device("cpu")
-    if plat:
-        raise ValueError(f"RMRT_PLATFORM={plat!r}: this package runs on the CUDA card, "
-                         "or on the CPU with RMRT_PLATFORM=cpu")
-    return resolve_device("cuda")
 
 
 def main(argv=None):

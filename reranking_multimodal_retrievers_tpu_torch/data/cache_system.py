@@ -4,8 +4,11 @@ Every output is pickled (tables included: ``data/table.py``), written to a
 temporary file and renamed into place, so that an interrupted write never
 leaves a truncated cache entry. The files are named ``<name>.tables.pkl``,
 apart from the JAX package's ``<name>.hf`` / ``<name>.pkl`` entries for the
-same node, which hold HF ``datasets`` objects. Dummy-data runs cache under a
-separate subdirectory so they never pollute real caches
+same node. A ``<name>.hf`` entry (HF ``datasets`` objects, saved with
+``save_to_disk``) is read through ``data/arrow_io.py`` when this package
+has no entry of its own; a JAX ``.pkl`` entry is not read (it may pickle
+``datasets`` objects). Dummy-data runs cache under a separate subdirectory
+so they never pollute real caches
 (`runway_for_ml/data_module/data_pipeline.py:42-43`).
 """
 
@@ -35,16 +38,23 @@ def cache_data_to_disk(data: Any, name: str, cache_dir: str) -> str:
 
 
 def load_data_from_disk(name: str, cache_dir: str):
-    """The cached output, or None. The file is one this package wrote."""
+    """The cached output, or None: this package's pickle, else a ``.hf``
+    directory the JAX package saved."""
     path = os.path.join(cache_dir, name + SUFFIX)
-    if not os.path.exists(path):
-        return None
-    with open(path, "rb") as f:
-        return pickle.load(f)
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    hf_path = os.path.join(cache_dir, name + ".hf")
+    if os.path.isdir(hf_path):
+        from .arrow_io import load_from_disk
+
+        return load_from_disk(hf_path)
+    return None
 
 
 def cache_exists(name: str, cache_dir: str) -> bool:
-    return os.path.exists(os.path.join(cache_dir, name + SUFFIX))
+    return (os.path.exists(os.path.join(cache_dir, name + SUFFIX))
+            or os.path.isdir(os.path.join(cache_dir, name + ".hf")))
 
 
 def dummy_scoped_path(path: str) -> str:

@@ -2,10 +2,11 @@
 uses (reference `src/data_ops/merge_data_ops.py:200-683`;
 `configs/data/okvqa_data.libsonnet:8-27`), over ``data/table.py`` tables.
 
-Loading a real M2KR split from an HF ``datasets`` directory or the hub needs
-``datasets``, which this package does without: :func:`_load_hf` reads only
-a split dict of tables pickled by this package. The dummy data and every
-transform run as in the JAX package."""
+:func:`_load_hf` reads a real M2KR split saved with ``datasets``'
+``save_to_disk`` through ``data/arrow_io.py``, without ``datasets``. Hub ids
+(and the parquet snapshots ``load_dataset`` reads) need the network or
+``pyarrow`` and raise. The dummy data and every transform run as in the JAX
+package."""
 
 from __future__ import annotations
 
@@ -22,18 +23,22 @@ logger = logging.getLogger(__name__)
 
 
 def _load_hf(path: str):
-    """Load a split dict of tables written by this package's cache
-    (``*.tables.pkl``). HF ``datasets`` directories and hub paths (with the
-    reference's ``///`` subfolder convention, `:243-260`) are not read: the
-    port has no ``datasets``."""
-    if path.endswith(".tables.pkl") and os.path.isfile(path):
-        import pickle
+    """Load a ``save_to_disk`` directory (a split dict of tables, or one
+    table), as the JAX package's ``_load_hf`` does with
+    ``datasets.load_from_disk``. Its ``hub-path///subfolder`` convention
+    (the reference's, `:243-260`) is kept exactly: for a local directory
+    ``path///sub`` it loads ``path`` and ignores ``sub``. Anything else (a
+    hub id) raises ``NotImplementedError`` naming the path."""
+    from ..arrow_io import is_saved_dataset, load_from_disk
 
-        with open(path, "rb") as f:
-            return pickle.load(f)
+    if "///" in path:
+        path = path.split("///", 1)[0]
+    if is_saved_dataset(path):
+        return load_from_disk(path)
     raise NotImplementedError(
-        f"loading {path!r} needs HF datasets, which the port does without; "
-        "give a split dict of tables pickled by this package (*.tables.pkl)")
+        f"{path!r} is not a save_to_disk directory: hub ids and parquet snapshots need "
+        "the network or pyarrow, which the port does without; save the dataset with "
+        "datasets' save_to_disk and point the config at that directory")
 
 
 def make_dummy_m2kr(num_rows=16, num_passages=32, with_images=False, image_dir=None):

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import os
 from contextlib import contextmanager
 from typing import Union
 
@@ -19,6 +20,21 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def platform_device() -> torch.device:
+    """The device of an entry point that takes none (the CLI, and the data
+    nodes that run a model in ``--mode prepare_data``): ``cpu`` when
+    ``RMRT_PLATFORM=cpu`` (the JAX CLI's own switch), else the CUDA card;
+    raises when ``RMRT_PLATFORM`` names another platform, or no card is
+    visible."""
+    plat = os.environ.get("RMRT_PLATFORM")
+    if plat == "cpu":
+        return torch.device("cpu")
+    if plat:
+        raise ValueError(f"RMRT_PLATFORM={plat!r}: this package runs on the CUDA card, "
+                         "or on the CPU with RMRT_PLATFORM=cpu")
+    return resolve_device("cuda")
 
 
 def is_on(tensor: torch.Tensor, device: torch.device) -> bool:

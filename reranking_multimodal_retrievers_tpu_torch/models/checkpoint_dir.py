@@ -8,7 +8,9 @@ package: an 8-byte little-endian header length, a JSON header naming each
 tensor's dtype, shape and byte range, then the raw little-endian bytes. A
 ``.bin`` file is a ``torch.save`` state dict, read with
 ``weights_only=True``. The port's models use HF parameter names, so the
-state dict goes into them as it is.
+state dict goes into them as it is. :func:`write_safetensors` writes the
+format, so that a port model's state dict becomes an HF-named checkpoint
+directory without the ``safetensors`` package.
 """
 
 from __future__ import annotations
@@ -59,6 +61,31 @@ def read_safetensors(path: str) -> StateDict:
                 raise ValueError(f"{path}: tensor {name!r} is cut short")
             out[name] = t
     return out
+
+
+def write_safetensors(path: str, state_dict: StateDict) -> int:
+    """Write ``state_dict`` (tensors on any device) as one ``.safetensors``
+    file, tensor after tensor in name order; returns the bytes written. The
+    file is written beside ``path`` and renamed into place."""
+    names = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+    header, offset = {}, 0
+    for name in sorted(state_dict):
+        t = state_dict[name]
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * ((-len(blob)) % 8)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)) + blob)
+        for name in sorted(state_dict):
+            t = state_dict[name].detach().contiguous().cpu()
+            if t.numel():
+                f.write(memoryview(t.view(-1).view(torch.uint8).numpy()))
+    os.replace(tmp, path)
+    return 8 + len(blob) + offset
 
 
 def load_checkpoint_dir(path: str) -> StateDict:

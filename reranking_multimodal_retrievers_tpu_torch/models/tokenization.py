@@ -21,13 +21,16 @@ Also exports the tokenizer-derived static sets the models need:
 ``vocab.txt``, with the part of ``BertTokenizerFast``'s interface that the
 data pipeline and these wrappers use; the data pipeline builds it
 (``WordPieceTokenizer.from_pretrained``, :func:`tiny_wordpiece_tokenizer`),
-so it runs on a machine without ``transformers``. ``transformers`` is imported only where an
-HF tokenizer is built (``from_pretrained``, :func:`tiny_bert_tokenizer`):
+so it runs on a machine without ``transformers``; so do the FLMR
+tokenizers' ``from_pretrained``, which read a local tokenizer directory's
+``vocab.txt`` and ``tokenizer_config.json``. ``transformers`` is imported
+only where a test's HF tokenizer is built (:func:`tiny_bert_tokenizer`):
 the module imports without it.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import re
@@ -118,9 +121,39 @@ class WordPieceTokenizer:
 
     @classmethod
     def from_pretrained(cls, path: str, **kwargs) -> "WordPieceTokenizer":
-        """From a directory holding ``vocab.txt``, or the file itself."""
-        vocab = os.path.join(path, "vocab.txt") if os.path.isdir(path) else path
-        return cls(vocab, **kwargs)
+        """From a directory holding ``vocab.txt``, or the file itself. A
+        directory's ``tokenizer_config.json`` (as ``save_pretrained``
+        writes it) gives the lower-casing, accent and CJK options, the
+        special tokens, the added tokens beyond the vocabulary (by id) and
+        the additional special tokens; ``kwargs`` override it."""
+        if not os.path.isdir(path):
+            return cls(path, **kwargs)
+        opts, added, extra = {}, [], []
+        cfg_path = os.path.join(path, "tokenizer_config.json")
+        if os.path.exists(cfg_path):
+            with open(cfg_path, encoding="utf-8") as f:
+                cfg = json.load(f)
+            for key in ("do_lower_case", "strip_accents", "tokenize_chinese_chars",
+                        "clean_up_tokenization_spaces", *_SPECIAL_KEYS):
+                value = cfg.get(key)
+                if isinstance(value, dict):  # an AddedToken's serialisation
+                    value = value.get("content")
+                if value is not None:
+                    opts[key] = value
+            added = sorted((int(i), d["content"])
+                           for i, d in (cfg.get("added_tokens_decoder") or {}).items())
+            extra = [t.get("content") if isinstance(t, dict) else t
+                     for t in cfg.get("additional_special_tokens") or []]
+        tok = cls(os.path.join(path, "vocab.txt"), **{**opts, **kwargs})
+        for i, content in added:
+            if content not in tok.vocab:
+                if i != len(tok.ids_to_tokens):
+                    raise ValueError(f"{cfg_path}: added token {content!r} has id {i}, the "
+                                     f"vocabulary's next id is {len(tok.ids_to_tokens)}")
+                tok._add_token(content)
+        if extra:
+            tok.add_special_tokens({"additional_special_tokens": extra})
+        return tok
 
     def _refresh_special(self) -> None:
         names = [getattr(self, k) for k in _SPECIAL_KEYS] + self.additional_special_tokens
@@ -355,10 +388,15 @@ def tiny_wordpiece_tokenizer(tmpdir: str, words: Optional[List[str]] = None
                               do_lower_case=True)
 
 
-def _load_bert_tokenizer(name_or_path: str):
-    from transformers import BertTokenizerFast
-
-    return BertTokenizerFast.from_pretrained(name_or_path)
+def _load_bert_tokenizer(name_or_path: str) -> WordPieceTokenizer:
+    """The tokenizer of a local BERT tokenizer directory (``vocab.txt`` and
+    ``tokenizer_config.json``), where the JAX package calls
+    ``BertTokenizerFast.from_pretrained``: the same ids, no
+    ``transformers``."""
+    if not os.path.exists(name_or_path):
+        raise FileNotFoundError(f"{name_or_path!r} is not a local tokenizer directory (hub ids "
+                                "need the network)")
+    return WordPieceTokenizer.from_pretrained(name_or_path)
 
 
 class FLMRContextTokenizer:

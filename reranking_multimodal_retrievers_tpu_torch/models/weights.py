@@ -118,6 +118,21 @@ def clip_vision_state_dict(params: Tree) -> StateDict:
     return sd
 
 
+def vae_encoder_state_dict(params: Tree) -> StateDict:
+    """The JAX feature node's flax VAE encoder params (``conv_16``,
+    ``conv_32``, ``conv_64``, ``mean``, ``logvar``) -> the port's
+    ``data/ops/feature_ops.py::VAEEncoder``. The port flattens in NHWC
+    order as flax does, so the dense kernels only transpose."""
+    sd: StateDict = {}
+    for i, feat in enumerate((16, 32, 64)):
+        p = params[f"conv_{feat}"]
+        sd[f"convs.{i}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"convs.{i}.bias"] = _t(p["bias"])
+    _dense(sd, "mean", params["mean"])
+    _dense(sd, "logvar", params["logvar"])
+    return sd
+
+
 def _backbone(sd: StateDict, params: Tree) -> None:
     """Modules shared by FLMR and the monoPreFLMR rerankers."""
     _bert(sd, "context_text_encoder.bert_model.", params["context_text_encoder"])

@@ -983,3 +983,88 @@ def test_decoder_executor_kernel_path_matches_plain_path(gen, tmp_path, monkeypa
     assert attention_cuda.fused_self_attention_f32.launches == launches + n
     assert got.shape == want.shape and got.numel() > 0
     torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-5)
+
+
+def test_captioner_kernel_path_matches_plain_path(gen, tmp_path, monkeypatch):
+    """``CaptionImageWithBLIP2``'s captioner with ``use_pallas_attention``
+    in its T5 config (K2's fp32 head-bias path in the encoder) from an
+    HF-named checkpoint directory: its greedy tokens equal the same
+    checkpoint's through the plain path, step by step up to near-ties."""
+    import numpy as np
+
+    from reranking_multimodal_retrievers_tpu_torch.data.ops.infoseek_ops import (
+        blip2_greedy_captions, build_captioner)
+    from reranking_multimodal_retrievers_tpu_torch.models.blip2 import Blip2Config
+    from reranking_multimodal_retrievers_tpu_torch.models.checkpoint_dir import write_safetensors
+    from reranking_multimodal_retrievers_tpu_torch.models.t5 import T5Config
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import (
+        tiny_wordpiece_tokenizer)
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_f32)
+
+    monkeypatch.delenv("RMRT_PLATFORM", raising=False)
+    text = T5Config(vocab_size=300, d_model=128, d_kv=64, d_ff=256, num_layers=2,
+                    num_decoder_layers=2, num_heads=2)
+    cfg = Blip2Config.tiny(text_config=text)
+    (tmp_path / "ckpt").mkdir()
+    write_safetensors(str(tmp_path / "ckpt" / "model.safetensors"),
+                      build_captioner(_asdict(cfg)).state_dict())
+    tok = tiny_wordpiece_tokenizer(str(tmp_path / "tok"), ["a", "photo", "of"])
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (40, 48, 3), dtype=np.uint8) for _ in range(4)]
+    out = {}
+    for pallas in (True, False):
+        conf = _asdict(cfg)
+        conf["text_config"]["use_pallas_attention"] = pallas
+        model = build_captioner(conf, str(tmp_path / "ckpt"))
+        steps, decode = [], model.decode_logits
+        model.decode_logits = lambda *a: steps.append(decode(*a)) or steps[-1]
+        launches = fused_self_attention_f32.launches
+        blip2_greedy_captions(model, tok, images, max_new_tokens=6, image_size=32)
+        out[pallas] = (torch.stack([s[:, t] for t, s in enumerate(steps)], 1),
+                       fused_self_attention_f32.launches - launches)
+    (k_logits, k_launches), (p_logits, p_launches) = out[True], out[False]
+    assert k_launches == 2 and p_launches == 0  # the encoder's layers, once
+    torch.testing.assert_close(k_logits, p_logits, rtol=1e-4, atol=2e-5)
+    top2 = torch.topk(p_logits, 2).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-4
+    assert torch.equal(k_logits.argmax(-1)[clear], p_logits.argmax(-1)[clear])
+
+
+def _asdict(cfg):
+    import dataclasses
+
+    conf = {k: dataclasses.asdict(getattr(cfg, k))
+            for k in ("vision_config", "qformer_config", "text_config")}
+    conf["num_query_tokens"] = cfg.num_query_tokens
+    return conf
+
+
+def test_teacher_kernel_path_matches_plain_path(gen, monkeypatch):
+    """``PrepareDistillationScores``'s live teacher with
+    ``use_pallas_attention`` in its text config (K2's fp32 key-bias path in
+    BERT) scores a batch of questions and 1 + 4 documents as the same
+    weights do through the plain path."""
+    from reranking_multimodal_retrievers_tpu_torch.data.ops.distillation_ops import (
+        PrepareDistillationScores)
+    from reranking_multimodal_retrievers_tpu_torch.data.ops.m2kr_ops import make_dummy_m2kr
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_f32)
+
+    monkeypatch.delenv("RMRT_PLATFORM", raising=False)
+    text = {"vocab_size": 1000, "hidden_size": 128, "num_hidden_layers": 2,
+            "num_attention_heads": 2, "intermediate_size": 256}
+    out = {}
+    for pallas in (True, False):
+        f = PrepareDistillationScores()
+        f.setup(flmr_config={"text_config": {**text, "use_pallas_attention": pallas},
+                             "dim": 32, "use_vision_encoder": False},
+                num_negatives=4, query_maxlen=32, doc_maxlen=64, seed=3)
+        launches = fused_self_attention_f32.launches
+        data = f(make_dummy_m2kr(num_rows=12, num_passages=20))
+        out[pallas] = (data["train"], fused_self_attention_f32.launches - launches)
+    (k_rows, k_launches), (p_rows, p_launches) = out[True], out[False]
+    assert k_launches > 0 and p_launches == 0
+    assert k_rows["neg_item_ids"] == p_rows["neg_item_ids"]
+    torch.testing.assert_close(torch.tensor(k_rows["scores"]), torch.tensor(p_rows["scores"]),
+                               rtol=1e-4, atol=2e-5)

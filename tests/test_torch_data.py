@@ -6,8 +6,10 @@ both packages (rows, passages, vocab bytes, key-image pixels), the disk
 cache round trip, and the first three batches of ``PrepareDataloaders``
 (ids and masks bitwise, pixel values within 1e-6). Then the JAX package's own
 cases of ``tests/test_{synthetic_ops,data_ops,module_parser_extras,
-framework_core}.py`` that touch only ported modules run once more with
-their imports pointed at the port (one parametrised test)."""
+framework_core,wit_infoseek_depth,vqa_data_ops_real}.py`` run once more with
+their imports pointed at the port and ``datasets`` standing for the port's
+tables (one parametrised test), the model nodes on the CPU
+(``RMRT_PLATFORM=cpu``)."""
 
 import os
 import pickle
@@ -79,6 +81,83 @@ def test_table_select_map_filter_concat_equal_datasets():
         datasets.concatenate_datasets([d, d.select(range(4))]))
     with pytest.raises(ValueError):
         concatenate_tables([t, t.select_columns(["n"])])
+
+
+def test_table_batched_map_and_columns_equal_datasets():
+    t, d = Table.from_dict(COLUMNS), datasets.Dataset.from_dict(COLUMNS)
+
+    def split_rows(batch):  # another number of rows than it was given
+        out = {k: [] for k in batch}
+        for i, q in enumerate(batch["qid"]):
+            for part in (q, q + "b"):
+                out["qid"].append(part)
+                out["n"].append(batch["n"][i])
+                out["tags"].append(batch["tags"][i])
+        return out
+
+    for bs in (4, 1000):
+        assert _rows(t.map(split_rows, batched=True, batch_size=bs)) == _rows(
+            d.map(split_rows, batched=True, batch_size=bs, load_from_cache_file=False))
+
+    def indexed(batch, idx):
+        return {"j": [2 * i for i in idx], "n": [x + 1 for x in batch["n"]]}
+
+    kw = dict(batched=True, with_indices=True, batch_size=5, remove_columns=["tags"])
+    assert _rows(t.map(indexed, **kw)) == _rows(d.map(indexed, **kw, load_from_cache_file=False))
+
+    def row_indexed(row, i):
+        return {"k": i, "qid": row["qid"] + "!"}
+
+    assert _rows(t.map(row_indexed, with_indices=True, remove_columns="n")) == _rows(
+        d.map(row_indexed, with_indices=True, remove_columns="n", load_from_cache_file=False))
+    assert _rows(t.add_column("z", list(range(23)))) == _rows(d.add_column("z", list(range(23))))
+    assert _rows(t.remove_columns("tags")) == _rows(d.remove_columns("tags"))
+    assert _rows(t.remove_columns(["tags", "n"])) == _rows(d.remove_columns(["tags", "n"]))
+    col = {"c": ["x", "y", "x", "z", "y"]}
+    assert Table.from_dict(col).unique("c") == datasets.Dataset.from_dict(col).unique("c")
+
+
+@pytest.mark.parametrize("kwargs", [dict(test_size=0.2, seed=3), dict(test_size=5, seed=1),
+                                    dict(test_size=0.3, train_size=0.5, seed=7),
+                                    dict(train_size=0.9, seed=0), dict(test_size=4, shuffle=False),
+                                    dict(seed=42), dict(test_size=0.3)])
+def test_train_test_split_equals_datasets(kwargs):
+    """The rows of each split, including ``generic.py``'s second split of a
+    split and a seed of None (drawn from numpy's global state)."""
+    cols = {"i": list(range(23))}
+    np.random.seed(5)
+    got = Table.from_dict(cols).train_test_split(**kwargs)
+    np.random.seed(5)
+    want = datasets.Dataset.from_dict(cols).train_test_split(**kwargs)
+    assert set(got) == {"train", "test"}
+    for k in got:
+        assert got[k]["i"] == list(want[k]["i"]), k
+    again = got["test"].train_test_split(0.25, seed=9)
+    want_again = want["test"].train_test_split(0.25, seed=9)
+    assert again["train"]["i"] == list(want_again["train"]["i"])
+
+
+def test_read_csv_equals_datasets_from_csv(tmp_path):
+    """pandas' types through ``Dataset.from_csv``: int64, int with a missing
+    field (float64), double, bool (WIT's ``is_main_image``), bool with a
+    missing field, strings with quotes and embedded tabs, empty fields and
+    NA strings as null, an all-missing column."""
+    import csv
+
+    rows = [["id", "n", "x", "flag", "s", "empty", "mixed", "is_main_image", "nothing"],
+            ["1", "10", "1.5", "True", "hello", "", "a", "True", ""],
+            ["2", "", "2", "False", "quoted\ttab", "", "1", "False", "NA"],
+            ["3", "30", "nan", "True", "", " ", "2.5", "", ""],
+            ["4", "-7", "1e3", "TRUE", "N/A", "x", "inf", "false", ""]]
+    path = tmp_path / "f.tsv"
+    with open(path, "w", newline="") as f:
+        csv.writer(f, delimiter="\t").writerows(rows)
+    from reranking_multimodal_retrievers_tpu_torch.data.table import read_csv
+
+    got = read_csv(str(path), delimiter="\t")
+    want = datasets.Dataset.from_csv(str(path), delimiter="\t")
+    assert got.column_names == want.column_names
+    assert list(got) == _rows(want)
 
 
 def test_table_pickles():
@@ -287,6 +366,36 @@ CASES = {
         ("test_make_dummy_m2kr_shape", {}),
         ("test_m2kr_pipeline_to_dataloaders", {}),
         ("test_loader_pad_last_and_determinism", {}),
+        ("test_bm25_index", {}),
+        ("test_wikipedia_pseudo_annotation_mining", {}),
+        ("test_wikipedia_answer_phrase_normalized_matching", {}),
+        ("test_m2kr_empty_instruction_no_stray_colon", {}),
+    ],
+    # every case but test_blip2_greedy_captions_tiny, which builds its
+    # model with flax (tests/test_torch_data_ops_real.py holds the port's
+    # captioner against it)
+    "test_wit_infoseek_depth.py": [
+        ("test_prepare_wit_groups_passages_per_image", {}),
+        ("test_split_wit_passages_reduces_eval_corpus", {}),
+        ("test_truncate_wit_passages_chunks_and_reids", {}),
+        ("test_remove_wit_passages_without_images", {}),
+        ("test_distillation_live_teacher_scores", {}),
+        ("test_feature_store_roundtrip", {}),
+        ("test_load_wit_passages_renders_content", {}),
+        ("test_wit_annotations_reduce_and_image_registry", {}),
+        ("test_vit_v2_cache_and_v3_corpus", {}),
+        ("test_vae_features", {}),
+        ("test_caption_v2_publishes_and_v3_resumes", {}),
+        ("test_feature_store_type_changing_overwrite", {}),
+        ("test_prepare_wit_real_schema_without_img_columns", {}),
+    ],
+    "test_vqa_data_ops_real.py": [
+        ("test_select_roi_objects_policy", {}),
+        ("test_crop_roi_registry", {}),
+        ("test_vinvl_oscar_ocr_loaders", {}),
+        ("test_vg_prepare_for_retrieval_dedups_descriptions", {}),
+        ("test_select_roi_objects_ignores_classless", {}),
+        ("test_google_search_annotations_train_drop_vs_test_sentinel", {}),
     ],
     "test_module_parser_extras.py": [
         ("test_empty_text_and_passage_vision_parsers", {}),
@@ -309,22 +418,31 @@ CASES = {
     ],
 }
 _NAMESPACES = {}
-# a module the case files import that the port does not have; none of the
-# cases above uses it, so it stays the JAX package's
-UNPORTED = "reranking_multimodal_retrievers_tpu.data.ops.wikipedia_ops"
+
+
+class _TablesAsDatasets:
+    """The names of HF ``datasets`` that the case files call, over the
+    port's tables (a ``DatasetDict`` is a dict of tables)."""
+
+    class Dataset:
+        from_dict = staticmethod(Table.from_dict)
+
+    DatasetDict = dict
+    concatenate_datasets = staticmethod(concatenate_tables)
 
 
 def _port_cases(filename):
     """A JAX-package test file compiled with every import of the JAX
-    package pointed at the port (under the file's own name), but for
-    ``UNPORTED``."""
+    package pointed at the port (under the file's own name), and its
+    ``import datasets`` bound to :class:`_TablesAsDatasets`."""
     if filename not in _NAMESPACES:
         path = os.path.join(HERE, filename)
         with open(path) as f:
-            src = f.read().replace(UNPORTED, "@UNPORTED@").replace(
-                "reranking_multimodal_retrievers_tpu.",
-                "reranking_multimodal_retrievers_tpu_torch.").replace("@UNPORTED@", UNPORTED)
-        ns = {"__name__": f"port_{filename[:-3]}"}
+            src = f.read().replace("reranking_multimodal_retrievers_tpu.",
+                                   "reranking_multimodal_retrievers_tpu_torch.")
+        src = src.replace("import datasets as hfds\n", "hfds = _PORT_DATASETS\n").replace(
+            "import datasets\n", "datasets = _PORT_DATASETS\n")
+        ns = {"__name__": f"port_{filename[:-3]}", "_PORT_DATASETS": _TablesAsDatasets}
         exec(compile(src, path, "exec"), ns)
         _NAMESPACES[filename] = ns
     return _NAMESPACES[filename]
@@ -341,6 +459,7 @@ BERT_WORDS = ["what", "is", "this", "where", "the", "dog", "a", "passage", "anot
 def test_jax_case_on_port(filename, case, kwargs, tmp_path, monkeypatch):
     from reranking_multimodal_retrievers_tpu_torch.models.tokenization import tiny_bert_tokenizer
 
+    monkeypatch.setenv("RMRT_PLATFORM", "cpu")  # the model nodes' device
     fn = _port_cases(filename)[case]
     params = fn.__code__.co_varnames[:fn.__code__.co_argcount]
     fixtures = {"tmp_path": tmp_path, "monkeypatch": monkeypatch}
@@ -353,7 +472,6 @@ def test_cases_import_the_port():
     for filename in CASES:
         ns = _port_cases(filename)
         mods = {getattr(v, "__module__", "") or "" for v in ns.values() if callable(v)}
-        ours = {m for m in mods if m.startswith("reranking_multimodal_retrievers_tpu")
-                and m != UNPORTED}
+        ours = {m for m in mods if m.startswith("reranking_multimodal_retrievers_tpu")}
         assert ours and all(m.startswith("reranking_multimodal_retrievers_tpu_torch.")
                             for m in ours), (filename, ours)

@@ -1,13 +1,17 @@
 """The port stands alone: it imports no JAX, flax, optax, orbax, transformers,
-datasets, PIL, safetensors (``models/checkpoint_dir.py`` reads the format
-itself), tests or the JAX package, it imports with those modules
-blocked, and its entry points (the CLI, ``Experiment`` and the executors
-among them) refuse to fall back to the CPU when CUDA is absent. The two
-exceptions are imports inside a function: ``transformers`` in
-``models/tokenization.py``, where an HF tokenizer is built (the data
-pipeline builds the port's own WordPiece tokenizer), and ``PIL`` in
-``data/image_io.py``, for an image format other than the PNGs it reads
-itself."""
+datasets, pyarrow, pandas, PIL, safetensors (``models/checkpoint_dir.py``
+reads and writes the format itself), tests or the JAX package, it imports
+with those modules blocked, with them blocked it reads a ``save_to_disk``
+directory, decodes a baseline JPEG and runs the tiny ``prepare_data``
+pipeline of ``tests/test_torch_data_ops_real.py``, and its entry points
+(the CLI, ``Experiment`` and the executors among them) refuse to fall back
+to the CPU when CUDA is absent. The exceptions are imports inside a
+function: ``transformers`` in ``models/tokenization.py``, where a test's
+HF tokenizer is built (the port builds its own WordPiece tokenizer), and
+``PIL`` in ``data/image_io.py``, for an image format other than the PNGs
+and sequential JPEGs it reads itself, and in ``data/ops/wit_ops.py``, for
+the offline re-encoding of ``ConvertWITImagePixels`` and the header check
+of a format other than PNG and JPEG."""
 
 import ast
 import os
@@ -25,10 +29,14 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "reranking_multimodal_retrievers_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "transformers", "tests",
-             "reranking_multimodal_retrievers_tpu", "datasets", "PIL", "safetensors"}
+             "reranking_multimodal_retrievers_tpu", "datasets", "pyarrow", "pandas", "PIL",
+             "safetensors"}
+BLOCKED = ("jax", "flax", "optax", "orbax", "transformers", "datasets", "pyarrow", "pandas",
+           "PIL", "safetensors", "reranking_multimodal_retrievers_tpu")
 # imports allowed inside a function body (not at module level) of a file
 LAZY_ALLOWED = {PORT / "models" / "tokenization.py": {"transformers"},
-                PORT / "data" / "image_io.py": {"PIL"}}
+                PORT / "data" / "image_io.py": {"PIL"},
+                PORT / "data" / "ops" / "wit_ops.py": {"PIL"}}
 
 
 def _sources():
@@ -74,8 +82,7 @@ def _modules():
 def test_port_and_chip_smoke_import_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax', 'orbax', 'transformers', 'datasets', 'PIL',\n"
-        "          'safetensors', 'reranking_multimodal_retrievers_tpu'):\n"
+        f"for m in {BLOCKED!r}:\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {_modules()!r} + ['chip_smoke']:\n"
@@ -86,6 +93,47 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "imported"
+
+
+def test_real_data_path_runs_with_those_modules_blocked(tmp_path, monkeypatch):
+    """An Arrow directory read, a baseline JPEG decoded and the tiny
+    phase-13 ``prepare_data`` pipeline run (captioner, ViT features, the
+    live teacher) in a process where none of them can be imported; the
+    inputs are written here, with ``datasets``, PIL and JAX."""
+    pytest.importorskip("jax")
+    pytest.importorskip("datasets")
+    sys.path.insert(0, str(ROOT / "tests"))
+    try:
+        from test_torch_data_ops_real import _slice_config
+    finally:
+        sys.path.pop(0)
+    monkeypatch.setenv("RMRT_PLATFORM", "cpu")
+    config = _slice_config(tmp_path)
+    work = tmp_path / "work"
+    work.mkdir()
+    code = (
+        "import sys\n"
+        f"for m in {BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from reranking_multimodal_retrievers_tpu_torch.data import arrow_io, image_io\n"
+        f"d = arrow_io.load_from_disk({str(tmp_path / 'm2kr' / 'EVQA_data')!r})\n"
+        "jpg = [p for p in d['train']['img_path'] if p.endswith('.jpg')][0]\n"
+        "assert image_io._jpeg_frame(open(jpg, 'rb').read()) is not None\n"
+        "assert image_io.read_image(jpg).shape == (32, 32, 3)\n"
+        f"fx = np.load({str(ROOT / 'tests' / 'fixtures' / 'baseline_420_rst.pil.npy')!r})\n"
+        f"assert (image_io.read_image({str(ROOT / 'tests' / 'fixtures' / 'baseline_420_rst.jpg')!r})"
+        " == fx).all()\n"
+        "from reranking_multimodal_retrievers_tpu_torch.cli.main import main\n"
+        f"assert main(['--config', {config!r}, '--mode', 'prepare_data']) == 0\n"
+        "print('ran', len(d['train']))\n"
+    )
+    env = {**os.environ, "RMRT_PLATFORM": "cpu", "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=work, capture_output=True,
+                         text=True, timeout=600, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "ran 6"
+    assert any(n.startswith("process__Distill-") for n in os.listdir(work / "cache"))
 
 
 def test_default_device_entry_points_refuse_without_cuda(monkeypatch):

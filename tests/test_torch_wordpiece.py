@@ -131,3 +131,32 @@ def test_full_context_inputs_match_on_both_paths(pair):
     b = ttok.prepare_full_context_inputs(queries, contexts, wp, **kw)
     for k in a:
         assert np.array_equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("lower", [True, False])
+def test_flmr_tokenizers_from_a_saved_directory_match_hf(tmp_path, lower):
+    """``FLMRQueryTokenizer``/``FLMRContextTokenizer.from_pretrained`` on a
+    directory ``BertTokenizerFast.save_pretrained`` wrote (its
+    ``tokenizer_config.json``: lower-casing, accents, added special tokens)
+    build the port's WordPiece tokenizer, no ``transformers``, with the JAX
+    package's ids (which load it with ``BertTokenizerFast``)."""
+    from transformers import BertTokenizerFast
+
+    vocab = jtok.write_test_vocab(str(tmp_path / "src" / "vocab.txt"),
+                                  TINY_WORDS + ["Café", "Dog"])
+    hf = BertTokenizerFast(vocab_file=vocab, do_lower_case=lower, strip_accents=not lower)
+    hf.add_special_tokens({"additional_special_tokens": ["<BOK>", "<EOK>"]})
+    hf.save_pretrained(str(tmp_path / "saved"))
+    path = str(tmp_path / "saved")
+    port_base = ttok._load_bert_tokenizer(path)
+    assert isinstance(port_base, ttok.WordPieceTokenizer)
+    assert len(port_base) == len(BertTokenizerFast.from_pretrained(path))
+    texts = [TEXTS["accents"], "<BOK> the Dog here <EOK>", TEXTS["punctuation"]]
+    for cls, kw in (("FLMRQueryTokenizer", {"query_maxlen": 24}),
+                    ("FLMRContextTokenizer", {"doc_maxlen": 40})):
+        want = getattr(jtok, cls).from_pretrained(path, **kw)(texts)
+        got = getattr(ttok, cls).from_pretrained(path, **kw)(texts)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{cls} {k}")
+    with pytest.raises(FileNotFoundError, match="not a local tokenizer directory"):
+        ttok.FLMRQueryTokenizer.from_pretrained("bert-base-uncased")
