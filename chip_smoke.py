@@ -32,6 +32,17 @@ Phases, each printing one JSON line with its elapsed seconds:
      100,000 x 256 x 128 bf16, encodes 8 queries (32 tokens + an image) and
      serves them through RetrievalService, k = 100; the top-100 is held
      against the plain version;
+  3d. raw images into the main path: 64 uint8 images, 16 at each of 480 x
+     640, 640 x 480, 240 x 320 and 200 x 300, uploaded and preprocessed on
+     the card by ``ops/preprocess.py::CLIPImageProcessorDevice`` (one batch
+     a resolution), encoded by phase 3's FLMR and served through
+     RetrievalService over phase 3's index (K2 in the query encoder, K1 in
+     the search), each kernel against its plain version on the first inputs
+     3d gave it at each launch shape; the pixels against the same function
+     on the CPU (max |diff| <= 1e-4) and against the host path
+     ``data/image_io.py`` (``tests/test_preprocess.py``'s bounds), the
+     top-100 against that of the CPU-preprocessed queries up to near-ties;
+     images/s on the card and on the host, each the best of 3 warm passes;
   3b. int8 retrieve: that index quantized on the card into a
      QuantizedTokenIndex and the same 8 queries served through
      RetrievalService(make_search_fn_int8), K3 over 32k-doc slabs; the
@@ -191,12 +202,33 @@ Phases, each printing one JSON line with its elapsed seconds:
      with ``configs/evqa_flmr.json``'s pipeline over 13a's directories at
      ``synth_flmr_fullsize.json``'s widths. Everything under
      ``build/chip_smoke_p13/``, removed after;
-  7. after phase 13: the ``kernels`` line (K1 and K3 with their times at
+  14. the tools (``tools/``, ``ops/host_ops.py``), after phase 13, under
+     ``build/chip_smoke_p14/``, removed after: 14a. a seeded BERT-base BEM
+     classifier (4 token types, fp32) written as an HF directory, 256
+     synthetic (question, reference, candidate) triples scored one by one
+     through ``tools/eval_evqa.py::BEMScorer`` at its default 512 tokens on
+     the card (K2's fp32 path at [1, 512, 768], 12 launches a triple), each
+     score against the same weights on the CPU in fp32, examples/s; 14b.
+     ``segmented_maxsim_host`` (the C++ host library, built with g++ on
+     this machine) over the packed
+     token scores of 3d's first 8 queries' top-100 docs against K1's scores
+     of those docs, and ``top_k_host`` over K1's scores of every doc against
+     ``torch.topk``; 14c. phase 3's FLMR (written as an HF directory in 3d)
+     through ``convert_torch_to_port``, loaded into a bf16 model on the card
+     by ``FLMRExecutor.load_checkpoint``, its query output on 3d's first
+     batch bitwise equal to the source model's, then ``export_npz``; 14d.
+     ``render_job`` for the ``--dummy`` train job of
+     ``configs/okvqa_flmr.json``, run with bash (180 s limit): rc 0 and a
+     ``metrics.jsonl``; 14e. a prediction dump in the executors' format from
+     3d's results through ``reduce_retrieval_file`` and ``analysis``
+     (``rerank_vs_list_size``, ``mcnemar_test``);
+  7. after phase 14: the ``kernels`` line (K1 and K3 with their times at
      ``bench.py``'s batch and the 100k searches of phases 3 and 3b beside
-     the bound, K1 at stage 1's, the pooled index's and 11b's launch
-     shapes, K3 at 11c's, K2 at each main-path variant's launch shape,
+     the bound, K1 at stage 1's, the pooled index's, 3d's and 11b's launch
+     shapes, K3 at 11c's, K2 at each main-path variant's launch shape (3d's
+     query encoder's included),
      and K2's fp32 path at each of phase 11's, 12's and 13's launch shapes
-     (K1 and K3 also at 13c's) and at
+     (K1 and K3 also at 13c's), at 14a's and at
      phase 2's head-bias and causal shapes, each with the bound of 3xTF32 products and the
      bound of fp32 FFMA beside it), then the result line.
 
@@ -205,9 +237,9 @@ runs phase 5's model once with every weight at std 0.02 (none of HF T5's
 scales): p(yes) of four candidates through K2 and through the plain path in
 bf16, and in fp32, as information.
 
-The launch counters are set to 0 just before each main-path phase (3, 3b,
+The launch counters are set to 0 just before each main-path phase (3, 3d, 3b,
 3c, 4, 4b, 5, 6, 8's training run, 9a, 9b, 9c, 9d's timed steps, 10a, 10b,
-10c, 10d and each CLI run of 11, 12 and 13) and read just after it; phases 8,
+10c, 10d, each CLI run of 11, 12 and 13, and 14a) and read just after it; phases 8,
 9b, 9d, 10d, 11a, 11d's, every phase-12 training run and 13c's must launch
 none. Phase 3's index stays on the card until phase 10b. Each decoder
 family is built, run and freed before the next (about 8 GB each in bf16).
@@ -2179,6 +2211,27 @@ def _k2_key(q, k, v, bias=None, *rest):
     return (tuple(q.shape), bias is not None) if q.dtype == torch.float32 and q.is_cuda else None
 
 
+def _k2_bf16_key(q, k, v, bias=None, *rest):
+    return (tuple(q.shape), bias is not None) if q.dtype == torch.bfloat16 and q.is_cuda else None
+
+
+def k2_bf16_line(entry, name):
+    """K2's bf16 key-bias path against its plain version on the first inputs
+    a phase gave it at one launch shape (``k2_variant``), with the launches
+    at that shape."""
+    args, kw = entry["args"], entry["kwargs"]
+    q, k, v = args[:3]
+    bias = args[3] if len(args) > 3 else kw.get("mask_bias")
+    check(bias is not None and len(args) <= 4 and not kw.get("causal", False)
+          and kw.get("head_bias") is None, f"K2 {name}: not the key-bias variant")
+    heads = kw["num_heads"]
+    B, L, HD = q.shape
+    row = k2_variant(name, q, k, v, bias, None, heads=heads, scale=kw["sm_scale"], causal=False,
+                     sdpa_mask=(bias == 0)[:, None, None, :], flops=4 * B * L * L * HD)
+    row["launches"] = entry["calls"]
+    return row
+
+
 def k2f32_bound(flops, nbytes):
     """(bound ms, what bounds it, fp32 FFMA bound ms) of K2's fp32 path: the
     3xTF32 products on the tensor cores against the bytes, and the same
@@ -3668,6 +3721,463 @@ def p13_phases(smi):
     return [k1_row], [k3_row], k2_rows + rows, parts
 
 
+# ---- phase 3d: raw images into the main path (ops/preprocess.py on the card),
+# ---- phase 14: the tools (tools/*.py, ops/host_ops.py)
+
+P14_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_p14"
+# 3d: 16 uint8 images at each of phase 13a's PNG sizes, H x W, to CLIP
+# ViT-B/32's 224
+P3D_RES, P3D_PER_RES, P3D_SIZE = ((480, 640), (640, 480), (240, 320), (200, 300)), 16, 224
+# the same function on the card and on the CPU: fp32 products with TF32 off,
+# summed in another order (2.2e-5 at most between the CPU and JAX in
+# tests/test_torch_preprocess.py)
+P3D_PIXEL_TOL = 1e-4
+# against the host path (data/image_io.py, 8-bit rounding after each resize
+# pass, as PIL): tests/test_preprocess.py:36-37's bounds
+P3D_HOST_MEAN, P3D_HOST_MAX = 0.05, 0.75
+# top-100 of the card-preprocessed queries against the CPU-preprocessed
+# ones: the pixels differ by <= 1e-4 before the cast to bf16, which rounds a
+# few of them the other way (on the CPU, with 4% of the pixels of this FLMR's
+# queries so rounded, scores of 26-31 moved by up to 0.033); the values may
+# differ by this much, and the ranks only between docs within it
+P3D_TOPK_ATOL = 0.1
+# 14a: BEM triples at BEMScorer's default 512 tokens, each score held
+# against the CPU's fp32 one
+P14_BEM_EXAMPLES, P14_BEM_TOL = 256, 1e-4
+# 14b: the top-100 of this many 3d queries, packed token by token
+P14_HOST_QUERIES = 8
+P14_WORDS = ["what", "which", "who", "where", "animal", "city", "color", "river", "capital",
+             "country", "cat", "dog", "bird", "horse", "paris", "rome", "london", "berlin",
+             "red", "blue", "green", "nile", "thames", "rhine", "france", "italy", "england",
+             "germany", "is", "this", "the", "of", "and", "in", "a"]
+
+
+def p3d_images(rng):
+    """``P3D_PER_RES`` uint8 RGB images at each of ``P3D_RES``: smooth
+    fields (8 x 8 x 3 noise, bilinearly upsampled, stretched to 0-255) with
+    +-6 levels of pixel noise."""
+    out = []
+    for h, w in P3D_RES:
+        base = torch.from_numpy(rng.normal(size=(P3D_PER_RES, 3, 8, 8)).astype(np.float32))
+        up = torch.nn.functional.interpolate(base, size=(h, w), mode="bilinear",
+                                             align_corners=False)
+        lo = up.amin(dim=(1, 2, 3), keepdim=True)
+        hi = up.amax(dim=(1, 2, 3), keepdim=True)
+        x = (up - lo) / (hi - lo) * 243 + 6
+        x = x + torch.from_numpy(rng.integers(-6, 7, size=x.shape).astype(np.float32))
+        out.append(x.clamp(0, 255).round().to(torch.uint8).permute(0, 2, 3, 1).contiguous().numpy())
+    return out
+
+
+def p3d_raw_images(flmr, index, smi):
+    """Phase 3d: 64 raw images preprocessed on the card
+    (``CLIPImageProcessorDevice``), their queries encoded by phase 3's FLMR
+    and searched through RetrievalService over phase 3's index; K1 and K2
+    against their plain versions at 3d's launch shapes, the pixels against
+    the same function on the CPU and against the host path, the top-100
+    against that of CPU-preprocessed queries. Returns (the phase's line,
+    what phase 14 takes from it, K1's rows, K2's rows)."""
+    from reranking_multimodal_retrievers_tpu_torch.data.image_io import CLIPImageProcessor
+    from reranking_multimodal_retrievers_tpu_torch.engine import make_search_fn
+    from reranking_multimodal_retrievers_tpu_torch.engine import search as search_mod
+    from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
+    from reranking_multimodal_retrievers_tpu_torch.models.checkpoint_dir import (
+        write_safetensors)
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import maxsim_scores
+    from reranking_multimodal_retrievers_tpu_torch.ops.preprocess import CLIPImageProcessorDevice
+    from reranking_multimodal_retrievers_tpu_torch.serving import RetrievalService
+
+    t0 = time.perf_counter()
+    if P14_DIR.exists():
+        shutil.rmtree(P14_DIR)
+    rng = np.random.default_rng([SEED, 3])
+    batches = p3d_images(rng)
+    n = sum(len(b) for b in batches)
+    n_all, lq = index.num_padded_docs, 32
+    q_ids = [torch.as_tensor(rng.integers(1000, 29000, size=(len(b), lq))) for b in batches]
+    q_am = torch.ones(P3D_PER_RES, lq, dtype=torch.int64)
+
+    def encode(pix, ids):
+        with torch.inference_mode():
+            out = flmr.query(ids.cuda(), q_am.cuda(), pixel_values=pix.to(torch.bfloat16))
+        return out.late_interaction_output
+
+    # the main path: upload, preprocess, encode, serve
+    proc = CLIPImageProcessorDevice(P3D_SIZE, device="cuda")
+    svc = RetrievalService(make_search_fn(n_all, k=100), index, batch_queries=P3D_PER_RES,
+                           max_wait_ms=50)
+    k1_in, k2_in = {}, {}
+    reset_counts()
+    try:
+        with _Recorder() as rec:
+            rec.patch(search_mod, "maxsim_scores",
+                      _first_inputs(k1_in, lambda Q, D, M=None, *r: (tuple(Q.shape),
+                                                                     tuple(D.shape))))
+            rec.patch(bert_mod, "fused_self_attention", _first_inputs(k2_in, _k2_bf16_key))
+            t1 = time.perf_counter()
+            pix_dev = [proc(b) for b in batches]
+            Q_dev = torch.cat([encode(p, ids) for p, ids in zip(pix_dev, q_ids)])
+            results = [f.result(timeout=600) for f in [svc.search(Q_dev[i]) for i in range(n)]]
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t1
+    finally:
+        svc.close()
+    launches = read_counts()
+    check(launches["K1"] > 0 and launches["K2"] > 0 and launches["K2f32"] == 0,
+          f"3d launches {launches}")
+
+    # K1 and K2 against their plain versions on the first inputs 3d gave
+    # them at each launch shape (not the main path's launches)
+    k1_rows = [dict(k1_line(*e["args"][:3], f"3d raw-image queries {'x'.join(map(str, qs))} "
+                            f"over a {ds[0]}-doc slab"), launches=e["calls"])
+               for (qs, ds), e in k1_in.items()]
+    k2_rows = [k2_bf16_line(e, f"key bias {'x'.join(map(str, shape))} (3d query encoder)")
+               for (shape, _), e in k2_in.items()]
+    check(sum(r["launches"] for r in k1_rows) == launches["K1"]
+          and sum(r["launches"] for r in k2_rows) == launches["K2"],
+          "3d: K1 or K2 launches at shapes not recorded")
+    del k1_in, k2_in
+    check(all(len(ids) == 100 and np.isfinite(v).all() for ids, v in results), "3d results")
+
+    # images/s: the card's path (upload + preprocess) and the host path
+    # (resize on the host + upload), the same decoded uint8 images
+    def on_card():
+        for b in batches:
+            proc(b)
+        torch.cuda.synchronize()
+
+    host = CLIPImageProcessor(P3D_SIZE)
+    pix_host = []
+
+    def on_host():
+        pix_host[:] = [torch.from_numpy(host(list(b))).cuda() for b in batches]
+        torch.cuda.synchronize()
+
+    # each the best of 3 timed passes, after the main path's pass (the card)
+    # or a warm pass (the host)
+    card_s = min(_timed(on_card) for _ in range(3))
+    on_host()
+    host_s = min(_timed(on_host) for _ in range(3))
+
+    # the pixels against the same function on the CPU and the host path
+    cpu_proc = CLIPImageProcessorDevice(P3D_SIZE, device="cpu")
+    pix_cpu = [cpu_proc(b) for b in batches]
+    dev_cpu = max((d.cpu() - c).abs().max().item() for d, c in zip(pix_dev, pix_cpu))
+    check(dev_cpu <= P3D_PIXEL_TOL, f"3d pixels: card vs CPU {dev_cpu} > {P3D_PIXEL_TOL}")
+    diffs = [(d - h).abs() for d, h in zip(pix_dev, pix_host)]
+    host_mean = float(torch.cat([d.flatten() for d in diffs]).mean())
+    host_max = max(d.max().item() for d in diffs)
+    check(host_mean < P3D_HOST_MEAN and host_max < P3D_HOST_MAX,
+          f"3d pixels vs the host path: mean {host_mean}, max {host_max}")
+
+    # the top-100 of CPU-preprocessed queries (not the main path)
+    Q_cpu = torch.cat([encode(p.cuda(), ids) for p, ids in zip(pix_cpu, q_ids)])
+    search = make_search_fn(n_all, k=100)
+    want_vals, want_idx = search(Q_cpu, index.embeddings, index.mask)
+    got_vals = np.stack([v for _, v in results]).astype(np.float32)
+    got_ids = np.asarray([[int(d) for d in ids] for ids, _ in results])
+    topk_err = same_top_k(got_vals, got_ids, want_vals.cpu().numpy(), want_idx.cpu().numpy(),
+                          P3D_TOPK_ATOL, 0.0)
+    identical = int(sum(np.array_equal(g, w) for g, w in zip(got_ids, want_idx.cpu().numpy())))
+    same_sets = int(sum(set(g) == set(w) for g, w in zip(got_ids, want_idx.cpu().numpy())))
+
+    # for 14b: the first queries' top-100 docs, their token scores packed
+    # doc by doc (fp32 products of the bf16 matrices), and K1's scores
+    packed, doclens, k1_vals = [], [], []
+    for i in range(P14_HOST_QUERIES):
+        docs = torch.as_tensor(got_ids[i], device="cuda")
+        D, M = index.embeddings[docs], index.mask[docs]
+        rows = D.float()[M]  # the valid token rows, doc after doc
+        packed.append((rows @ Q_dev[i].float().t()).cpu().numpy())
+        doclens.append(M.sum(dim=1).cpu().numpy().astype(np.int32))
+        k1_vals.append(maxsim_scores(Q_dev[i:i + 1], D, M)[0].cpu().numpy())
+    full = maxsim_scores(Q_dev[:P14_HOST_QUERIES], index.embeddings, index.mask)
+
+    # for 14c: phase 3's FLMR as an HF directory, and its output on one batch
+    P14_DIR.mkdir(parents=True, exist_ok=True)
+    hf = P14_DIR / "flmr_hf"
+    hf.mkdir(exist_ok=True)
+    t1 = time.perf_counter()
+    hf_bytes = write_safetensors(str(hf / "model.safetensors"), flmr.state_dict())
+    hf_s = time.perf_counter() - t1
+    line = {"phase": "retrieve_raw_images", "images": n,
+            "resolutions": [list(r) for r in P3D_RES], "image_size": P3D_SIZE,
+            "images_per_s_card": n / card_s, "images_per_s_host": n / host_s,
+            "card_preprocess_seconds": card_s, "host_preprocess_seconds": host_s,
+            "main_path_seconds": main_s, "pixels_card_vs_cpu_max": dev_cpu,
+            "pixels_vs_host_mean": host_mean, "pixels_vs_host_max": host_max,
+            "tol": {"cpu": P3D_PIXEL_TOL, "host_mean": P3D_HOST_MEAN, "host_max": P3D_HOST_MAX,
+                    "top_k_atol": P3D_TOPK_ATOL},
+            "top100_identical_rankings": identical, "top100_same_sets": same_sets,
+            "top100_max_abs_err": topk_err,
+            "hf_checkpoint_bytes": hf_bytes, "hf_checkpoint_write_seconds": hf_s,
+            "k1_shapes": {r["variant"]: r["launches"] for r in k1_rows},
+            "k2_shapes": {r["variant"]: r["launches"] for r in k2_rows},
+            "launches": launches, "card": smi, "seconds": time.perf_counter() - t0}
+    carry = {"packed": packed, "doclens": doclens, "k1": k1_vals, "full": full.cpu().numpy(),
+             "ids": got_ids, "vals": got_vals, "cpu_ids": want_idx.cpu().numpy(),
+             "cpu_vals": want_vals.cpu().numpy(), "pix": pix_dev[0].cpu(), "q_ids": q_ids[0],
+             "q_out": Q_dev[:P3D_PER_RES].cpu()}
+    return line, carry, k1_rows, k2_rows
+
+
+def _timed(fn):
+    t = time.perf_counter()
+    fn()
+    return time.perf_counter() - t
+
+
+def p14_bem(smi):
+    """14a: a seeded BERT-base BEM classifier written as an HF directory,
+    ``P14_BEM_EXAMPLES`` triples scored through BEMScorer on the card (K2's
+    fp32 path) and held against the same weights on the CPU in fp32.
+    Returns (the line, K2's fp32 row, launches)."""
+    from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
+    from reranking_multimodal_retrievers_tpu_torch.models.bert import BertConfig
+    from reranking_multimodal_retrievers_tpu_torch.models.checkpoint_dir import (
+        write_safetensors)
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import (
+        WordPieceTokenizer, write_test_vocab)
+    from reranking_multimodal_retrievers_tpu_torch.tools.eval_evqa import (
+        BEMClassifier, BEMScorer)
+
+    t0 = time.perf_counter()
+    cfg = BertConfig(type_vocab_size=4, use_pallas_attention=True)
+    seeded = BEMClassifier(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    ckpt = P14_DIR / "bem"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    write_safetensors(str(ckpt / "model.safetensors"), seeded.state_dict())
+    del seeded
+    tok = WordPieceTokenizer(write_test_vocab(str(P14_DIR / "vocab.txt"), P14_WORDS))
+    rng = np.random.default_rng([SEED, 14])
+    kinds = ["automatic", "templated", "multi_answer", "2_hop", "list"]
+
+    def words(lo, hi):
+        return " ".join(rng.choice(P14_WORDS, size=int(rng.integers(lo, hi + 1))))
+
+    examples = [{"question": words(3, 12), "reference": words(1, 4), "candidate": words(1, 6),
+                 "question_type": kinds[i % len(kinds)]} for i in range(P14_BEM_EXAMPLES)]
+    for ex in examples[2::len(kinds)]:
+        ex["reference"] = ex["reference"].replace(" ", " && ", 1)
+    card = BEMScorer(tok, checkpoint_dir=str(ckpt), device="cuda")
+    cpu = BEMScorer(tok, checkpoint_dir=str(ckpt), device="cpu")
+    check(card.max_length == 512, f"14a: BEMScorer's max length {card.max_length}")
+    card(examples[0])  # warm-up (cuBLAS, the kernel's library)
+    k2_in = {}
+    reset_counts()
+    with _Recorder() as rec:
+        rec.patch(bert_mod, "fused_self_attention", _first_inputs(k2_in, _k2_key))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = np.asarray([card(ex, threshold_score=False) for ex in examples])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+    launches = read_counts()
+    check(launches["K2f32"] == 12 * P14_BEM_EXAMPLES and launches["K2"] == 0,
+          f"14a launches {launches}")
+    t1 = time.perf_counter()
+    enc = [cpu.encode(ex) for ex in examples]
+    want = []
+    with torch.inference_mode():
+        for i in range(0, len(enc), 16):
+            ids, am, tt = (torch.from_numpy(np.concatenate([e[j] for e in enc[i:i + 16]]))
+                           for j in range(3))
+            want.append(torch.softmax(cpu.model(ids, am, tt), dim=-1)[:, 1].numpy())
+    want = np.concatenate(want)
+    cpu_s = time.perf_counter() - t1
+    err = float(np.abs(got - want).max())
+    check(err <= P14_BEM_TOL, f"14a BEM scores: card vs CPU fp32 {err} > {P14_BEM_TOL}")
+    far = np.abs(want - 0.5) > P14_BEM_TOL
+    check(np.array_equal((got >= 0.5)[far], (want >= 0.5)[far]), "14a BEM decisions")
+    rows = _k2_rows({"bert": k2_in}, "14a BEM scorer", launches["K2f32"])
+    line = {"phase": "tools_bem", "examples": P14_BEM_EXAMPLES, "max_length": card.max_length,
+            "examples_per_s": P14_BEM_EXAMPLES / card_s, "card_seconds": card_s,
+            "cpu_check_seconds": cpu_s, "max_abs_err_vs_cpu_fp32": err, "tol": P14_BEM_TOL,
+            "mean_score": float(got.mean()), "share_equivalent": float((got >= 0.5).mean()),
+            "launches": launches, "card": smi, "seconds": time.perf_counter() - t0}
+    return line, rows, launches
+
+
+def p14_host_ops(carry, smi):
+    """14b: ``segmented_maxsim_host`` over 3d's top-100 docs' packed token
+    scores against K1's scores of those docs; ``top_k_host`` over K1's
+    scores of every doc against ``torch.topk``."""
+    from reranking_multimodal_retrievers_tpu_torch.ops import host_ops
+
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    check(host_ops.native_available(), "14b: the host library did not build")
+    build_s = time.perf_counter() - t1
+    seg_s, seg_err = 0.0, 0.0
+    for scores, doclens, k1 in zip(carry["packed"], carry["doclens"], carry["k1"]):
+        t1 = time.perf_counter()
+        got = host_ops.segmented_maxsim_host(scores, doclens)
+        seg_s += time.perf_counter() - t1
+        seg_err = max(seg_err, float(np.abs(got - k1).max()))
+    check(seg_err <= K1_TOL, f"14b segmented_maxsim_host vs K1: {seg_err} > {K1_TOL}")
+    full = carry["full"]
+    t1 = time.perf_counter()
+    top = np.stack([host_ops.top_k_host(row, 100) for row in full])
+    topk_host_s = time.perf_counter() - t1
+    dev = torch.from_numpy(full).cuda()
+    vals, idx = torch.topk(dev, 100, dim=1)
+    topk_card_ms = cuda_ms(lambda: torch.topk(dev, 100, dim=1), 10)
+    same = np.take_along_axis(full, top, axis=1)
+    check(np.array_equal(same, vals.cpu().numpy()), "14b top_k_host values vs torch.topk")
+    identical = int(sum(np.array_equal(a, b) for a, b in zip(top, idx.cpu().numpy())))
+    n_rows = int(sum(len(p) for p in carry["packed"]))
+    return {"phase": "tools_host_ops", "build_seconds": build_s,
+            "segmented_maxsim": {"queries": len(carry["packed"]), "packed_rows": n_rows,
+                                 "query_tokens": int(carry["packed"][0].shape[1]),
+                                 "seconds": seg_s, "max_abs_err_vs_k1": seg_err,
+                                 "tol": K1_TOL},
+            "top_k": {"rows": int(full.shape[0]), "n": int(full.shape[1]), "k": 100,
+                      "host_seconds": topk_host_s, "torch_topk_card_ms": topk_card_ms,
+                      "identical_orders": identical},
+            "card": smi, "seconds": time.perf_counter() - t0}
+
+
+def p14_convert(carry, fcfg, smi):
+    """14c: phase 3's FLMR (written as an HF directory in 3d) through
+    ``convert_torch_to_port``, loaded by ``FLMRExecutor.load_checkpoint`` into
+    a bf16 model on the card, whose query output on 3d's first batch must
+    equal the source model's bitwise; then ``export_npz``."""
+    from reranking_multimodal_retrievers_tpu_torch.executors.flmr_executor import FLMRExecutor
+    from reranking_multimodal_retrievers_tpu_torch.models import FLMRModelForRetrieval
+    from reranking_multimodal_retrievers_tpu_torch.tools.convert_checkpoint import (
+        convert_torch_to_port, export_npz)
+
+    t0 = time.perf_counter()
+    config = P14_DIR / "flmr_config.json"
+    flmr = {k: v for k, v in dataclasses.asdict(fcfg).items()
+            if k not in ("text_config", "vision_config")}
+    flmr["text_config"] = dataclasses.asdict(fcfg.text_config)
+    flmr["vision_config"] = dataclasses.asdict(fcfg.vision_config)
+    config.write_text(json.dumps({"model_config": {"flmr": flmr}}))
+    t1 = time.perf_counter()
+    out = convert_torch_to_port(str(P14_DIR / "flmr_hf"), str(P14_DIR / "flmr_port"),
+                                str(config))
+    convert_s = time.perf_counter() - t1
+    ex = object.__new__(FLMRExecutor)
+    ex.device = torch.device("cuda")
+    ex.global_step = 0
+    ex.model = FLMRModelForRetrieval(fcfg, device="cuda", dtype=torch.bfloat16).eval()
+    t1 = time.perf_counter()
+    ex.load_checkpoint(str(Path(out) / "params"))
+    load_s = time.perf_counter() - t1
+    with torch.inference_mode():
+        q = ex.model.query(carry["q_ids"].cuda(), torch.ones_like(carry["q_ids"]).cuda(),
+                           pixel_values=carry["pix"].cuda().to(torch.bfloat16))
+    check(torch.equal(q.late_interaction_output.cpu(), carry["q_out"]),
+          "14c: the converted checkpoint's query output differs from the source model's")
+    del ex, q
+    t1 = time.perf_counter()
+    npz = export_npz(str(Path(out) / "params"), str(P14_DIR / "flmr.npz"))
+    npz_s = time.perf_counter() - t1
+    with np.load(npz) as f:
+        n_arrays = len(f.files)
+    return {"phase": "tools_convert_checkpoint", "convert_seconds": convert_s,
+            "load_seconds": load_s,
+            "port_checkpoint_bytes": (Path(out) / "params" / "state.pt").stat().st_size,
+            "npz_bytes": Path(npz).stat().st_size, "npz_arrays": n_arrays,
+            "export_npz_seconds": npz_s, "query_output_bitwise_equal": True,
+            "card": smi, "seconds": time.perf_counter() - t0}
+
+
+def p14_job(smi):
+    """14d: the ``--dummy`` train job of ``configs/okvqa_flmr.json`` rendered
+    by ``render_job`` and run with bash on the card (180 s limit): rc 0 and
+    a ``metrics.jsonl``."""
+    import os
+
+    from reranking_multimodal_retrievers_tpu_torch.tools.submit_jobs import render_job
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    exp = P14_DIR / "experiments"
+    path = render_job(str(CONFIGS / "okvqa_flmr.json"), "train", "p14_smoke", workdir=str(root),
+                      dummy=True, out_dir=str(P14_DIR / "jobs"),
+                      opts=[f"meta.EXPERIMENT_FOLDER={exp}",
+                            f"data_pipeline.cache_dir={P14_DIR / 'cache'}"])
+    gc.collect()
+    torch.cuda.empty_cache()  # the job's process allocates on the same card
+    bindir = P14_DIR / "bin"  # the script runs `python`: this interpreter, by its own path
+    bindir.mkdir(exist_ok=True)
+    (bindir / "python").write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    (bindir / "python").chmod(0o755)
+    env = {k: v for k, v in os.environ.items() if k != "RMRT_PLATFORM"}
+    env.update(PATH=f"{bindir}:{env.get('PATH', '')}", PYTHONPATH=str(root))
+    out = subprocess.run(["bash", path], capture_output=True, text=True, timeout=180, env=env)
+    check(out.returncode == 0, f"14d job rc {out.returncode}: {out.stderr[-2000:]}")
+    metrics = sorted(exp.rglob("metrics.jsonl"))
+    check(bool(metrics) and metrics[0].read_text().strip() != "", "14d: no metrics.jsonl")
+    return {"phase": "tools_job_script", "script": Path(path).name, "rc": out.returncode,
+            "metrics_lines": len(metrics[0].read_text().strip().splitlines()),
+            "card": smi, "seconds": time.perf_counter() - t0}
+
+
+def p14_dumps(carry, smi):
+    """14e: a prediction dump in the executors' format from 3d's results
+    (the card-preprocessed queries' top-100 as the list, the CPU-preprocessed
+    ones' as the raw list, a seeded positive in each), reduced by
+    ``reduce_retrieval_file`` and read by ``analysis``."""
+    import pickle
+
+    from reranking_multimodal_retrievers_tpu_torch.tools import analysis
+    from reranking_multimodal_retrievers_tpu_torch.tools.reduce_retrieval_file import (
+        reduce_retrieval_file)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([SEED, 15])
+
+    def plist(ids, vals):
+        return [{"passage_id": str(d), "content": f"passage {d}", "score": float(v)}
+                for d, v in zip(ids, vals)]
+
+    preds = []
+    for i, (ids, vals) in enumerate(zip(carry["ids"], carry["vals"])):
+        pos = str(ids[int(rng.integers(0, 20))])
+        preds.append({"question_id": f"q{i}", "pos_item_ids": [pos], "answers": [pos],
+                      "top_ranking_passages": plist(ids, vals),
+                      "raw_top_ranking_passages": plist(carry["cpu_ids"][i],
+                                                        carry["cpu_vals"][i])})
+    path = P14_DIR / "test_predictions_rank_0.json"
+    path.write_text(json.dumps({"metrics": {}, "predictions": preds}))
+    t1 = time.perf_counter()
+    reduced = reduce_retrieval_file(str(path))
+    reduce_s = time.perf_counter() - t1
+    with open(reduced, "rb") as f:
+        slim = pickle.load(f)["predictions"]
+    check(all(set(p) == {"passage_id", "score"} for e in slim for p in e["top_ranking_passages"])
+          and [e["question_id"] for e in slim] == [e["question_id"] for e in preds],
+          "14e: the reduced dump")
+    raw = [{**e, "top_ranking_passages": e["raw_top_ranking_passages"]} for e in preds]
+    sweep = analysis.rerank_vs_list_size(raw, preds, Ds=[5, 20, 100], k=5, use_answers=False)
+    mc = analysis.mcnemar_test(preds, k=5)
+    check(all(0.0 <= v <= 1.0 for v in sweep.values()) and 0.0 <= mc["p_value"] <= 1.0
+          and mc["a"] + mc["b"] + mc["c"] + mc["d"] == len(preds), "14e: the analysis")
+    return {"phase": "tools_prediction_dumps", "queries": len(preds),
+            "dump_bytes": path.stat().st_size, "reduced_bytes": Path(reduced).stat().st_size,
+            "reduce_seconds": reduce_s, "recall_at_5_by_list_size": sweep, "mcnemar": mc,
+            "card": smi, "seconds": time.perf_counter() - t0}
+
+
+def p14_phases(carry, fcfg, smi):
+    """Phase 14 (14a-14e); prints each part's line. Returns (K2's fp32 rows,
+    the launch counts of 14a, the main path of this phase)."""
+    try:
+        line, rows, launches = p14_bem(smi)
+        emit(line)
+        emit(p14_host_ops(carry, smi))
+        emit(p14_convert(carry, fcfg, smi))
+        emit(p14_job(smi))
+        emit(p14_dumps(carry, smi))
+    finally:
+        if P14_DIR.exists():
+            shutil.rmtree(P14_DIR)
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3865,7 +4375,16 @@ def main() -> int:
     cand = torch.as_tensor([[position[str(c)] for c in row] for row in candidates],
                            device="cuda")
     retrieved = (Qm, qout.query_mask.int(), index.embeddings[cand], index.mask[cand].int())
-    del ref_scores, flmr, cand
+    del ref_scores, cand
+
+    # ---- 3d. raw images preprocessed on the card into phase 3's FLMR and
+    # index (main path)
+    line, p3d_carry, k1_p3d, k2_p3d = p3d_raw_images(flmr, index, smi)
+    p3d_launches = line["launches"]
+    emit(line)
+    del flmr
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- 3b. int8 retrieve over the same index, quantized on the card (main path)
     qindex, line = int8_retrieve(index, Qm, K, candidates)
@@ -4014,11 +4533,19 @@ def main() -> int:
     k1_p13, k3_p13, k2f32_p13, p13_parts = p13_phases(smi)
     emit({"phase": "real_data", "seconds": time.perf_counter() - t0})
 
+    # ---- 14. the tools: BEM scoring (fp32 K2, main path), the host ops over
+    # 3d's results, checkpoint conversion of phase 3's FLMR, a job script,
+    # the prediction dumps' tools
+    t0 = time.perf_counter()
+    k2f32_p14, p14_launches = p14_phases(p3d_carry, fcfg, smi)
+    del p3d_carry
+    emit({"phase": "tools", "seconds": time.perf_counter() - t0})
+
     # ---- 7. the kernels line and the result
     torch.cuda.synchronize()
-    phases = (retrieve_launches, int8_launches, stream_launches, rerank_launches, w8a8_launches,
-              plaid_launches, pooled_launches, baleen_launches, triples_launches,
-              *cli_parts.values(), *p12_parts.values(), *p13_parts.values())
+    phases = (retrieve_launches, p3d_launches, int8_launches, stream_launches, rerank_launches,
+              w8a8_launches, plaid_launches, pooled_launches, baleen_launches, triples_launches,
+              *cli_parts.values(), *p12_parts.values(), *p13_parts.values(), p14_launches)
 
     def launches(name):
         return sum(p[name] for p in phases)
@@ -4054,6 +4581,7 @@ def main() -> int:
         k2_line("key bias L=369 (interaction CrossEncoder on retrieved docs, 9c)",
                 k2_inter["9c"]),
         k2_line("key bias L=512, 16 heads (Baleen reader, 10c)", k2_baleen),
+        *(k2_line(row["variant"], row) for row in k2_p3d),
         dict(name="maxsim_scores stage 1 of compressed search (10a)", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
              replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:67", **k1_plaid),
@@ -4074,7 +4602,7 @@ def main() -> int:
         *(dict(name=f"maxsim_scores {row['variant']}", route="cuda",
                source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
                replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:67", **row)
-          for row in k1_p13),
+          for row in k1_p3d + k1_p13),
         *(dict(name=f"maxsim_scores_int8 {row['variant']}", route="cuda",
                source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim_int8.cu",
                replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183", **row)
@@ -4082,7 +4610,7 @@ def main() -> int:
         *(dict(name=f"fused_self_attention fp32 {row['variant']}", route="cuda",
                source="reranking_multimodal_retrievers_tpu_torch/csrc/attention_f32.cu",
                replaces=attention, **row)
-          for row in k2f32_rows + k2f32_p12 + k2f32_p13 + k2f32_extra),
+          for row in k2f32_rows + k2f32_p12 + k2f32_p13 + k2f32_p14 + k2f32_extra),
     ], "not_ported": []})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -4090,4 +4618,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:  # 3d writes phase 14's inputs there
+        shutil.rmtree(P14_DIR, ignore_errors=True)

@@ -4,13 +4,15 @@ Each function takes a flax parameter tree as nested dicts of numpy arrays
 (the caller does ``jax.device_get`` on its side; this module imports no JAX)
 and returns a ``state_dict`` for the matching port model, with HuggingFace
 parameter names. The conversions are the inverse of the JAX package's
-``models/hf_bridge.py``: a flax ``Dense`` kernel ``[in, out]`` becomes a
+``models/hf_bridge.py`` (whose FLMR part the end of the module also copies,
+for ``tools/convert_checkpoint.py::export_npz``): a flax ``Dense`` kernel ``[in, out]`` becomes a
 ``Linear.weight`` ``[out, in]``, a LayerNorm ``scale`` becomes ``weight``, an
 ``Embed`` table becomes ``weight``, and a conv kernel HWIO becomes OIHW.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -418,3 +420,119 @@ def decoder_rerank_state_dict(params: Tree) -> StateDict:
         if n in params:
             _dense(sd, n, params[n])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# The other way: HF-named numpy state dicts -> flax parameter trees, as the
+# JAX package's ``models/hf_bridge.py`` builds them (``bert_model_params``,
+# ``clip_vision_params``, ``vision_projection_params``, ``flmr_params``), so
+# that a port checkpoint exports the JAX package's ``.npz`` keys.
+
+def _np_linear(sd, name):
+    out = {"kernel": np.ascontiguousarray(sd[f"{name}.weight"].T)}
+    if f"{name}.bias" in sd:
+        out["bias"] = sd[f"{name}.bias"]
+    return out
+
+
+def _np_layernorm(sd, name):
+    return {"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
+
+
+def _np_strip(sd, prefix):
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def _np_layer_ids(sd, pattern):
+    return sorted({int(m.group(1)) for k in sd if (m := re.match(pattern, k))})
+
+
+def _np_bert_attention(sd, prefix):
+    return {"query": _np_linear(sd, f"{prefix}.self.query"),
+            "key": _np_linear(sd, f"{prefix}.self.key"),
+            "value": _np_linear(sd, f"{prefix}.self.value"),
+            "out": _np_linear(sd, f"{prefix}.output.dense"),
+            "layernorm": _np_layernorm(sd, f"{prefix}.output.LayerNorm")}
+
+
+def flax_bert_encoder(sd, prefix="encoder", cross_attention=False) -> dict:
+    """``hf_bridge.bert_encoder_params``: ``{prefix}.layer.{i}.*`` ->
+    ``layer_{i}`` (with ``crossattention`` where asked and present)."""
+    out = {}
+    for i in _np_layer_ids(sd, rf"{re.escape(prefix)}\.layer\.(\d+)\."):
+        pre = f"{prefix}.layer.{i}"
+        p = {"attention": _np_bert_attention(sd, f"{pre}.attention"),
+             "intermediate": _np_linear(sd, f"{pre}.intermediate.dense"),
+             "output": _np_linear(sd, f"{pre}.output.dense"),
+             "layernorm": _np_layernorm(sd, f"{pre}.output.LayerNorm")}
+        if cross_attention and f"{pre}.crossattention.self.query.weight" in sd:
+            p["crossattention"] = _np_bert_attention(sd, f"{pre}.crossattention")
+        out[f"layer_{i}"] = p
+    return out
+
+
+def flax_bert(sd) -> dict:
+    """``hf_bridge.bert_model_params``: an HF ``BertModel`` state dict."""
+    p = {"embeddings": {
+        "word_embeddings": {"embedding": sd["embeddings.word_embeddings.weight"]},
+        "position_embeddings": {"embedding": sd["embeddings.position_embeddings.weight"]},
+        "token_type_embeddings": {"embedding": sd["embeddings.token_type_embeddings.weight"]},
+        "layernorm": _np_layernorm(sd, "embeddings.LayerNorm")},
+        "encoder": flax_bert_encoder(sd, "encoder")}
+    if "pooler.dense.weight" in sd:
+        p["pooler"] = _np_linear(sd, "pooler.dense")
+    return p
+
+
+def flax_clip_vision(sd) -> dict:
+    """``hf_bridge.clip_vision_params``: the inner ``vision_model`` state
+    dict of an HF ``CLIPVisionModel`` (conv kernel OIHW -> HWIO)."""
+    p = {"embeddings": {
+        "class_embedding": sd["embeddings.class_embedding"],
+        "position_embedding": sd["embeddings.position_embedding.weight"],
+        "patch_embedding": {"kernel": np.ascontiguousarray(
+            sd["embeddings.patch_embedding.weight"].transpose(2, 3, 1, 0))}},
+        "pre_layrnorm": _np_layernorm(sd, "pre_layrnorm"),
+        "post_layernorm": _np_layernorm(sd, "post_layernorm")}
+    for i in _np_layer_ids(sd, r"encoder\.layers\.(\d+)\."):
+        pre = f"encoder.layers.{i}"
+        p[f"layer_{i}"] = {
+            "self_attn": {n: _np_linear(sd, f"{pre}.self_attn.{n}")
+                          for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "layer_norm1": _np_layernorm(sd, f"{pre}.layer_norm1"),
+            "layer_norm2": _np_layernorm(sd, f"{pre}.layer_norm2"),
+            "fc1": _np_linear(sd, f"{pre}.mlp.fc1"),
+            "fc2": _np_linear(sd, f"{pre}.mlp.fc2")}
+    return p
+
+
+def flax_flmr(sd) -> dict:
+    """``hf_bridge.flmr_params`` over the state dict of the port's
+    ``FLMRModelForRetrieval`` (numpy arrays): which encoders, projections
+    and mapping network the tree holds follows the keys present, as the
+    port's model holds exactly those of its config."""
+    p = {"context_text_encoder": flax_bert(_np_strip(sd, "context_text_encoder.bert_model.")),
+         "context_text_encoder_linear": _np_linear(sd, "context_text_encoder_linear")}
+    if "query_text_encoder_linear.weight" in sd:
+        p["query_text_encoder"] = flax_bert(_np_strip(sd, "query_text_encoder.bert_model."))
+        p["query_text_encoder_linear"] = _np_linear(sd, "query_text_encoder_linear")
+    if "context_vision_projection.model.0.weight" in sd:
+        p["context_vision_encoder"] = flax_clip_vision(
+            _np_strip(sd, "context_vision_encoder.vision_model.vision_model."))
+        p["context_vision_projection"] = {
+            "fc1": _np_linear(sd, "context_vision_projection.model.0"),
+            "fc2": _np_linear(sd, "context_vision_projection.model.2")}
+        if "query_vision_projection.model.0.weight" in sd:
+            p["query_vision_encoder"] = flax_clip_vision(
+                _np_strip(sd, "query_vision_encoder.vision_model.vision_model."))
+            p["query_vision_projection"] = {
+                "fc1": _np_linear(sd, "query_vision_projection.model.0"),
+                "fc2": _np_linear(sd, "query_vision_projection.model.2")}
+        if "transformer_mapping_input_linear.weight" in sd:
+            p["transformer_mapping_input_linear"] = _np_linear(
+                sd, "transformer_mapping_input_linear")
+            p["transformer_mapping_network"] = flax_bert_encoder(
+                sd, "transformer_mapping_network", cross_attention=True)
+            p["transformer_mapping_output_linear"] = _np_linear(
+                sd, "transformer_mapping_output_linear")
+    return p

@@ -11,6 +11,8 @@ parameters in no group (no update, no weight decay; they keep
 that gives each group its schedule's value, and the clip as a pre-step hook
 over every parameter, frozen ones included, as
 ``optax.chain(clip_by_global_norm, multi_transform)`` takes the norm.
+Adafactor is the port's own :class:`Adafactor`, ``optax.adafactor``'s
+arithmetic (``torch.optim.Adafactor`` is another algorithm).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -112,6 +115,89 @@ def clip_grads_by_global_norm_(params: Sequence[torch.Tensor], max_norm: float) 
         g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
 
 
+def factored_dims(shape: Sequence[int], min_dim_size_to_factor: int = 128):
+    """``optax``'s ``_factored_dims``: ``(d1, d0)``, the second largest and
+    the largest axis of ``shape`` (numpy's argsort order on ties), when the
+    second largest has at least ``min_dim_size_to_factor`` entries; else
+    None (fewer than two axes, or a small one)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor(learning_rate)`` with optax's defaults, as the JAX
+    package builds it: factored second moments over the two largest axes
+    when both have >= ``MIN_DIM_SIZE_TO_FACTOR`` entries (else a full one),
+    decayed by ``1 - (t + 1)^-0.8`` at update ``t`` (counted from 0) with
+    ``EPS`` added to each squared gradient; the update clipped to a block
+    RMS of at most ``CLIPPING_THRESHOLD``, scaled by the group's lr and by
+    the parameter's block RMS (at least ``MIN_PARAM_SCALE``), and
+    subtracted. No momentum, no weight decay. The arithmetic is fp32 in
+    optax's order (``optax._src.factorized.scale_by_factored_rms``, then
+    ``clip_by_block_rms``, ``scale_by_learning_rate``,
+    ``scale_by_param_block_rms``, ``scale(-1)``)."""
+
+    DECAY_RATE = 0.8
+    EPS = 1e-30
+    CLIPPING_THRESHOLD = 1.0
+    MIN_DIM_SIZE_TO_FACTOR = 128
+    MIN_PARAM_SCALE = 1e-3
+
+    def __init__(self, params, lr: float = 1.0):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    self._update(p, group)
+        return loss
+
+    def _update(self, p: torch.Tensor, group) -> None:
+        g = p.grad
+        state = self.state[p]
+        dims = factored_dims(tuple(p.shape), self.MIN_DIM_SIZE_TO_FACTOR)
+        if not state:
+            state["step"] = 0
+            if dims is None:
+                state["v"] = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                state["v_row"] = torch.zeros_like(p.mean(dim=d0))
+                state["v_col"] = torch.zeros_like(p.mean(dim=d1))
+        # optax's fp32 ``1 - (t + 1)^-0.8``, a scalar the host knows
+        decay = float(np.float32(1) - np.float32(state["step"] + 1) ** np.float32(-self.DECAY_RATE))
+        g_sq = g * g + self.EPS
+        if dims is None:
+            v = decay * state["v"] + (1.0 - decay) * g_sq
+            state["v"] = v
+            u = g * v ** -0.5
+        else:
+            d1, d0 = dims
+            v_row = decay * state["v_row"] + (1.0 - decay) * g_sq.mean(dim=d0)
+            v_col = decay * state["v_col"] + (1.0 - decay) * g_sq.mean(dim=d1)
+            state["v_row"], state["v_col"] = v_row, v_col
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+        u = u / torch.clamp((u * u).mean().sqrt() / self.CLIPPING_THRESHOLD, min=1.0)
+        u = u * group["lr"]
+        rms = (p * p).mean().sqrt()
+        u = u * torch.where(rms <= self.MIN_PARAM_SCALE,
+                            torch.full_like(rms, self.MIN_PARAM_SCALE), rms)
+        p.add_(-u)
+        state["step"] += 1
+
+
 def make_optimizer(model: nn.Module, optimizer_name: str = "AdamW", lr: float = 1e-3,
                    mapping_network_lr: Optional[float] = None,
                    scheduler: Optional[str] = None, num_warmup_steps: int = 0,
@@ -124,11 +210,8 @@ def make_optimizer(model: nn.Module, optimizer_name: str = "AdamW", lr: float = 
     Returns ``(optimizer, lr_scheduler, labels)``. Each group's lr is its
     schedule's value at the update count: the scheduler steps once per
     applied update. ``weight_decay`` applies to AdamW only, as in the JAX
-    package. Adafactor is not ported (``torch.optim.Adafactor`` is not
-    ``optax.adafactor``)."""
-    if optimizer_name == "Adafactor":
-        raise NotImplementedError("Adafactor is not ported (torch's Adafactor is not optax's)")
-    if optimizer_name not in ("AdamW", "Adam"):
+    package; ``Adafactor`` is :class:`Adafactor` at optax's defaults."""
+    if optimizer_name not in ("AdamW", "Adam", "Adafactor"):
         raise ValueError(f"Invalid optimizer name: {optimizer_name}")
     labels = label_params(model, group_patterns, frozen_patterns)
     schedules = {
@@ -145,6 +228,8 @@ def make_optimizer(model: nn.Module, optimizer_name: str = "AdamW", lr: float = 
     groups = [g for g in groups if g["params"]]
     if optimizer_name == "AdamW":
         optimizer = torch.optim.AdamW(groups, lr=1.0, weight_decay=weight_decay)
+    elif optimizer_name == "Adafactor":
+        optimizer = Adafactor(groups, lr=1.0)
     else:
         optimizer = torch.optim.Adam(groups, lr=1.0)
     lr_scheduler = torch.optim.lr_scheduler.LambdaLR(

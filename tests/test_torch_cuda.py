@@ -1068,3 +1068,51 @@ def test_teacher_kernel_path_matches_plain_path(gen, monkeypatch):
     assert k_rows["neg_item_ids"] == p_rows["neg_item_ids"]
     torch.testing.assert_close(torch.tensor(k_rows["scores"]), torch.tensor(p_rows["scores"]),
                                rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("method", ["bicubic", "linear", "lanczos3", "nearest"])
+def test_preprocess_on_card_matches_cpu(gen, method):
+    """``ops/preprocess.py`` on the card against the same function on the
+    CPU (fp32 products, TF32 off), at 3d's resolutions: max |diff| <= 1e-4."""
+    import numpy as np
+
+    from reranking_multimodal_retrievers_tpu_torch.ops.preprocess import (
+        CLIPImageProcessorDevice)
+
+    rng = np.random.default_rng(0)
+    card = CLIPImageProcessorDevice(224, method, device="cuda")
+    cpu = CLIPImageProcessorDevice(224, method, device="cpu")
+    for h, w in ((480, 640), (640, 480), (240, 320), (200, 300), (224, 224)):
+        imgs = rng.integers(0, 256, size=(3, h, w, 3)).astype(np.uint8)
+        got, want = card(imgs), cpu(imgs)
+        assert got.is_cuda and got.dtype == torch.float32
+        assert (got.cpu() - want).abs().max().item() <= 1e-4, (h, w)
+
+
+def test_bem_scorer_on_card_matches_cpu(gen, tmp_path):
+    """The BEM scorer at BERT-base width in fp32 on the card (K2's fp32
+    path, 12 launches an example) against the same weights on the CPU."""
+    from reranking_multimodal_retrievers_tpu_torch.models.bert import BertConfig
+    from reranking_multimodal_retrievers_tpu_torch.models.checkpoint_dir import (
+        write_safetensors)
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import (
+        WordPieceTokenizer, write_test_vocab)
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_f32)
+    from reranking_multimodal_retrievers_tpu_torch.tools.eval_evqa import (
+        BEMClassifier, BEMScorer)
+
+    model = BEMClassifier(BertConfig(type_vocab_size=4), device="cpu",
+                          generator=torch.Generator().manual_seed(1))
+    (tmp_path / "bem").mkdir()
+    write_safetensors(str(tmp_path / "bem" / "model.safetensors"), model.state_dict())
+    tok = WordPieceTokenizer(write_test_vocab(str(tmp_path / "vocab.txt"),
+                                              ["cat", "dog", "what", "animal"]))
+    kw = dict(checkpoint_dir=str(tmp_path / "bem"))  # BEMScorer's default 512 tokens
+    card, cpu = BEMScorer(tok, device="cuda", **kw), BEMScorer(tok, device="cpu", **kw)
+    fused_self_attention_f32.launches = 0
+    for ex in ({"question": "what animal", "reference": "cat", "candidate": "dog"},
+               {"question": "what", "reference": "cat && dog", "candidate": "dog, cat",
+                "question_type": "multi_answer"}):
+        assert abs(card(ex, threshold_score=False) - cpu(ex, threshold_score=False)) <= 1e-4
+    assert fused_self_attention_f32.launches == 24

@@ -6,7 +6,8 @@ both packages (rows, passages, vocab bytes, key-image pixels), the disk
 cache round trip, and the first three batches of ``PrepareDataloaders``
 (ids and masks bitwise, pixel values within 1e-6). Then the JAX package's own
 cases of ``tests/test_{synthetic_ops,data_ops,module_parser_extras,
-framework_core,wit_infoseek_depth,vqa_data_ops_real}.py`` run once more with
+framework_core,wit_infoseek_depth,vqa_data_ops_real,eval_pipeline_lifecycle,
+preprocess,host_ops,tools_aux}.py`` run once more with
 their imports pointed at the port and ``datasets`` standing for the port's
 tables (one parametrised test), the model nodes on the CPU
 (``RMRT_PLATFORM=cpu``)."""
@@ -26,7 +27,7 @@ PIL_Image = pytest.importorskip("PIL.Image")
 from reranking_multimodal_retrievers_tpu.data.loaders import CLIPImageProcessorNP  # noqa: E402
 from reranking_multimodal_retrievers_tpu.data.ops.synthetic_ops import (  # noqa: E402
     GenerateSyntheticM2KR as JGenerate)
-from reranking_multimodal_retrievers_tpu_torch.data import image_io  # noqa: E402
+from reranking_multimodal_retrievers_tpu_torch.data import arrow_io, image_io  # noqa: E402
 from reranking_multimodal_retrievers_tpu_torch.data.ops.synthetic_ops import (  # noqa: E402
     GenerateSyntheticM2KR)
 from reranking_multimodal_retrievers_tpu_torch.data.table import (  # noqa: E402
@@ -416,18 +417,75 @@ CASES = {
         ("test_pipeline_dag_and_cache", {}),
         ("test_pipeline_dummy_mode_uses_separate_cache", {}),
     ],
+    # on_eval_end's pipeline, the recorder nodes, LoadHFDataset (its
+    # save_to_disk directories written by data/arrow_io.py) and the tokenize
+    # node
+    "test_eval_pipeline_lifecycle.py": [
+        ("test_on_eval_end_runs_configured_pipeline", {}),
+        ("test_validation_recorder_naming_and_fallback_rows", {}),
+        ("test_get_evaluation_recorder_load_and_passthrough", {}),
+        ("test_merge_transform_row_appends_and_saves", {}),
+        ("test_generic_hf_transforms_registered_and_split", {}),
+        ("test_load_hf_dataset_from_disk", {}),
+        ("test_tokenize_transform_prefixes_columns", {}),
+        ("test_tokenize_transform_passes_through_unselected_splits", {}),
+        ("test_load_hf_dataset_fields_projection", {}),
+    ],
+    # ops/preprocess.py against the port's host CLIP preprocessing, and
+    # ops/host_ops.py (the port's own build of csrc/host_ops.cpp)
+    "test_preprocess.py": [
+        *(("test_device_matches_host_preprocessor", {"hw": hw})
+          for hw in ((224, 224), (256, 320), (320, 256), (96, 200))),
+        ("test_uint8_and_unit_float_agree", {}),
+        ("test_output_is_normalized_nchw", {}),
+    ],
+    "test_host_ops.py": [
+        ("test_native_library_builds", {}),
+        ("test_segmented_maxsim_host", {}),
+        ("test_segmented_maxsim_host_empty_candidate_set", {}),
+        ("test_segmented_lookup_host", {}),
+        ("test_top_k_host", {}),
+        ("test_bit_packing_roundtrip", {}),
+    ],
+    # the tools/ cases; test_evqa_em_and_bem_interface builds the port's
+    # BEM classifier from its seeded generator (the JAX case's flax init is
+    # not reproduced; tests/test_torch_tools.py holds the two BEMScorers
+    # against each other from one checkpoint directory)
+    "test_tools_aux.py": [
+        ("test_mcnemar", {}),
+        ("test_rerank_vs_list_size", {}),
+        ("test_evqa_eval", {}),
+        ("test_loss_vs_recall", {}),
+        ("test_render_job", {}),
+        ("test_evqa_em_and_bem_interface", {}),
+        ("test_upload_model_to_hub", {}),
+        ("test_reduce_retrieval_file", {}),
+        ("test_prepare_cc_images", {}),
+    ],
 }
 _NAMESPACES = {}
 
 
+class _SavableTable(Table):
+    """A port table with ``datasets``' ``save_to_disk``, written by
+    ``data/arrow_io.py``."""
+
+    def save_to_disk(self, path):
+        arrow_io.save_to_disk(self, path)
+
+
 class _TablesAsDatasets:
     """The names of HF ``datasets`` that the case files call, over the
-    port's tables (a ``DatasetDict`` is a dict of tables)."""
+    port's tables (a ``DatasetDict`` is a dict of tables); ``save_to_disk``
+    is ``data/arrow_io.py``'s writer."""
 
     class Dataset:
-        from_dict = staticmethod(Table.from_dict)
+        from_dict = staticmethod(_SavableTable.from_dict)
 
-    DatasetDict = dict
+    class DatasetDict(dict):
+        def save_to_disk(self, path):
+            arrow_io.save_to_disk(self, path)
+
     concatenate_datasets = staticmethod(concatenate_tables)
 
 

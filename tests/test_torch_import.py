@@ -11,7 +11,10 @@ HF tokenizer is built (the port builds its own WordPiece tokenizer), and
 ``PIL`` in ``data/image_io.py``, for an image format other than the PNGs
 and sequential JPEGs it reads itself, and in ``data/ops/wit_ops.py``, for
 the offline re-encoding of ``ConvertWITImagePixels`` and the header check
-of a format other than PNG and JPEG."""
+of a format other than PNG and JPEG, and in ``tools/prepare_cc_images.py``,
+which writes the fetched images as JPEGs. Every ``tools/`` module runs
+with ``jax``, ``flax`` and ``transformers`` blocked, the network tools with
+an injected fetcher and hub API."""
 
 import ast
 import os
@@ -36,7 +39,8 @@ BLOCKED = ("jax", "flax", "optax", "orbax", "transformers", "datasets", "pyarrow
 # imports allowed inside a function body (not at module level) of a file
 LAZY_ALLOWED = {PORT / "models" / "tokenization.py": {"transformers"},
                 PORT / "data" / "image_io.py": {"PIL"},
-                PORT / "data" / "ops" / "wit_ops.py": {"PIL"}}
+                PORT / "data" / "ops" / "wit_ops.py": {"PIL"},
+                PORT / "tools" / "prepare_cc_images.py": {"PIL"}}
 
 
 def _sources():
@@ -136,6 +140,87 @@ def test_real_data_path_runs_with_those_modules_blocked(tmp_path, monkeypatch):
     assert any(n.startswith("process__Distill-") for n in os.listdir(work / "cache"))
 
 
+TOOLS_RUN = r"""
+import json, os, pickle, sys
+for m in ("jax", "flax", "optax", "orbax", "transformers", "reranking_multimodal_retrievers_tpu"):
+    sys.modules[m] = None
+import numpy as np
+import torch
+from reranking_multimodal_retrievers_tpu_torch.models import FLMRConfig, FLMRModelForRetrieval
+from reranking_multimodal_retrievers_tpu_torch.models.bert import BertConfig
+from reranking_multimodal_retrievers_tpu_torch.models.checkpoint_dir import write_safetensors
+from reranking_multimodal_retrievers_tpu_torch.models.tokenization import (
+    WordPieceTokenizer, write_test_vocab)
+from reranking_multimodal_retrievers_tpu_torch.tools import (
+    analysis, convert_checkpoint, eval_evqa, prepare_cc_images, reduce_retrieval_file,
+    submit_jobs, upload_model_to_hub)
+
+work = sys.argv[1]
+tok = WordPieceTokenizer(write_test_vocab(os.path.join(work, "vocab.txt"), ["cat", "dog"]))
+bem = eval_evqa.BEMScorer(tok, bert_config=BertConfig.tiny(type_vocab_size=4), device="cpu")
+ex = {"question": "what", "reference": "cat", "candidate": "dog", "question_type": "automatic"}
+assert 0.0 <= bem(ex, threshold_score=False) <= 1.0
+assert eval_evqa.evqa_scores(["paris", "roma"], ["paris", "rome"])["evqa_accuracy"] == 0.5
+
+entry = {"question_id": "q", "pos_item_ids": ["a"], "answers": ["a"],
+         "top_ranking_passages": [{"passage_id": "a", "content": "x a", "score": 1.0}],
+         "raw_top_ranking_passages": [{"passage_id": "b", "content": "x b", "score": 1.0}]}
+assert analysis.mcnemar_test([entry], k=1)["c"] == 1
+dump = os.path.join(work, "dump.json")
+with open(dump, "w") as f:
+    json.dump({"predictions": [entry]}, f)
+with open(reduce_retrieval_file.reduce_retrieval_file(dump), "rb") as f:
+    assert "content" not in pickle.load(f)["predictions"][0]["top_ranking_passages"][0]
+
+cfg = FLMRConfig.tiny()
+hf = os.path.join(work, "hf")
+os.makedirs(hf)
+write_safetensors(os.path.join(hf, "model.safetensors"),
+                  FLMRModelForRetrieval(cfg, device="cpu").state_dict())
+config = os.path.join(work, "flmr.json")
+with open(config, "w") as f:
+    json.dump({"model_config": {"flmr": {"text_config": {"vocab_size": 1024, "hidden_size": 32,
+        "num_hidden_layers": 2, "num_attention_heads": 4, "intermediate_size": 64,
+        "max_position_embeddings": 128}, "vision_config": {"hidden_size": 32,
+        "intermediate_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
+        "image_size": 32, "patch_size": 16}, "dim": 16, "mapping_network_prefix_length": 4,
+        "use_transformer_mapping_network": True}}}, f)
+out = convert_checkpoint.convert_torch_to_port(hf, os.path.join(work, "port"), config)
+npz = convert_checkpoint.export_npz(os.path.join(out, "params"), os.path.join(work, "p.npz"))
+assert "context_text_encoder/embeddings/word_embeddings/embedding" in np.load(npz).files
+
+job = submit_jobs.render_job("configs/okvqa_flmr.json", "test", "smoke", dummy=True,
+                             out_dir=os.path.join(work, "jobs"))
+assert "reranking_multimodal_retrievers_tpu_torch.cli.main" in open(job).read()
+
+calls = []
+class Api:
+    def create_repo(self, **kw):
+        calls.append(kw)
+    def upload_folder(self, **kw):
+        calls.append(kw)
+assert upload_model_to_hub.upload_folder(work, "org/m", api=Api()) == "org/m" and len(calls) == 2
+got = prepare_cc_images.fetch_images([("a", "u/a"), ("b", "u/b")], os.path.join(work, "img"),
+                                     num_threads=2, fetch_fn=lambda url: None)
+assert got["failed"] == ["a", "b"]
+print("tools ran")
+"""
+
+
+def test_tools_run_with_jax_flax_and_transformers_blocked(tmp_path):
+    """Every ``tools/`` module in a process where JAX, flax, optax, orbax,
+    transformers and the JAX package cannot be imported: the EVQA scores and
+    a tiny BEM scorer (the port's own WordPiece tokenizer), the analysis of
+    a dump, its reduction, a tiny FLMR directory converted and exported to
+    ``.npz``, a job script, and the hub and image tools with injected
+    fakes."""
+    out = subprocess.run([sys.executable, "-c", TOOLS_RUN, str(tmp_path)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "RMRT_PLATFORM": "cpu"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "tools ran"
+
+
 def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
@@ -162,6 +247,9 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
     from reranking_multimodal_retrievers_tpu_torch.models.rerankers.decoder import (
         VisionSeq2SeqLM)
     from reranking_multimodal_retrievers_tpu_torch.serving import RerankService
+    from reranking_multimodal_retrievers_tpu_torch.ops.preprocess import (
+        CLIPImageProcessorDevice, preprocess_images)
+    from reranking_multimodal_retrievers_tpu_torch.tools.eval_evqa import BEMScorer
 
     calls = [
         lambda: BertModel(BertConfig.tiny()),
@@ -198,6 +286,9 @@ def test_default_device_entry_points_refuse_without_cuda(monkeypatch):
         lambda: RerankerExecutor(ConfigDict()),
         lambda: RagExecutor(ConfigDict()),
         lambda: VisionSeq2SeqLM(DecoderRerankConfig.tiny()),
+        lambda: CLIPImageProcessorDevice(),
+        lambda: preprocess_images(np.zeros((1, 8, 8, 3), np.uint8), image_size=4),
+        lambda: BEMScorer(None, bert_config=BertConfig.tiny(type_vocab_size=4)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -112,12 +112,64 @@ def test_optimizer_on_fixed_grads_matches_optax(name):
                                   params["vision_encoder"]["w"])
 
 
+@pytest.mark.parametrize("two_groups", [False, True])
+def test_adafactor_on_fixed_grads_matches_optax(two_groups):
+    """``make_optimizer(..., "Adafactor")`` against the JAX package's
+    ``optax.adafactor(schedule)`` on the same fixed gradients for 6 steps:
+    a [256, 192] matrix (factored: both axes >= 128), a [64, 32] matrix and
+    a vector (full second moments), a 0-d scalar that starts at 0 (its
+    block RMS floored at 1e-3), a frozen leaf, and one or two lr groups
+    under a warmup-linear schedule. Parameters within 1e-6 of their leaf's
+    largest |p|: optax's fp32 arithmetic in the same order, each step
+    leaving last-bit differences (reductions summed in another order)."""
+    rng = np.random.default_rng(1)
+    shapes = {"enc": {"w": (256, 192)}, "vision_encoder": {"w": (4,)},
+              "vision_projection": {"w": (64, 32)}, "head": {"b": (5,), "s": ()}}
+    params = {m: {k: np.asarray(rng.normal(size=s), np.float32) for k, s in d.items()}
+              for m, d in shapes.items()}
+    params["head"]["s"] = np.zeros((), np.float32)
+    kw = dict(optimizer_name="Adafactor", lr=1e-2, scheduler="linear", num_warmup_steps=2,
+              num_training_steps=10, frozen_patterns=FROZEN, grad_clip=None)
+    if two_groups:
+        kw.update(mapping_network_lr=3e-2, group_patterns=("vision_projection",))
+    else:
+        kw.update(group_patterns=())
+    tx, _ = jtraining.make_optimizer(params, **kw)
+    jp, js = params, tx.init(params)
+    model = _Tree({m: {k: v for k, v in d.items() if k != "s"} for m, d in params.items()})
+    model.head["s"] = nn.Parameter(torch.tensor(params["head"]["s"]))
+    opt, sched, labels = training.make_optimizer(model, **kw)
+    assert isinstance(opt, optimization.Adafactor)
+    assert labels["vision_projection.w"] == ("mapping" if two_groups else "main")
+    assert optimization.factored_dims((256, 192)) == (1, 0)
+    assert optimization.factored_dims((64, 32)) is None
+    for step in range(6):
+        scale = 3.0 if step % 2 else 0.01  # updates above and below the clip
+        grads = {m: {k: np.asarray(scale * rng.normal(size=s), np.float32)
+                     for k, s in d.items()} for m, d in shapes.items()}
+        updates, js = tx.update(grads, js, jp)
+        jp = optax.apply_updates(jp, updates)
+        for m, d in grads.items():
+            for k, g in d.items():
+                getattr(model, m)[k].grad = torch.tensor(g)
+        opt.step()
+        sched.step()
+    for m, d in jp.items():
+        for k, want in d.items():
+            want = np.asarray(want)
+            got = getattr(model, m)[k].detach().numpy()
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=1e-6 * float(np.abs(want).max()),
+                                       err_msg=f"{m}.{k}")
+    assert float(model.head["s"].detach()) != 0.0
+    np.testing.assert_array_equal(model.vision_encoder["w"].detach().numpy(),
+                                  params["vision_encoder"]["w"])
+
+
 def test_unported_options_raise():
     model = _Tree({m: {k: np.zeros(2, np.float32)} for m, k in
                    (("enc", "w"), ("vision_encoder", "w"), ("vision_projection", "w"),
                     ("head", "b"))})
-    with pytest.raises(NotImplementedError):
-        training.make_optimizer(model, optimizer_name="Adafactor")
     with pytest.raises(ValueError):
         training.make_optimizer(model, optimizer_name="SGD")
     opt, sched, _ = training.make_optimizer(model)
