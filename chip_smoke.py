@@ -222,7 +222,33 @@ Phases, each printing one JSON line with its elapsed seconds:
      ``metrics.jsonl``; 14e. a prediction dump in the executors' format from
      3d's results through ``reduce_retrieval_file`` and ``analysis``
      (``rerank_vs_list_size``, ``mcnemar_test``);
-  7. after phase 14: the ``kernels`` line (K1 and K3 with their times at
+  15. several ranks (``parallel/``), after phase 14: the one-process
+     references on this card, then one spawn of 4 ranks (one a card over
+     NCCL where there are 4 cards, else sharing the card over gloo, whose
+     times are then information only), each rank drawing its weights and
+     data from the seed: 15a phase 8's FLMR step (16 x 2 x 256, fp32) at
+     dp 4 and at dp 2 x tp 2, losses and four leaves' gradients and Adam
+     updates against one process at phase 8's limits, the vision tower
+     bitwise, a batch with a NaN pixel on one shard skipped by every rank;
+     15b phase 3's 1,024-doc encode over 4 ranks (K2), the index against
+     one process's; 15c a 100,000 x 256 x 128 bf16 index drawn a slab at
+     a time from per-slab seeds, 25,000 docs a rank, searched in bf16 (K1)
+     and int8 (K3), k = 100, ids and values against one process up to
+     near-ties, each rank's K1 and K3 at the shard's launch shape against
+     their plain versions on its first 2,048 docs; 15d phase 4's rerank
+     (8 x 100 x 512, K2) with 25 rows of each 100-row chunk a rank, the
+     logits against one process's; 15e monoBLIP2-Opt-2.7b, then
+     -Flan-T5-XL, at dp 2 x tp 2 (100 prompts on 4 cards, 10 on one),
+     p(yes) against one process's, K2 causal hd 80 and K2 head bias at 16
+     local heads against their plain versions; 15f on 4 cards
+     ``cli.main --n_devices 4`` (inside the launcher's group) over phase
+     11's data: FLMR train (10 steps; the first step's losses against one
+     process's), test (K1, fp32 K2; the first 8 queries' top-100 against
+     one process's test of the same checkpoint), the reranker's test over
+     that dump, one file of each kind written (rank 0's); on fewer cards
+     the overask error. ``python3 chip_smoke.py --phase 15`` runs phases
+     0, 1 and 15 alone;
+  7. after phase 15: the ``kernels`` line (K1 and K3 with their times at
      ``bench.py``'s batch and the 100k searches of phases 3 and 3b beside
      the bound, K1 at stage 1's, the pooled index's, 3d's and 11b's launch
      shapes, K3 at 11c's, K2 at each main-path variant's launch shape (3d's
@@ -239,7 +265,8 @@ bf16, and in fp32, as information.
 
 The launch counters are set to 0 just before each main-path phase (3, 3d, 3b,
 3c, 4, 4b, 5, 6, 8's training run, 9a, 9b, 9c, 9d's timed steps, 10a, 10b,
-10c, 10d, each CLI run of 11, 12 and 13, and 14a) and read just after it; phases 8,
+10c, 10d, each CLI run of 11, 12 and 13, 14a, and each of 15a-15f in every
+rank, whose counts the parent sums) and read just after it; phases 8, 15a,
 9b, 9d, 10d, 11a, 11d's, every phase-12 training run and 13c's must launch
 none. Phase 3's index stays on the card until phase 10b. Each decoder
 family is built, run and freed before the next (about 8 GB each in bf16).
@@ -4178,6 +4205,868 @@ def p14_phases(carry, fcfg, smi):
     return rows, launches
 
 
+# ---- phase 15: several ranks (parallel/: the mesh over torch.distributed)
+
+# 4 ranks: one a card over NCCL where there are 4 cards, else sharing the
+# card(s) over gloo (NCCL refuses two ranks on one device); the line names it
+P15_RANKS = 4
+# 15c: phase 3's index size, drawn a slab at a time from a per-slab seed so
+# that each rank draws only its block; every 1,000th doc whole padding
+P15_DOCS, P15_SLAB, P15_K = 100_000, 8192, 100
+# 15b: phase 3's corpus encode, 1,024 docs in batches of 128
+P15_ENC_DOCS, P15_ENC_BATCH = 1024, 128
+# 15c: the K1/K3 checks at the shard's launch shape compare these many docs
+# against the plain version (the plain scores of a whole shard would need
+# 23 GB); the plain time is the plain version over the whole shard in
+# blocks of that size
+P15_CHECK_DOCS = 2048
+# 15e: prompts a family scores; on one card the ranks' tensor-parallel
+# all-reduces go through the host (gloo), so the card run scores fewer
+P15_PROMPTS = {"nccl": 100, "gloo": 10}
+# 15a/15b/15d/15e: a rank's result against the one-process result on the
+# same card and weights. 15b: the same batches through the same kernels;
+# 15d: bf16 GEMMs of 25 rows in place of 100 may pick other kernels (a few
+# bf16 spacings); 15e: tensor-parallel products sum two bf16 halves where
+# one GEMM sums all (the same order of error as bf16 itself, P_YES_TOL)
+P15_ENC_ATOL = 2 ** -7
+P15_RERANK_ATOL = 0.05
+P15_RANK_TIMEOUT = 600
+P15_CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_p15"
+P15_CLI_STEPS = 10
+# 15a: warm steps timed after the checked step and the NaN batch, where the
+# ranks have a card each (on one card a gloo step takes seconds)
+P15_TIMED_STEPS = {"nccl": 5, "gloo": 0}
+# phase 3's and 4's traffic: 8 queries of 32 tokens and a 224-pixel image,
+# token matrices of dim 128; 100 candidates of 512 tokens a query
+P15_QUERIES, P15_Q_TOKENS, P15_IMAGE, P15_DIM, P15_RERANK_L = 8, 32, 224, 128, 512
+
+
+def _p15_wall(mesh, fn):
+    """(result, seconds) of ``fn()`` on every rank, between two barriers."""
+    mesh.barrier()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    mesh.barrier()
+    return out, time.perf_counter() - t
+
+
+def _p15_train_batch():
+    """Phase 8's global batch: 16 queries x (1 + 1) docs of 256 tokens."""
+    rng = np.random.default_rng(SEED + 15)
+    B, NW, LQ, LD = TRAIN_B, TRAIN_NWAY, TRAIN_LQ, TRAIN_LD
+    return dict(
+        query_input_ids=rng.integers(1000, 29000, size=(B, LQ)),
+        query_attention_mask=np.ones((B, LQ), np.int64),
+        query_pixel_values=rng.normal(size=(B, 3, P15_IMAGE, P15_IMAGE)).astype(np.float32),
+        context_input_ids=rng.integers(1000, 29000, size=(B * NW, LD)),
+        context_attention_mask=np.ones((B * NW, LD), np.int64))
+
+
+def _p15_train(batch, mesh=None, timed_steps=0):
+    """One phase-8 step (fp32, AdamW, the vision tower frozen) over
+    ``batch`` (the global batch; each rank keeps its rows) from the seed's
+    weights, on one process (``mesh`` None) or over ``mesh`` (split over
+    its model axis when it has one). Returns the metrics, each checked
+    leaf's averaged gradient, its value before and after (whole), whether
+    the vision tower stayed bitwise and the (cold) step's seconds; then one
+    batch with a NaN pixel in the first query (one data shard) must be
+    skipped; then ``timed_steps`` more steps, each timed."""
+    from reranking_multimodal_retrievers_tpu_torch.models import FLMRModelForRetrieval
+    from reranking_multimodal_retrievers_tpu_torch.parallel import shard_batch, tp_shard_module
+    from reranking_multimodal_retrievers_tpu_torch.parallel.tensor_parallel import gather_param
+    from reranking_multimodal_retrievers_tpu_torch.training import TrainState, make_train_step
+
+    model = FLMRModelForRetrieval(flmr_train_config(), device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(SEED))
+    opt, sched, labels = flmr_optimizer(model)
+    tp = mesh is not None and mesh.n_model > 1
+    if tp:
+        tp_shard_module(mesh, model, opt)
+    leaves = {n: model.get_parameter(n) for n in FLMR_CHECKED_LEAVES}
+    before = {n: gather_param(p).cpu().clone() for n, p in leaves.items()}
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if labels[n] == "frozen"}
+    grads = {}
+    hook = opt.register_step_pre_hook(lambda *a: grads.update(
+        {n: gather_param(p, p.grad).cpu().clone() for n, p in leaves.items()}))
+    step = make_train_step(model, opt, sched, mesh=mesh, tensor_parallel=tp)
+    state = TrainState.create(model, opt, sched)
+    local = (shard_batch(mesh, batch) if mesh is not None
+             else {k: torch.as_tensor(v).cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    if mesh is not None:
+        (state, met), seconds = _p15_wall(mesh, lambda: step(state, local))
+    else:
+        t = time.perf_counter()
+        state, met = step(state, local)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    hook.remove()
+    out = {"metrics": {k: float(v) for k, v in met.items()}, "grads": grads, "before": before,
+           "after": {n: gather_param(p).cpu().clone() for n, p in leaves.items()},
+           "labels": labels,
+           "frozen_bitwise": all(torch.equal(model.get_parameter(n), v)
+                                 for n, v in frozen.items()),
+           "step_seconds": seconds}
+    if mesh is not None:
+        bad = dict(batch)
+        bad["query_pixel_values"] = batch["query_pixel_values"].copy()
+        bad["query_pixel_values"][0, 0, 0, 0] = np.nan
+        keep = {n: p.detach().clone() for n, p in model.named_parameters()}
+        state, met = step(state, shard_batch(mesh, bad))
+        out["nan_skipped"] = float(met["grads_finite"]) == 0.0 and all(
+            torch.equal(p, keep[n]) for n, p in model.named_parameters())
+        out["local_query_rows"] = int(leaves[FLMR_CHECKED_LEAVES[0]].shape[0])
+    warm = []
+    for _ in range(timed_steps):
+        if mesh is not None:
+            (state, _), seconds = _p15_wall(mesh, lambda: step(state, local))
+        else:
+            t = time.perf_counter()
+            state, _ = step(state, local)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+        warm.append(seconds)
+    out["warm_step_seconds"] = warm
+    del model, opt, sched, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+P15_BERT_KW = dict(use_pallas_attention=True, attention_scores_bf16=True,
+                   gelu_approximate=True)
+
+
+def _p15_flmr_config():
+    """Phase 3's FLMR config: ``use_pallas_attention`` (K2) in BERT."""
+    from reranking_multimodal_retrievers_tpu_torch.models import (
+        BertConfig, CLIPVisionConfig, FLMRConfig)
+
+    return FLMRConfig(text_config=BertConfig(**P15_BERT_KW), vision_config=CLIPVisionConfig(),
+                      dim=128, mapping_network_prefix_length=32,
+                      use_transformer_mapping_network=True,
+                      transformer_mapping_num_hidden_layers=1)
+
+
+def _p15_flmr_bf16():
+    """Phase 3's FLMR in bf16 with the seed's weights."""
+    from reranking_multimodal_retrievers_tpu_torch.models import FLMRModelForRetrieval
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return FLMRModelForRetrieval(_p15_flmr_config(), device="cuda", dtype=torch.bfloat16,
+                                 generator=gen).eval()
+
+
+def _p15_corpus():
+    """Phase 3's 1,024 docs (ids and masks) and 8 queries (32 tokens, an
+    image each)."""
+    rng = np.random.default_rng(SEED)
+    LD = TRAIN_LD
+    dlen = rng.integers(LD // 8, LD + 1, size=P15_ENC_DOCS)
+    d_am = (np.arange(LD)[None, :] < dlen[:, None]).astype(np.int64)
+    d_ids = rng.integers(1000, 29000, size=(P15_ENC_DOCS, LD)) * d_am
+    q_ids = rng.integers(1000, 29000, size=(P15_QUERIES, P15_Q_TOKENS))
+    pix = rng.normal(size=(P15_QUERIES, 3, P15_IMAGE, P15_IMAGE)).astype(np.float32)
+    return d_ids, d_am, q_ids, pix
+
+
+def _p15_encode(flmr, mesh=None):
+    """Phase 3's corpus encode (``encode_corpus``, batches of 128) on one
+    process or over ``mesh``'s data axis."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import encode_corpus
+
+    d_ids, d_am, _, _ = _p15_corpus()
+
+    def doc_fn(batch):
+        out = flmr.doc(batch[0].cuda(), batch[1].cuda())
+        return out.late_interaction_output, out.context_mask
+
+    batches = [(torch.as_tensor(d_ids[i:i + P15_ENC_BATCH]),
+                torch.as_tensor(d_am[i:i + P15_ENC_BATCH]))
+               for i in range(0, P15_ENC_DOCS, P15_ENC_BATCH)]
+    return encode_corpus(doc_fn, batches, [str(i) for i in range(P15_ENC_DOCS)],
+                         device="cuda", mesh=mesh)
+
+
+def _p15_slab(s):
+    """Docs ``[s, s + P15_SLAB)`` of 15c's index: unit vectors and masks of
+    32 to 256 tokens from the slab's own seed; every 1,000th doc whole
+    padding."""
+    n = min(P15_SLAB, P15_DOCS - s)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1000 + s // P15_SLAB)
+    emb = unit(gen, n, TRAIN_LD, P15_DIM)
+    lens = torch.randint(TRAIN_LD // 8, TRAIN_LD + 1, (n,), device="cuda", generator=gen)
+    mask = torch.arange(TRAIN_LD, device="cuda")[None, :] < lens[:, None]
+    mask[(torch.arange(s, s + n, device="cuda") % 1000) == 7] = False
+    return emb, mask
+
+
+def _p15_index(lo, hi):
+    """Rows ``[lo, hi)`` of 15c's index, drawn slab by slab."""
+    emb = torch.empty(hi - lo, TRAIN_LD, P15_DIM, dtype=torch.bfloat16, device="cuda")
+    mask = torch.empty(hi - lo, TRAIN_LD, dtype=torch.bool, device="cuda")
+    for s in range((lo // P15_SLAB) * P15_SLAB, hi, P15_SLAB):
+        e, m = _p15_slab(s)
+        a, b = max(s, lo), min(s + e.shape[0], hi)
+        emb[a - lo:b - lo], mask[a - lo:b - lo] = e[a - s:b - s], m[a - s:b - s]
+    return emb, mask
+
+
+def _p15_reranker():
+    """Phase 4's monoPreFLMR-B reranker in bf16 from its own seed."""
+    from reranking_multimodal_retrievers_tpu_torch.models import BertConfig
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import (
+        FullContextRerankModel, RerankConfig)
+
+    rcfg = RerankConfig(flmr=_p15_flmr_config(), cross_encoder=BertConfig(
+        num_hidden_layers=1, max_position_embeddings=768, **P15_BERT_KW),
+        loss_fn="BCE", max_query_length=P15_Q_TOKENS, max_decoder_source_length=P15_RERANK_L)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    return FullContextRerankModel(rcfg, device="cuda", dtype=torch.bfloat16,
+                                  generator=gen).eval()
+
+
+def _p15_rerank_inputs(candidates):
+    """Phase 4's inputs for 15c's top-100: ``[8 * 100, 512]`` ids, mask and
+    token types, and the 8 queries' pixels."""
+    _, _, q_ids, pix = _p15_corpus()
+    B, K, L, LQT = P15_QUERIES, P15_K, P15_RERANK_L, P15_Q_TOKENS
+    ids = np.zeros((B * K, L), np.int64)
+    am = np.zeros((B * K, L), np.int64)
+    for i in range(B):
+        for j, doc in enumerate(candidates[i]):
+            drng = np.random.default_rng([SEED, int(doc)])
+            n = int(drng.integers(L // 5, L - LQT + 1))
+            ids[i * K + j, :LQT] = q_ids[i]
+            ids[i * K + j, LQT:LQT + n] = drng.integers(1000, 29000, size=n)
+            am[i * K + j, :LQT + n] = 1
+    tt = np.zeros((B * K, L), np.int64)
+    tt[:, LQT:] = 1
+    return (torch.as_tensor(ids).cuda(), torch.as_tensor(am).cuda(), torch.as_tensor(tt).cuda(),
+            torch.as_tensor(pix).cuda().to(torch.bfloat16))
+
+
+def _p15_decoder(is_opt):
+    """Phase 5's or 6's decoder reranker: bf16 on the card from the seed
+    (T5's relative-position tables at std REL_BIAS_STD, as phase 5 draws
+    them)."""
+    from reranking_multimodal_retrievers_tpu_torch.models import OPTConfig, T5Config
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import Blip2DecoderRerankModel
+
+    text = (OPTConfig.opt_2_7b(use_pallas_attention=True) if is_opt
+            else T5Config.flan_t5_xl(use_pallas_attention=True, position_bias_bf16=True))
+    cfg = _decoder_config(text, OPT_YES_NO if is_opt else T5_YES_NO)
+    wgen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = Blip2DecoderRerankModel(cfg, device="cuda", dtype=torch.bfloat16,
+                                    generator=wgen).eval()
+    if not is_opt:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("relative_attention_bias.weight"):
+                    p.copy_(torch.randn(p.shape, device="cuda", generator=wgen) * REL_BIAS_STD)
+    return model, text
+
+
+def _p15_decoder_scores(is_opt, prompts, mesh=None):
+    """p(yes) of the first ``prompts`` of phase 5's (T5) or 6's (OPT) 100,
+    on one process or split over ``mesh`` (dp x tp), and the seconds of the
+    call; with a mesh also K2's check at the rank's launch shape (its heads
+    halved)."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import make_decoder_rerank_fn
+    from reranking_multimodal_retrievers_tpu_torch.parallel import tp_shard_module
+
+    model, text = _p15_decoder(is_opt)
+    if mesh is not None:
+        tp_shard_module(mesh, model)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ids, am, _, pix = _decoder_inputs(is_opt, 50000 if is_opt else 30000)
+    chunk = 5 if is_opt else 10
+    fn = make_decoder_rerank_fn(model, chunk_size=chunk, mesh=mesh)
+    args = (ids[:prompts], am[:prompts], pix.to(torch.bfloat16))
+    fn(*args)  # warm-up
+    if mesh is not None:
+        p_yes, seconds = _p15_wall(mesh, lambda: fn(*args))
+    else:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p_yes = fn(*args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    q_rows = next(int(p.shape[0]) for n, p in model.named_parameters()
+                  if n.endswith(("self_attn.q_proj.weight", "SelfAttention.q.weight")))
+    del model, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return p_yes.float().cpu(), seconds, q_rows, text, chunk
+
+
+def _p15_k2_local(is_opt, text, rows, n_model):
+    """K2 at the rank's launch shape under the tensor-parallel split (``rows``
+    prompts a launch): OPT's causal head_dim 80 or T5's bf16 head bias, at
+    the heads a rank holds."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    Lp = DECODER_L + 32  # the prompt and the 32 query tokens
+    H = (text.num_attention_heads if is_opt else text.num_heads) // n_model
+    hd = text.head_dim if is_opt else text.d_kv
+    q, k, v = (torch.randn(rows, Lp, H * hd, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.randint(Lp // 2, Lp + 1, (rows,), device="cuda", generator=gen)
+    keep = torch.arange(Lp, device="cuda")[None, :] < lens[:, None]
+    bias = torch.where(keep, 0.0, -1e9)
+    if is_opt:
+        causal = torch.ones(Lp, Lp, dtype=torch.bool, device="cuda").tril()
+        return k2_variant(f"causal, head_dim 80, {H} local heads (OPT-2.7b, tp {n_model})",
+                          q, k, v, bias, None, heads=H, scale=hd ** -0.5, causal=True,
+                          sdpa_mask=causal[None, None] & keep[:, None, None, :],
+                          flops=4 * rows * H * (Lp * (Lp + 1) // 2) * hd)
+    head_bias = torch.randn(H, Lp, Lp, device="cuda", generator=gen).to(torch.bfloat16)
+    q = q * 0.125
+    return k2_variant(f"head_bias bf16, {H} local heads (Flan-T5-XL, tp {n_model})",
+                      q, k, v, bias, head_bias, heads=H, scale=1.0, causal=False,
+                      sdpa_mask=(bias[:, None, None, :] + head_bias[None].float()
+                                 ).to(torch.bfloat16),
+                      flops=4 * rows * H * Lp * Lp * hd)
+
+
+def _p15_shard_kernels(Q, D, M, Dq, ds, timed):
+    """K1 and K3 at the shard's launch shape (one launch over all its docs):
+    the first P15_CHECK_DOCS docs' scores against the plain versions; with
+    ``timed``, kernel and plain version (over the whole shard in blocks)
+    timed. Returns (K1 row, K3 row)."""
+    from reranking_multimodal_retrievers_tpu_torch.engine.search import quantize_queries
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import (
+        maxsim_scores, maxsim_scores_reference)
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_int8_cuda import (
+        maxsim_scores_int8, maxsim_scores_int8_reference)
+
+    B, LQ, DIM = Q.shape
+    N, LD, _ = D.shape
+    c = P15_CHECK_DOCS
+    Qq, qs = quantize_queries(Q.float())
+    rows = {}
+    for name, run, plain, args, tol, peak, nbytes in (
+            ("K1", maxsim_scores, maxsim_scores_reference, (Q, D, M), K1_TOL, PEAK_BF16_FLOPS,
+             Q.numel() * 2 + D.numel() * 2 + M.numel() + B * N * 4),
+            ("K3", maxsim_scores_int8, maxsim_scores_int8_reference, (Qq, qs, Dq, ds, M), K3_TOL,
+             PEAK_INT8_OPS, Qq.numel() + qs.numel() * 4 + Dq.numel() + ds.numel() * 4
+             + M.numel() + B * N * 4)):
+        got = run(*args)[:, :c]
+        if name == "K1":
+            ref = plain(Q, D[:c], M[:c])
+        else:
+            ref = plain(Qq, qs, Dq[:c], ds[:c], M[:c])
+        valid = M[:c].any(dim=1)
+        err = (got - ref)[:, valid].abs().max().item()
+        check(err <= tol, f"15c {name} at the shard's shape: max |diff| {err} > {tol}")
+        flops = 2 * B * LQ * N * LD * DIM
+        b_ms, b_by = bound(flops, nbytes, peak)
+        row = dict(shape=[[B, LQ, DIM], [N, LD, DIM]], max_abs_err=err, tol=tol,
+                   checked_docs=c, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if timed:
+            def plain_all():
+                for s in range(0, N, c):
+                    if name == "K1":
+                        plain(Q, D[s:s + c], M[s:s + c])
+                    else:
+                        plain(Qq, qs, Dq[s:s + c], ds[s:s + c], M[s:s + c])
+            ms = cuda_ms(lambda: run(*args), 5)
+            row.update(ms=ms, plain_ms=cuda_ms(plain_all, 1), share_of_bound=b_ms / ms)
+        rows[name] = row
+    return rows["K1"], rows["K3"]
+
+
+def p15_rank(inp):
+    """Phase 15 on one rank: 15a-15e over the process group the launcher
+    made. Returns this rank's results (the large ones on rank 0 only)."""
+    import torch.distributed as dist
+
+    from reranking_multimodal_retrievers_tpu_torch.engine import (
+        QuantizedTokenIndex, TokenIndex, make_chunked_rerank_fn)
+    from reranking_multimodal_retrievers_tpu_torch.engine.search import (
+        make_search_fn, make_search_fn_int8)
+    from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
+    from reranking_multimodal_retrievers_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    main_rank = rank == 0
+    dp = make_mesh(n_data=P15_RANKS)
+    tp = make_mesh(n_data=2, n_model=2)
+    out = {"rank": rank, "device": str(dp.device), "launches": {}}
+
+    # 15a. the FLMR train step at dp 4 and at dp 2 x tp 2
+    reset_counts()
+    a = {name: _p15_train(inp["batch"], mesh, inp["timed_steps"])
+         for name, mesh in (("dp4", dp), ("dp2_tp2", tp))}
+    out["launches"]["15a"] = read_counts()
+    out["15a"] = a if main_rank else {
+        k: {key: v[key] for key in ("metrics", "frozen_bitwise", "nan_skipped",
+                                    "warm_step_seconds")}
+        for k, v in a.items()}
+
+    # 15b. the corpus encode over 4 ranks (K2)
+    flmr = _p15_flmr_bf16()
+    reset_counts()
+    enc, enc_s = _p15_wall(dp, lambda: _p15_encode(flmr, dp))
+    out["launches"]["15b"] = read_counts()
+    out["15b"] = {"emb": enc.embeddings.cpu(), "mask": enc.mask.cpu(), "seconds": enc_s,
+                  "num_padded_docs": enc.num_padded_docs}
+    del flmr, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15c. the 100k index sharded over 4 ranks, bf16 (K1) and int8 (K3) search
+    n_local = P15_DOCS // P15_RANKS
+    lo = dp.data_index * n_local
+    emb, mask = _p15_index(lo, lo + n_local)
+    index = TokenIndex(embeddings=emb, mask=mask, doc_ids=[str(i) for i in range(P15_DOCS)],
+                       mesh=dp)
+    Q = inp["Q"].cuda()
+    reset_counts()
+    bf16_fn = make_search_fn(index.num_padded_docs, P15_K, mesh=dp)
+    (vals, ids), search_s = _p15_wall(dp, lambda: bf16_fn(Q, *index.search_arrays))
+    qindex = QuantizedTokenIndex.from_token_index(index)
+    int8_fn = make_search_fn_int8(qindex.num_padded_docs, P15_K, mesh=dp)
+    (qvals, qids), int8_s = _p15_wall(dp, lambda: int8_fn(Q.float(), *qindex.search_arrays))
+    out["launches"]["15c"] = read_counts()
+    best = {"bf16": [], "int8": []}
+    for _ in range(3):  # the latency: the best of 3 more calls, between barriers
+        best["bf16"].append(_p15_wall(dp, lambda: bf16_fn(Q, *index.search_arrays))[1])
+        best["int8"].append(_p15_wall(
+            dp, lambda: int8_fn(Q.float(), *qindex.search_arrays))[1])
+    k1_row, k3_row = _p15_shard_kernels(Q, emb, mask, qindex.codes, qindex.scales, main_rank)
+    out["15c"] = {"bf16": (vals.cpu(), ids.cpu()), "int8": (qvals.cpu(), qids.cpu()),
+                  "first_seconds": [search_s, int8_s], "seconds": best,
+                  "local_docs": int(emb.shape[0]), "k1": k1_row, "k3": k3_row}
+    del emb, mask, index, qindex, bf16_fn, int8_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15d. phase 4's rerank with its rows over 4 ranks (K2)
+    reranker = _p15_reranker()
+    r_in = _p15_rerank_inputs(inp["candidates"])
+    fn = make_chunked_rerank_fn(reranker, nway=P15_K, chunk_size=P15_K, mesh=dp)
+    fn(*r_in)  # warm-up
+    k2_in = {}
+    reset_counts()
+    with _Recorder() as rec:
+        rec.patch(bert_mod, "fused_self_attention", _first_inputs(k2_in, _k2_bf16_key))
+        logits, rerank_s = _p15_wall(dp, lambda: fn(*r_in))
+    out["launches"]["15d"] = read_counts()
+    out["15d"] = {"logits": logits.float().cpu(), "seconds": rerank_s,
+                  "k2_calls": {key: e["calls"] for key, e in k2_in.items()}}
+    if main_rank:
+        out["15d"]["k2"] = {key: k2_bf16_line(e, f"key bias {list(key[0])}, sharded rerank "
+                                                 "chunk (15d)") for key, e in k2_in.items()}
+    del reranker, fn, r_in, k2_in
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15e. the decoder rerankers at dp 2 x tp 2, one family at a time
+    out["15e"] = {}
+    for family, is_opt in (("blip2_opt_2_7b", True), ("blip2_flan_t5_xl", False)):
+        reset_counts()
+        p_yes, seconds, q_rows, text, chunk = _p15_decoder_scores(is_opt, inp["prompts"], tp)
+        out["launches"][f"15e_{family}"] = read_counts()
+        line = {"p_yes": p_yes, "seconds": seconds, "q_rows": q_rows}
+        if main_rank:
+            from reranking_multimodal_retrievers_tpu_torch.engine.rerank_eval import _pick_chunk
+
+            rows, _ = _pick_chunk(inp["prompts"] // tp.n_data, chunk)
+            line["k2"] = _p15_k2_local(is_opt, text, rows, tp.n_model)
+        out["15e"][family] = line
+    return out
+
+
+def _p15_cli_rank(argv):
+    """15f on one rank: ``cli.main`` with ``--n_devices 4`` inside the
+    launcher's process group (as under ``torchrun``); returns the rank's
+    launch counts, the seconds of each training step and index build, its
+    K1 and fp32 K2 calls at each launch shape and, on rank 0, each
+    shape's kernel row (checked and timed after the run, on the first
+    inputs it got)."""
+    import os
+
+    import torch.distributed as dist
+
+    from reranking_multimodal_retrievers_tpu_torch.cli.main import main as cli_main
+    from reranking_multimodal_retrievers_tpu_torch.engine import search as search_mod
+    from reranking_multimodal_retrievers_tpu_torch.executors import FLMRExecutor
+    from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
+
+    os.environ.pop("RMRT_PLATFORM", None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    steps, index, k1_in, k2_in = [], [], {}, {}
+    reset_counts()
+    with _Recorder() as rec:
+        rec.patch(FLMRExecutor, "training_step", _clock(steps))
+        rec.patch(FLMRExecutor, "build_index", _clock(index))
+        rec.patch(search_mod, "maxsim_scores",
+                  _first_inputs(k1_in, lambda Q, D, M=None, *r: (tuple(Q.shape), tuple(D.shape))))
+        rec.patch(bert_mod, "fused_self_attention", _first_inputs(k2_in, _k2_key))
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    launches = read_counts()
+
+    def name(key, kernel):
+        return f"{'x'.join(map(str, key[0]))} per rank of {P15_RANKS} (15f {kernel})"
+
+    rows = {"k1": [], "k2f32": []}
+    if dist.get_rank() == 0:
+        rows["k1"] = [{**k1_line(*e["args"][:3], name(key, "search")), "key": key}
+                      for key, e in k1_in.items()]
+        rows["k2f32"] = [{**k2f32_line(e, name(key, "encoders")), "key": key}
+                         for key, e in k2_in.items()]
+    return {"rc": rc, "launches": launches, "step_seconds": [t for t, _ in steps],
+            "index_seconds": [t for t, _ in index], "rows": rows,
+            "calls": {"k1": {k: e["calls"] for k, e in k1_in.items()},
+                      "k2f32": {k: e["calls"] for k, e in k2_in.items()}}}
+
+
+def p15_cli(smi, cards, backend):
+    """15f: ``cli.main --n_devices 4`` over phase 11's synthetic data at full
+    width (4 cards: one rank a card, NCCL); FLMR train 10 steps then test,
+    the reranker's test over that dump; against one process. On fewer than
+    4 cards: the overask error. Returns (line, launch counts, K1 and fp32 K2
+    rows at its launch shapes)."""
+    from reranking_multimodal_retrievers_tpu_torch.cli.main import main as cli_main
+    from reranking_multimodal_retrievers_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    global CLI_DIR
+    if cards < P15_RANKS:
+        try:
+            cli_main(["--config", str(CONFIGS / FLMR_CONFIG), "--mode", "train",
+                      "--n_devices", str(P15_RANKS)])
+        except ValueError as e:
+            check("devices" in str(e), f"15f: not the overask error: {e}")
+            return {"phase": "p15f_cli", "card": smi, "cards": cards,
+                    "overask_error": str(e),
+                    "four_card_run": f"not made: {cards} card(s) on this machine",
+                    "seconds": time.perf_counter() - t0}, {}, {"k1": [], "k2f32": []}
+        check(False, "15f: --n_devices 4 on fewer cards did not raise")
+    saved = CLI_DIR
+    CLI_DIR = P15_CLI_DIR
+    shutil.rmtree(P15_CLI_DIR, ignore_errors=True)
+    try:
+        def exp_dir(config, version):
+            with open(CONFIGS / config) as f:
+                name = json.load(f)["meta"]["experiment_name"]
+            return P15_CLI_DIR / "experiments" / name / f"version_{version}"
+
+        def argv(config, mode, *opts):
+            return ["--config", str(CONFIGS / config), "--mode", mode, "--opts",
+                    *_cli_opts(), *opts]
+
+        steps = f"train.trainer_paras.limit_train_batches={P15_CLI_STEPS}"
+        four_dir = exp_dir(FLMR_CONFIG, 1)
+        rr_dir = exp_dir(RERANK_CONFIG, 0)
+        runs, launches, clocks, rows = {}, {}, {}, {"k1": [], "k2f32": []}
+
+        def ranks(name, args):
+            t1 = time.perf_counter()
+            res = spawn(_p15_cli_rank, P15_RANKS, (args + ["--n_devices", str(P15_RANKS)],),
+                        device_type="cuda", timeout=P15_RANK_TIMEOUT)
+            runs[name] = time.perf_counter() - t1
+            check(all(r["rc"] == 0 for r in res), f"15f {name}: exit codes {res}")
+            launches[f"15f_{name}"] = {k: sum(r["launches"][k] for r in res)
+                                       for k in res[0]["launches"]}
+            clocks[name] = res[0]
+            for kind in ("k1", "k2f32"):  # each shape's launches over the ranks
+                for row in res[0]["rows"][kind]:
+                    key = row.pop("key")
+                    rows[kind].append({**row, "launches": sum(r["calls"][kind].get(key, 0)
+                                                              for r in res)})
+
+        # one process's first step, then 4 ranks' training
+        t1 = time.perf_counter()
+        _cli(FLMR_CONFIG, "train", "train.trainer_paras.limit_train_batches=1")
+        one_train = _metrics_lines(exp_dir(FLMR_CONFIG, 0))
+        one_s = time.perf_counter() - t1
+        ranks("train", argv(FLMR_CONFIG, "train", steps))
+        # the test of the 4 ranks' checkpoint: its first batch on one
+        # process, then all of it on 4 ranks (K1, fp32 K2)
+        test_opts = (f"meta.experiment_dir='{four_dir}'",
+                     "model_config.flmr.text_config.use_pallas_attention=true")
+        t1 = time.perf_counter()
+        _cli(FLMR_CONFIG, "test", *test_opts, "test.trainer_paras.limit_test_batches=1")
+        one_dump = _dump(four_dir)
+        one_s += time.perf_counter() - t1
+        ranks("test", argv(FLMR_CONFIG, "test", *test_opts))
+        ranks("rerank_test", argv(RERANK_CONFIG, "test",
+                                  "model_config.cross_encoder.use_pallas_attention=true",
+                                  "model_config.retrieve_result_path="
+                                  f"'{four_dir / 'test_predictions_rank_0.json'}'"))
+        one = (one_train, one_dump)
+        four = (_metrics_lines(four_dir), _dump(four_dir))
+        first = [m for m in four[0] if m.get("step") == 1 and "ib_loss" in m]
+        want = [m for m in one[0] if m.get("step") == 1 and "ib_loss" in m][0]
+        check(len(first) == 1, f"15f: {len(first)} first-step lines (rank 0 writes alone)")
+        loss_err = max(loss_rel_err(first[0][k], want[k]) for k in ("loss", "ib_loss"))
+        check(loss_err <= CLI_LOSS_TOL, f"15f first step {first[0]} vs one process {want}")
+        worst = 0.0
+        for got, ref in zip(four[1]["predictions"][:8], one[1]["predictions"][:8]):
+            gv = np.array([[d["score"] for d in got["top_ranking_passages"]]])
+            wv = np.array([[d["score"] for d in ref["top_ranking_passages"]]])
+            gi = [[d["passage_id"] for d in got["top_ranking_passages"]]]
+            wi = [[d["passage_id"] for d in ref["top_ranking_passages"]]]
+            pos = {p: i for i, p in enumerate(sorted(set(gi[0]) | set(wi[0])))}
+            worst = max(worst, same_top_k(gv, np.array([[pos[p] for p in gi[0]]]), wv,
+                                          np.array([[pos[p] for p in wi[0]]]),
+                                          atol=PLAID_ATOL, rtol=PLAID_RTOL))
+        ckpts = sorted(p.name for p in (four_dir / "ckpts").iterdir())
+        check(not exp_dir(FLMR_CONFIG, 2).exists(), "15f: a rank made its own experiment")
+        rr_dump = _dump(rr_dir)
+        check(len(rr_dump["predictions"]) == 500, "15f: the rerank dump")
+        check(sum(launches["15f_train"].values()) == 0,
+              f"15f training launched kernels: {launches['15f_train']}")
+        check(launches["15f_test"]["K1"] > 0 and launches["15f_test"]["K2f32"] > 0
+              and launches["15f_rerank_test"]["K2f32"] > 0, f"15f launches {launches}")
+        steps_s = [m for m in four[0] if m.get("step") == P15_CLI_STEPS]
+        return {"phase": "p15f_cli", "card": smi, "cards": cards, "backend": backend,
+                "ranks": P15_RANKS, "one_process_seconds": one_s, "run_seconds": runs,
+                "train_steps_per_s": _steps_per_s([(t, None) for t in
+                                                   clocks["train"]["step_seconds"]]),
+                "train_step_seconds_rank0": clocks["train"]["step_seconds"],
+                "index_seconds_rank0": clocks["test"]["index_seconds"],
+                "index_docs_per_s": 30_000 / sum(clocks["test"]["index_seconds"]),
+                "first_step_rank0": {k: first[0][k] for k in ("loss", "ib_loss")},
+                "first_step_one_process": {k: want[k] for k in ("loss", "ib_loss")},
+                "first_step_rel_err": loss_err, "tol": CLI_LOSS_TOL,
+                "top100_max_abs_err_first_8": worst, "checkpoints": ckpts,
+                "train_logged_last_step": bool(steps_s), "launches": launches,
+                "seconds": time.perf_counter() - t0}, launches, rows
+    finally:
+        CLI_DIR = saved
+        shutil.rmtree(P15_CLI_DIR, ignore_errors=True)
+
+
+def p15_phases(smi):
+    """Phase 15: the one-process references on this card, then 15a-15e on
+    4 ranks (one spawn), each held against its reference, then 15f.
+    Returns (lines, kernel rows, launch counts of each part)."""
+    from reranking_multimodal_retrievers_tpu_torch.parallel.launch import choose_backend, spawn
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    backend = choose_backend("cuda", P15_RANKS)
+    layout = ("one rank a card" if backend == "nccl"
+              else f"{P15_RANKS} ranks sharing {cards} card(s)")
+    prompts = P15_PROMPTS[backend]
+    lines = []
+
+    # -- the one-process references
+    t1 = time.perf_counter()
+    batch = _p15_train_batch()
+    ref_a = _p15_train(batch, timed_steps=P15_TIMED_STEPS[backend])
+    flmr = _p15_flmr_bf16()
+    ref_b = _p15_encode(flmr)
+    _, _, q_ids, pix = _p15_corpus()
+    with torch.inference_mode():
+        Q = flmr.query(torch.as_tensor(q_ids).cuda(), torch.ones(q_ids.shape, dtype=torch.long,
+                                                                 device="cuda"),
+                       pixel_values=torch.as_tensor(pix).cuda().to(torch.bfloat16)
+                       ).late_interaction_output
+    del flmr
+    from reranking_multimodal_retrievers_tpu_torch.engine import (
+        QuantizedTokenIndex, TokenIndex, make_chunked_rerank_fn)
+    from reranking_multimodal_retrievers_tpu_torch.engine.search import (
+        make_search_fn, make_search_fn_int8)
+
+    emb, mask = _p15_index(0, P15_DOCS)
+    index = TokenIndex(embeddings=emb, mask=mask, doc_ids=[str(i) for i in range(P15_DOCS)])
+    ref_c = {"bf16": make_search_fn(P15_DOCS, P15_K)(Q, emb, mask)}
+    qindex = QuantizedTokenIndex.from_token_index(index)
+    ref_c["int8"] = make_search_fn_int8(P15_DOCS, P15_K)(Q.float(), *qindex.search_arrays)
+    one_search_ms = cuda_ms(lambda: make_search_fn(P15_DOCS, P15_K)(Q, emb, mask), 3)
+    del emb, mask, index, qindex
+    candidates = ref_c["bf16"][1].cpu().numpy()
+    reranker = _p15_reranker()
+    r_in = _p15_rerank_inputs(candidates)
+    ref_d = make_chunked_rerank_fn(reranker, nway=P15_K, chunk_size=P15_K)(*r_in).float().cpu()
+    del reranker, r_in
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_e = {"blip2_opt_2_7b": _p15_decoder_scores(True, prompts),
+             "blip2_flan_t5_xl": _p15_decoder_scores(False, prompts)}
+    ref_s = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15a-15e on 4 ranks
+    t1 = time.perf_counter()
+    res = spawn(p15_rank, P15_RANKS, ({"batch": batch, "Q": Q.cpu(), "candidates": candidates,
+                                       "prompts": prompts,
+                                       "timed_steps": P15_TIMED_STEPS[backend]},),
+                device_type="cuda", timeout=P15_RANK_TIMEOUT)
+    ranks_s = time.perf_counter() - t1
+    r0 = res[0]
+    parts = {k: {n: sum(r["launches"][k][n] for r in res) for n in r0["launches"][k]}
+             for k in r0["launches"]}
+    base = {"card": smi, "cards": cards, "backend": backend, "layout": layout,
+            "ranks": P15_RANKS, "devices": [r["device"] for r in res]}
+    info = "time-shares one card: times are information only" if backend == "gloo" else None
+
+    # 15a
+    check(sum(parts["15a"].values()) == 0, f"15a launched kernels: {parts['15a']}")
+    lr = {"main": 1e-5, "mapping": 1e-4}
+    a_line = {"phase": "p15a_train_flmr", **base, "global_batch": [TRAIN_B, TRAIN_NWAY, TRAIN_LD],
+              "one_process_step_seconds": ref_a["step_seconds"],
+              "one_process_warm_step_seconds": ref_a["warm_step_seconds"],
+              "one_process_examples_per_s": (TRAIN_B / float(np.median(ref_a["warm_step_seconds"]))
+                                             if ref_a["warm_step_seconds"] else None),
+              "layouts": {}}
+    for name in ("dp4", "dp2_tp2"):
+        for r in res:
+            got = r["15a"][name]
+            errs = {k: loss_rel_err(got["metrics"][k], ref_a["metrics"][k])
+                    for k in ("loss", "ib_loss")}
+            check(max(errs.values()) <= TRAIN_LOSS_TOL,
+                  f"15a {name} rank {r['rank']}: {got['metrics']} vs {ref_a['metrics']}")
+            check(got["frozen_bitwise"], f"15a {name} rank {r['rank']}: the vision tower moved")
+            check(got["nan_skipped"], f"15a {name} rank {r['rank']}: the NaN batch was taken")
+        got = r0["15a"][name]
+        leaves = {n: check_first_update(n, lr[ref_a["labels"][n]], ref_a["before"][n],
+                                        got["after"][n], got["grads"][n], ref_a["after"][n],
+                                        ref_a["grads"][n]) for n in FLMR_CHECKED_LEAVES}
+        check(all(torch.equal(got["before"][n], ref_a["before"][n]) for n in FLMR_CHECKED_LEAVES),
+              f"15a {name}: the ranks drew other weights")
+        a_line["layouts"][name] = {
+            "metrics_rank0": got["metrics"], "loss_rel_err": errs, "leaves": leaves,
+            "cold_step_seconds": got["step_seconds"],
+            "warm_step_seconds": got["warm_step_seconds"],
+            "examples_per_s": (TRAIN_B / float(np.median(got["warm_step_seconds"]))
+                               if got["warm_step_seconds"] else None),
+            "query_weight_rows_rank0": got["local_query_rows"]}
+    a_line.update(loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL, note=info,
+                  launches=parts["15a"], nan_batch_skipped_by_every_rank=True,
+                  vision_tower_bitwise=True)
+    lines.append(a_line)
+
+    # 15b
+    check(parts["15b"]["K2"] > 0, f"15b launches {parts['15b']}")
+    blocks = [(r["15b"]["emb"], r["15b"]["mask"]) for r in res]
+    enc_emb = torch.cat([b[0] for b in blocks])[:P15_ENC_DOCS]
+    enc_mask = torch.cat([b[1] for b in blocks])[:P15_ENC_DOCS]
+    ref_emb, ref_mask = ref_b.embeddings.cpu(), ref_b.mask.cpu()
+    enc_err = (enc_emb.float() - ref_emb.float()).abs().max().item()
+    check(torch.equal(enc_mask, ref_mask) and enc_err <= P15_ENC_ATOL,
+          f"15b: the sharded index off the one-process index by {enc_err}")
+    lines.append({"phase": "p15b_encode_corpus", **base, "docs": P15_ENC_DOCS,
+                  "docs_per_rank": int(blocks[0][0].shape[0]), "max_abs_err": enc_err,
+                  "bitwise": torch.equal(enc_emb, ref_emb), "tol": P15_ENC_ATOL,
+                  "seconds_4_ranks": r0["15b"]["seconds"],
+                  "docs_per_s": P15_ENC_DOCS / r0["15b"]["seconds"], "note": info,
+                  "launches": parts["15b"]})
+    del ref_b, blocks
+
+    # 15c
+    check(parts["15c"]["K1"] > 0 and parts["15c"]["K3"] > 0, f"15c launches {parts['15c']}")
+    c_line = {"phase": "p15c_sharded_search", **base, "index": [P15_DOCS, TRAIN_LD, P15_DIM],
+              "docs_per_rank": r0["15c"]["local_docs"], "k": P15_K,
+              "one_process_search_ms": one_search_ms}
+    for kind, tol in (("bf16", K1_TOL), ("int8", K3_TOL)):
+        want_v, want_i = (t.cpu().numpy() for t in ref_c[kind])
+        err = 0.0
+        for r in res:
+            gv, gi = (t.numpy() for t in r["15c"][kind])
+            check(np.array_equal(gi, res[0]["15c"][kind][1].numpy()),
+                  f"15c {kind}: ranks disagree")
+            err = max(err, same_top_k(gv, gi, want_v, want_i, atol=tol, rtol=0))
+        c_line[f"{kind}_max_abs_err"] = err
+        c_line[f"{kind}_identical_ids"] = int(np.array_equal(gi, want_i))
+        c_line[f"{kind}_search_ms_best_of_3"] = min(r0["15c"]["seconds"][kind]) * 1e3
+    c_line.update(first_call_seconds=r0["15c"]["first_seconds"], note=info,
+                  launches=parts["15c"])
+    lines.append(c_line)
+
+    # 15d
+    check(parts["15d"]["K2"] > 0, f"15d launches {parts['15d']}")
+    d_err = max((r["15d"]["logits"] - ref_d).abs().max().item() for r in res)
+    check(d_err <= P15_RERANK_ATOL, f"15d: sharded logits off the one-process logits by {d_err}")
+    lines.append({"phase": "p15d_sharded_rerank", **base, "queries": P15_QUERIES,
+                  "candidates": P15_K, "seq_len": P15_RERANK_L,
+                  "rows_per_rank_per_chunk": P15_K // P15_RANKS,
+                  "max_abs_err": d_err, "tol": P15_RERANK_ATOL,
+                  "seconds": r0["15d"]["seconds"],
+                  "candidates_per_s": P15_QUERIES * P15_K / r0["15d"]["seconds"], "note": info,
+                  "launches": parts["15d"]})
+
+    # 15e
+    e_rows = []
+    for family, (ref_p, ref_sec, full_rows, _, chunk) in ref_e.items():
+        key = f"15e_{family}"
+        check(parts[key]["K2"] > 0, f"{key} launches {parts[key]}")
+        err = max((r["15e"][family]["p_yes"] - ref_p).abs().max().item() for r in res)
+        check(err <= P_YES_TOL, f"{key}: p(yes) off the one-process scores by {err}")
+        check(r0["15e"][family]["q_rows"] * 2 == full_rows, f"{key}: the q projection not split")
+        k2 = r0["15e"][family]["k2"]
+        emit({"phase": "kernel_check", "kernel": "K2 fused_self_attention", "card": smi, **k2})
+        e_rows.append({**k2, "launches": parts[key]["K2"]})
+        lines.append({"phase": f"p15e_{family}", **base, "mesh": "dp 2 x tp 2",
+                      "prompts": prompts, "chunk_rows": chunk, "max_abs_err": err,
+                      "tol": P_YES_TOL, "seconds": r0["15e"][family]["seconds"],
+                      "one_process_seconds": ref_sec,
+                      "candidates_per_s": prompts / r0["15e"][family]["seconds"],
+                      "note": info, "launches": parts[key]})
+
+    # 15f
+    line, f_parts, f_rows = p15_cli(smi, cards, backend)
+    lines.append(line)
+    parts.update(f_parts)
+    lines.append({"phase": "p15_ranks", **base, "references_seconds": ref_s,
+                  "ranks_seconds": ranks_s, "seconds": time.perf_counter() - t0})
+    rows = {"k1": [{**r0["15c"]["k1"], "launches": parts["15c"]["K1"],
+                    "variant": f"per shard of {P15_RANKS} (15c)"}],
+            "k3": [{**r0["15c"]["k3"], "launches": parts["15c"]["K3"],
+                    "variant": f"per shard of {P15_RANKS} (15c)"}],
+            # the calls at each shape, summed over the ranks
+            "k2": [{**row, "launches": sum(r["15d"]["k2_calls"].get(key, 0) for r in res)}
+                   for key, row in r0["15d"]["k2"].items()] + e_rows}
+    rows["k1"] += f_rows["k1"]
+    rows["k2f32"] = f_rows["k2f32"]
+    return lines, rows, parts
+
+
+def p15_kernel_rows(rows, parts):
+    """Phase 15's rows of the ``kernels`` line: (each kernel's launches over
+    phase 15's ranks, their counts summed; the rows of its launch shapes:
+    K1 and K3 at the shard's, K2 at the sharded rerank's chunk and at the
+    decoders' local heads, K1 and fp32 K2 at 15f's)."""
+    csrc = "reranking_multimodal_retrievers_tpu_torch/csrc/"
+    pallas = "reranking_multimodal_retrievers_tpu/ops/"
+    k1 = dict(route="cuda", source=csrc + "maxsim.cu", replaces=pallas + "maxsim_pallas.py:67")
+    k3 = dict(route="cuda", source=csrc + "maxsim_int8.cu",
+              replaces=pallas + "maxsim_pallas.py:183")
+    k2 = dict(route="cuda", source=csrc + "attention.cu",
+              replaces=pallas + "attention_pallas.py:95")
+    k2f32 = dict(k2, source=csrc + "attention_f32.cu")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def total(name):
+        return sum(p[name] for p in parts.values())
+
+    totals = [dict(name=f"{fn} (phase 15)", launches=total(counter), **where,
+                   **{k: rows[key][0][k] for k in keys})
+              for fn, counter, where, key in (
+                  ("maxsim_scores", "K1", k1, "k1"), ("maxsim_scores_int8", "K3", k3, "k3"),
+                  ("fused_self_attention", "K2", k2, "k2"),
+                  ("fused_self_attention fp32", "K2f32", k2f32, "k2f32"))
+              if rows[key]]
+    per_shape = [dict(name=f"{fn} {r['variant']}", **where, **r)
+                 for fn, where, key in (
+                     ("maxsim_scores", k1, "k1"), ("maxsim_scores_int8", k3, "k3"),
+                     ("fused_self_attention", k2, "k2"),
+                     ("fused_self_attention fp32", k2f32, "k2f32"))
+                 for r in rows[key]]
+    return totals, per_shape
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4222,6 +5111,15 @@ def main() -> int:
           "attention_f32_sass": sass, "seconds": time.perf_counter() - t0})
     if "--probe-t5-init" in sys.argv[1:]:
         emit(t5_init_probe(smi))
+        return 0
+    if sys.argv[1:3] == ["--phase", "15"]:  # phases 0, 1 and 15 alone
+        lines, p15_rows, p15_parts = p15_phases(smi)
+        for line in lines:
+            emit(line)
+        totals, per_shape = p15_kernel_rows(p15_rows, p15_parts)
+        emit({"kernels": totals + per_shape, "not_ported": [], "phases_run": [0, 1, 15]})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
         return 0
 
     # ---- 2. each kernel against its plain version, at main-path shapes
@@ -4541,11 +5439,24 @@ def main() -> int:
     del p3d_carry
     emit({"phase": "tools", "seconds": time.perf_counter() - t0})
 
+    # ---- 15. several ranks (main path): the train step at dp 4 and dp 2 x
+    # tp 2, the corpus encode, the 100k search, the rerank and the decoder
+    # rerankers sharded over 4 ranks, each against one process; the CLI's
+    # --n_devices 4 (its overask error on fewer than 4 cards)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines, p15_rows, p15_parts = p15_phases(smi)
+    for line in lines:
+        emit(line)
+    emit({"phase": "ranks", "seconds": time.perf_counter() - t0})
+
     # ---- 7. the kernels line and the result
     torch.cuda.synchronize()
     phases = (retrieve_launches, p3d_launches, int8_launches, stream_launches, rerank_launches,
               w8a8_launches, plaid_launches, pooled_launches, baleen_launches, triples_launches,
-              *cli_parts.values(), *p12_parts.values(), *p13_parts.values(), p14_launches)
+              *cli_parts.values(), *p12_parts.values(), *p13_parts.values(), p14_launches,
+              *p15_parts.values())
 
     def launches(name):
         return sum(p[name] for p in phases)
@@ -4611,6 +5522,7 @@ def main() -> int:
                source="reranking_multimodal_retrievers_tpu_torch/csrc/attention_f32.cu",
                replaces=attention, **row)
           for row in k2f32_rows + k2f32_p12 + k2f32_p13 + k2f32_p14 + k2f32_extra),
+        *p15_kernel_rows(p15_rows, p15_parts)[1],
     ], "not_ported": []})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -11,6 +11,13 @@ card, or on the CPU when ``RMRT_PLATFORM=cpu`` is set (the JAX CLI's own
 switch; ``device.py::platform_device``); without a card and without that
 variable they raise rather than run on the CPU.
 
+``--n_devices N`` (N > 1) runs the mode data-parallel over N ranks, one a
+device (``parallel/launch.py``): N cards over NCCL, or with
+``RMRT_PLATFORM=cpu`` N CPU ranks over gloo. Under an outside launcher
+(``torchrun``: ``WORLD_SIZE`` set) the process joins that launcher's group
+instead of starting ranks. N above the visible cards raises the mesh's
+overask error.
+
 Usage:
   python -m reranking_multimodal_retrievers_tpu_torch.cli.main \
       --config configs/okvqa_flmr.json --mode train \
@@ -36,7 +43,7 @@ def parse_sys_args(argv=None):
     p.add_argument("--reset", action="store_true",
                    help="wipe the experiment folder before running")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="number of devices (only 1 is ported)")
+                   help="mesh size: ranks to start, one a device (default 1)")
     p.add_argument("--opts", nargs="*", default=[],
                    help="dot-path overrides: a.b.c=value")
     return p.parse_args(argv)
@@ -78,25 +85,62 @@ def main(argv=None):
         print(f"prepared {len(outputs)} output nodes: {list(outputs)}")
         return 0
 
+    mesh = None
     if args.n_devices and args.n_devices > 1:
-        from ..executors.base import MULTI_DEVICE_TODO
-
-        raise NotImplementedError(MULTI_DEVICE_TODO)
-    device = platform_device()
+        mesh = _join_mesh(args, argv)
+        if mesh is None:  # the ranks ran the mode
+            return 0
+        device = mesh.device
+        if not mesh.is_main:  # rank 0 speaks for all
+            logging.getLogger().setLevel(logging.WARNING)
+    else:
+        device = platform_device()
 
     from ..executors.experiment import Experiment
 
     exp = Experiment(config, use_dummy_data=args.use_dummy_data, reset=args.reset,
-                     device=device)
+                     device=device, mesh=mesh)
+    speak = mesh is None or mesh.is_main
     if args.mode == "train":
         exp.train()
     elif args.mode == "test":
         results = exp.test()
-        print("test metrics:", dict(results.metrics))
+        if speak:
+            print("test metrics:", dict(results.metrics))
     elif args.mode == "eval":
         results = exp.eval()
-        print("eval metrics:", dict(results.metrics))
+        if speak:
+            print("eval metrics:", dict(results.metrics))
     return 0
+
+
+def _join_mesh(args, argv):
+    """The mesh of this rank when the process runs under a launcher (ours
+    or ``torchrun``); else start ``--n_devices`` ranks that run ``main``
+    themselves, wait for them, and return None."""
+    import os
+
+    import torch
+
+    from ..parallel.launch import init_from_env, spawn
+    from ..parallel.mesh import check_fits, make_mesh
+
+    n = args.n_devices
+    plat = os.environ.get("RMRT_PLATFORM")
+    if plat and plat != "cpu":
+        platform_device()  # raises, naming the variable
+    device_type = "cpu" if plat == "cpu" else "cuda"
+    if device_type == "cuda":
+        check_fits(n, 1, torch.cuda.device_count())
+    if "WORLD_SIZE" in os.environ:
+        init_from_env(device_type)
+        return make_mesh(n_data=n)
+    env = {}
+    if device_type == "cpu" and "OMP_NUM_THREADS" not in os.environ:
+        env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // n))
+    spawn(main, n, (list(sys.argv[1:]) if argv is None else list(argv),),
+          device_type=device_type, env=env, timeout=None)
+    return None
 
 
 if __name__ == "__main__":

@@ -80,7 +80,7 @@ def pool_doc_tokens(emb: torch.Tensor, mask: torch.Tensor, factor: int = 2,
 def pool_index(index: TokenIndex, factor: int = 2, iters: int = 4,
                batch: Optional[int] = None) -> TokenIndex:
     """A pooled copy of a :class:`TokenIndex` (``factor``x fewer doc tokens)
-    on the index's device.
+    on the index's device, with the index's mesh (each rank pools its block).
 
     ``batch`` bounds the working set of one call (``[batch, L_d, L_p]``
     similarities and the fp32 copy of the batch); defaults to the whole
@@ -94,4 +94,5 @@ def pool_index(index: TokenIndex, factor: int = 2, iters: int = 4,
         for s in range(0, N, batch):
             pooled[s:s + batch], pmask[s:s + batch] = pool_doc_tokens(
                 emb[s:s + batch], mask[s:s + batch], factor=factor, iters=iters)
-    return TokenIndex.from_arrays(pooled, pmask, index.doc_ids, device=emb.device)
+    return TokenIndex(embeddings=pooled.to(torch.bfloat16).contiguous(),
+                      mask=pmask.contiguous(), doc_ids=list(index.doc_ids), mesh=index.mesh)

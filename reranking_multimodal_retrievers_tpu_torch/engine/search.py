@@ -9,6 +9,13 @@ Scoring goes through kernel K1 (``ops/maxsim_cuda.py``) for a bf16
 package's Mosaic limits (the 2^23-token slab assert, the VMEM tile budget
 and the %8/%128 alignment gate) do not apply: the kernels take any shape
 (K3 any ``dim % 32 == 0``), and slabs only bound the size of one launch.
+
+Over a mesh (``parallel/``) the index is sharded over the data axis
+(``engine/index.py``): each rank searches its block through K1 or K3, offsets
+its ids by its block's start, and the ranks' ``[B, k]`` values and ids are
+all-gathered and merged in the JAX package's order (``[W, B, k] -> [B, W*k]``,
+then a top-k that keeps the lower position first among equal values, as
+``jax.lax.top_k`` does). Every rank ends with the same result.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from ..ops.maxsim import MASK_FILL_VALUE
 from ..ops.maxsim_cuda import maxsim_scores
 from ..ops.maxsim_int8_cuda import maxsim_scores_int8
 from ..ops.quant import quantize_rows
+from ..parallel.mesh import all_gather
 from .index import QuantizedTokenIndex, TokenIndex
 
 SLAB_DOCS = 32768  # docs scored per kernel launch
@@ -90,30 +98,57 @@ def quantize_queries(Q):
     return Qq, qscale[..., 0].contiguous()
 
 
+def _merge(vals, idx, k: int, mesh):
+    """The global top-k from each rank's local ``(vals, idx)`` ``[B, k_l]``
+    (global ids): gathered
+    ``[W, B, k_l] -> [B, W*k_l]`` and ranked with a stable sort, so that
+    equal values keep their gathered order (``jax.lax.top_k``'s)."""
+    B = vals.shape[0]
+    g = mesh.data_group
+    all_vals = all_gather(vals[None], g).movedim(0, 1).reshape(B, -1)
+    all_idx = all_gather(idx[None], g).movedim(0, 1).reshape(B, -1)
+    top, pos = torch.sort(all_vals, dim=1, descending=True, stable=True)
+    k = min(k, all_vals.shape[1])
+    return top[:, :k], torch.gather(all_idx, 1, pos[:, :k])
+
+
 def make_search_fn(n_padded_docs: int, k: int, score_dtype=torch.float32,
-                   unpadded: bool = False):
+                   unpadded: bool = False, mesh=None):
     """The search program for an index of ``n_padded_docs`` docs:
-    ``fn(Q, D, M) -> (values [B, k], indices [B, k])``."""
-    k_eff = min(k, n_padded_docs)
+    ``fn(Q, D, M) -> (values [B, k], indices [B, k])``. With ``mesh``,
+    ``D`` and ``M`` are the rank's block of ``n_padded_docs / n_data`` docs,
+    ``Q`` the same on every rank, and so is the result."""
+    sharded = mesh is not None and mesh.n_data > 1
+    n_local = n_padded_docs // mesh.n_data if sharded else n_padded_docs
+    k_eff = min(k, n_local)
 
     def search_fn(Q, D, M):
         with torch.inference_mode():
-            return _local_search(Q, D, M, k=k_eff, score_dtype=score_dtype,
-                                 unpadded=unpadded)
+            vals, idx = _local_search(Q, D, M, k=k_eff, score_dtype=score_dtype,
+                                      unpadded=unpadded)
+            if not sharded:
+                return vals, idx
+            return _merge(vals, idx + mesh.data_index * n_local, k, mesh)
 
     return search_fn
 
 
-def make_search_fn_int8(n_padded_docs: int, k: int, unpadded: bool = False):
+def make_search_fn_int8(n_padded_docs: int, k: int, unpadded: bool = False, mesh=None):
     """The search program for a QuantizedTokenIndex of ``n_padded_docs``
     docs: ``fn(Q, codes, scales, M) -> (values [B, k], indices [B, k])``
-    with ``Q`` still float; its rows are quantized inside."""
-    k_eff = min(k, n_padded_docs)
+    with ``Q`` still float; its rows are quantized inside. ``mesh`` as in
+    :func:`make_search_fn`."""
+    sharded = mesh is not None and mesh.n_data > 1
+    n_local = n_padded_docs // mesh.n_data if sharded else n_padded_docs
+    k_eff = min(k, n_local)
 
     def search_fn(Q, Dq, ds, M):
         with torch.inference_mode():
             Qq, qs = quantize_queries(Q)
-            return _local_search_int8(Qq, qs, Dq, ds, M, k=k_eff, unpadded=unpadded)
+            vals, idx = _local_search_int8(Qq, qs, Dq, ds, M, k=k_eff, unpadded=unpadded)
+            if not sharded:
+                return vals, idx
+            return _merge(vals, idx + mesh.data_index * n_local, k, mesh)
 
     return search_fn
 
@@ -125,7 +160,7 @@ def _program(index: AnyIndex, k: int):
     """A function that runs ``index``'s search program (int8 for a
     QuantizedTokenIndex, else bf16) on a batch of query matrices."""
     make = make_search_fn_int8 if isinstance(index, QuantizedTokenIndex) else make_search_fn
-    fn = make(index.num_padded_docs, k)
+    fn = make(index.num_padded_docs, k, mesh=index.mesh)
     return lambda Q: fn(torch.as_tensor(Q).to(device=index.mask.device,
                                               dtype=index.query_dtype),
                         *index.search_arrays)

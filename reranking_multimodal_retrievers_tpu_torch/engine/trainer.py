@@ -17,8 +17,10 @@ from ``Examples`` triples + ``Queries`` + ``Collection``, with
 - an EMA-smoothed train loss with mu = 0.999, and periodic checkpoints
   through ``training.CheckpointManager``.
 
-One process, one device: ``mesh`` raises, as ``make_train_step(mesh=...)``
-does.
+With ``mesh`` (``parallel/``) every rank reads the same triples, keeps its
+rows of each batch, and steps data-parallel: the in-batch negatives span
+the global batch, the gradients are averaged over the data group, and the
+loss reported is the global batch's. Rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -156,9 +158,10 @@ def train(config: TriplesTrainerConfig, triples, queries, collection,
     ``(query_tok, context_tok)`` pair with the FLMR marker conventions;
     without it ids are drawn from ``np.random.default_rng(config.seed)``.
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-device training (mesh) is not ported yet")
-    dev = resolve_device(device)
+    from ..parallel.mesh import check_mesh
+
+    check_mesh(mesh)
+    dev = resolve_device(mesh.device if mesh is not None else device)
     rng = np.random.default_rng(config.seed)
     if model is None:
         model = default_model(config.seed, dev)
@@ -189,6 +192,12 @@ def train(config: TriplesTrainerConfig, triples, queries, collection,
     else:
         model.load_state_dict(params)
     model.train()
+    gather = None
+    if mesh is not None:
+        from ..parallel.mesh import all_reduce, replicate, shard_batch
+
+        replicate(mesh, model)
+        gather = mesh.data_group if mesh.n_data > 1 else None
 
     schedule = triples_schedule(config.lr, config.warmup, config.maxsteps)
     optimizer = torch.optim.AdamW(model.parameters(), lr=1.0, eps=1e-8,
@@ -202,19 +211,26 @@ def train(config: TriplesTrainerConfig, triples, queries, collection,
 
     nway = config.nway
     ema = None
-    saver = CheckpointManager(config.checkpoint_dir) if config.checkpoint_dir else None
+    saver = (CheckpointManager(config.checkpoint_dir)
+             if config.checkpoint_dir and (mesh is None or mesh.is_main) else None)
     for q_texts, p_texts, target in reader:
         if state.step >= config.maxsteps:
             break
         qi, qm = encode_queries(q_texts)
         di, dm = encode_docs(p_texts)
-        out = model(to_dev(qi), to_dev(qm), to_dev(di), to_dev(dm),
-                    use_in_batch_negatives=config.use_ib_negatives,
-                    num_negative_examples=nway - 1)
-        tgt = None if target is None else torch.as_tensor(target, device=dev)
-        loss = triples_loss(out, tgt, config)
-        apply_update(state, loss, guard=False)
-        loss = float(loss.detach())
+        arrays = [to_dev(qi), to_dev(qm), to_dev(di), to_dev(dm),
+                  None if target is None else torch.as_tensor(target, device=dev)]
+        if mesh is not None:
+            arrays = shard_batch(mesh, arrays)
+        out = model(*arrays[:4], use_in_batch_negatives=config.use_ib_negatives,
+                    num_negative_examples=nway - 1,
+                    **({"gather_group": gather} if gather is not None else {}))
+        loss = triples_loss(out, arrays[4], config)
+        apply_update(state, loss, guard=False, mesh=mesh)
+        loss = loss.detach()
+        if gather is not None:  # the mean of the ranks' means: the global batch's
+            loss = all_reduce(loss, gather) / mesh.n_data
+        loss = float(loss)
         ema = loss if ema is None else 0.999 * ema + 0.001 * loss
         step_idx = state.step
         if step_idx % 10 == 0 or step_idx == 1:

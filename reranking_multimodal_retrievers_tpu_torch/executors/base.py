@@ -8,7 +8,14 @@ package — data-pipeline construction from ``use_data_node``,
 optimizer/scheduler factory from ``train.optimizer_config``, dataloader
 plumbing, EvalRecorder lifecycle, checkpoint save/restore (``torch.save``,
 the same ``index.json``). An executor runs on ``device`` (CUDA unless the
-caller asks for the CPU); several devices (a mesh) are not ported yet.
+caller asks for the CPU).
+
+Over a mesh (``parallel/``; one process a rank, ``cli/main.py --n_devices``)
+the executor runs on the rank's device: every rank builds the same loaders
+from the same seed and keeps its rows of each training batch, the index,
+search and rerank are sharded over the data axis, and only rank 0 writes
+(checkpoints, ``metrics.jsonl``, prediction dumps, eval records, the data
+cache, which the other ranks read after a barrier).
 """
 
 from __future__ import annotations
@@ -31,21 +38,19 @@ from ..training.optimization import make_optimizer
 from ..utils.config_system import ConfigDict
 from ..utils.seed import set_seed
 
-MULTI_DEVICE_TODO = ("several devices (a mesh) are not ported yet: ROADMAP.md, "
-                     "queue A item 4")
-
 logger = logging.getLogger(__name__)
 
 
 class BaseExecutor(MetricsProcessor):
     def __init__(self, config: ConfigDict, use_dummy_data: bool = False, mesh=None,
                  device: DeviceLike = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(MULTI_DEVICE_TODO)
+        from ..parallel.mesh import check_mesh
+
+        check_mesh(mesh)
         self.config = config
         self.use_dummy_data = use_dummy_data
-        self.mesh = None
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self.global_step = 0
         # model weights are drawn on the CPU from this generator, then moved
         # to the device: the same seed gives the same weights on any device
@@ -64,8 +69,26 @@ class BaseExecutor(MetricsProcessor):
         self._build_data()
         self._init_model()
 
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes files: rank 0, or the only one."""
+        mesh = getattr(self, "mesh", None)
+        return mesh is None or mesh.is_main
+
+    def barrier(self) -> None:
+        if getattr(self, "mesh", None) is not None:
+            self.mesh.barrier()
+
     # ------------------------------------------------------------- data
     def _build_data(self):
+        # rank 0 builds (and caches) first, the others then read its cache
+        if not self.is_main:
+            self.barrier()
+        self._build_data_here()
+        if self.is_main:
+            self.barrier()
+
+    def _build_data_here(self):
         dp_config = self.config.data_pipeline
         self.data_pipeline = DataPipeline(
             dp_config,
@@ -106,6 +129,15 @@ class BaseExecutor(MetricsProcessor):
         """Numpy arrays of a batch as tensors on the executor's device."""
         return {k: (torch.as_tensor(v).to(self.device) if isinstance(v, np.ndarray) else v)
                 for k, v in batch.items()}
+
+    def shard(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a (global) batch's tensors: all of them
+        without a mesh."""
+        if self.mesh is None or self.mesh.n_data == 1:
+            return batch
+        from ..parallel import shard_batch
+
+        return shard_batch(self.mesh, batch)
 
     # --------------------------------------------------------- optimizer
     def build_optimizer(self, model, num_training_steps: int):
@@ -244,6 +276,15 @@ class BaseExecutor(MetricsProcessor):
         rec = getattr(self, "eval_recorder", None)
         if rec is None:
             return None
+        if not self.is_main:  # rank 0 writes the record and runs the eval pipeline
+            self.barrier()
+            return rec
+        try:
+            return self._finish_eval(mode, rec, results)
+        finally:
+            self.barrier()
+
+    def _finish_eval(self, mode: str, rec, results):
         # executors that did not log per-sample rows: populate the recorder
         # from the evaluation results so the pipeline always has data
         if len(rec) == 0 and results is not None:
@@ -283,6 +324,8 @@ class BaseExecutor(MetricsProcessor):
         entry = {"step": self.global_step, **{k: _to_float(v) for k, v in metrics.items()}}
         self.metrics_history.append(entry)
         logger.info("metrics %s", entry)
+        if not self.is_main:
+            return
         path = os.path.join(self.experiment_dir, "metrics.jsonl")
         with open(path, "a") as f:
             f.write(json.dumps(entry) + "\n")
@@ -297,7 +340,9 @@ class BaseExecutor(MetricsProcessor):
             return
         state = self.state_to_save()
         if state is not None:
-            self.ckpt_manager.save(state, self.global_step, metrics=_floats(metrics))
+            if self.is_main:
+                self.ckpt_manager.save(state, self.global_step, metrics=_floats(metrics))
+            self.barrier()  # no rank reads a checkpoint before it is written
             self._last_saved_step = self.global_step
 
     def state_to_save(self):
@@ -309,12 +354,16 @@ class BaseExecutor(MetricsProcessor):
     def logging_results(self, results: ConfigDict, prefix: str = "test"):
         """Write predictions + metrics (reference
         `FLMR_base_executor.py:1108-1168` writes
-        ``{prefix}_predictions_rank_{rank}.json``; one process has rank 0)."""
+        ``{prefix}_predictions_rank_{rank}.json``; every rank holds the same
+        results, and rank 0 writes them)."""
+        path = os.path.join(self.experiment_dir, f"{prefix}_predictions_rank_0.json")
+        if not self.is_main:
+            self.log_metrics({f"{prefix}/{k}": v for k, v in results.metrics.items()})
+            return path
         out = {
             "metrics": {k: _to_float(v) for k, v in results.metrics.items()},
             "predictions": results.get("batch_retrieval_result", []),
         }
-        path = os.path.join(self.experiment_dir, f"{prefix}_predictions_rank_0.json")
         with open(path, "w") as f:
             json.dump(out, f, default=_to_float)
         logger.info("wrote %s", path)

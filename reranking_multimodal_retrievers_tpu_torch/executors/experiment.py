@@ -6,7 +6,9 @@ config snapshots, logger setup (jsonl metrics history standing in for
 csv/tensorboard/wandb — wandb is gated on availability), train/test/eval
 dispatch through the executor registry, and checkpoint resolution delegated
 to the executor's :class:`CheckpointManager`. The executor runs on
-``device`` (CUDA unless the caller asks for the CPU).
+``device`` (CUDA unless the caller asks for the CPU), or on the rank's device
+of ``mesh``; over a mesh rank 0 picks the experiment directory, wipes it on
+``reset`` and writes the run log and config snapshot.
 """
 
 from __future__ import annotations
@@ -33,35 +35,43 @@ def _next_version(base: str) -> str:
 class Experiment:
     def __init__(self, config: ConfigDict, use_dummy_data: bool = False,
                  mesh=None, reset: bool = False, device: DeviceLike = "cuda"):
-        if mesh is not None:
-            from .base import MULTI_DEVICE_TODO
+        from ..parallel.mesh import check_mesh
 
-            raise NotImplementedError(MULTI_DEVICE_TODO)
+        check_mesh(mesh)
         self.config = config
         self.use_dummy_data = use_dummy_data
-        self.mesh = None
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
+        main = mesh is None or mesh.is_main
 
         folder = config.get_path("meta.EXPERIMENT_FOLDER", "experiments")
         name = config.get_path("meta.experiment_name", "default")
         base = os.path.join(folder, name)
-        if reset and os.path.exists(base):
+        if main and reset and os.path.exists(base):
             import shutil
 
             shutil.rmtree(base)
         existing = config.get_path("meta.experiment_dir")
-        self.experiment_dir = existing or _next_version(base)
-        os.makedirs(self.experiment_dir, exist_ok=True)
+        self.experiment_dir = existing or (_next_version(base) if main else None)
+        if mesh is not None:
+            from ..parallel.mesh import broadcast_object
+
+            self.experiment_dir = broadcast_object(self.experiment_dir, mesh)
+        if main:
+            os.makedirs(self.experiment_dir, exist_ok=True)
         config.set_path("meta.experiment_dir", self.experiment_dir)
 
-        self._setup_logging()
-        self._save_config_snapshot()
-        # wandb run lifecycle: delete prior runs on train+reset, else resume
-        # (reference `experiment.py:100-129,368-377`); offline-safe no-op
-        from ..utils.observability import manage_wandb_runs
+        if main:
+            self._setup_logging()
+            self._save_config_snapshot()
+            # wandb run lifecycle: delete prior runs on train+reset, else
+            # resume (reference `experiment.py:100-129,368-377`); offline-safe
+            from ..utils.observability import manage_wandb_runs
 
-        manage_wandb_runs(config, mode=config.get_path("mode", "train"),
-                          reset=reset)
+            manage_wandb_runs(config, mode=config.get_path("mode", "train"),
+                              reset=reset)
+        if mesh is not None:
+            mesh.barrier()
         self.executor = self._init_executor()
 
     def _setup_logging(self):
@@ -97,7 +107,8 @@ class Experiment:
                 f"executor {name!r} not registered; known: {list(Executor_Registry)}"
             )
         cls = Executor_Registry[name]
-        return cls(self.config, use_dummy_data=self.use_dummy_data, device=self.device)
+        return cls(self.config, use_dummy_data=self.use_dummy_data, mesh=self.mesh,
+                   device=self.device)
 
     # --------------------------------------------------------------- modes
     def train(self):

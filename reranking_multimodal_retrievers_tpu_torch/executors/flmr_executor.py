@@ -26,7 +26,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..engine import QuantizedTokenIndex, Searcher, TokenIndex
+from ..engine import QuantizedTokenIndex, Searcher, TokenIndex, encode_corpus
 from ..models import FLMRConfig, FLMRModelForRetrieval
 from ..models.bert import BertConfig
 from ..models.vit import CLIPVisionConfig
@@ -148,6 +148,7 @@ class FLMRExecutor(BaseExecutor):
         self._train_state = state
         self._step_fn = make_train_step(
             self.model, optimizer, scheduler,
+            mesh=self.mesh,
             loss_key=self.config.get_path("train.loss_key", "ib_loss"),
             num_negative_examples=self.num_negative_samples,
         )
@@ -169,7 +170,8 @@ class FLMRExecutor(BaseExecutor):
 
     def training_step(self, batch) -> Dict[str, float]:
         self.model.train()
-        self._train_state, metrics = self._step_fn(self._train_state, self.model_batch(batch))
+        self._train_state, metrics = self._step_fn(self._train_state,
+                                                   self.shard(self.model_batch(batch)))
         return {k: float(v) for k, v in metrics.items()}
 
     def state_to_save(self):
@@ -209,7 +211,8 @@ class FLMRExecutor(BaseExecutor):
         reference's ``prepare_item_embeddings`` + ColBERT indexing,
         `:662-801`). ``id2doc`` overrides the corpus (the per-source
         validation sub-corpora). As in the JAX package, embeddings pass
-        through fp16 on their way to the bf16 index."""
+        through fp16 on their way to the bf16 index. Over a mesh each rank
+        encodes the batches that hold its block of docs (``encode_corpus``)."""
         self.model.eval()
         ct = self.tokenizers["decoder_tokenizer"]
         id2doc = id2doc if id2doc is not None else self.id2doc
@@ -229,22 +232,22 @@ class FLMRExecutor(BaseExecutor):
         multimodal = multimodal and bool(id2feat)
         zero_feat = (np.zeros_like(np.asarray(next(iter(id2feat.values())), np.float32))
                      if id2feat else None)
-        embs, masks = [], []
-        for i in range(0, len(contents), bs):
-            enc = ct(contents[i:i + bs], max_length=dlen)
+
+        def encode(rows):  # a batch is the doc positions it holds
+            enc = ct([contents[i] for i in rows], max_length=dlen)
             ids = torch.as_tensor(enc["input_ids"]).to(self.device)
             am = torch.as_tensor(enc["attention_mask"]).to(self.device)
             if multimodal:
-                feats = np.stack([np.asarray(id2feat.get(d, zero_feat), np.float32)
-                                  for d in doc_ids[i:i + bs]])
+                feats = np.stack([np.asarray(id2feat.get(doc_ids[i], zero_feat), np.float32)
+                                  for i in rows])
                 out = self.model.doc(ids, am, image_features=torch.as_tensor(feats).to(self.device),
                                      concat_output_from_vision_encoder=True)
             else:
                 out = self.model.doc(ids, am)
-            embs.append(out.late_interaction_output.to(torch.float16))
-            masks.append(out.context_mask)
-        return TokenIndex.from_arrays(torch.cat(embs), torch.cat(masks), doc_ids,
-                                      device=self.device)
+            return out.late_interaction_output, out.context_mask
+
+        batches = (np.arange(i, min(i + bs, len(contents))) for i in range(0, len(contents), bs))
+        return encode_corpus(encode, batches, doc_ids, device=self.device, mesh=self.mesh)
 
     class _CompressedAdapter:
         """CompressedSearcher → Searcher interface: int indices to doc ids."""
@@ -269,6 +272,7 @@ class FLMRExecutor(BaseExecutor):
             from ..engine.codec import compress
             from ..engine.plaid import CompressedSearcher
 
+            index = index.gathered()  # the codec trains on the whole index
             cidx = compress(index.embeddings, index.mask, index.doc_ids,
                             num_centroids=int(self.config.get_path(
                                 "model_config.num_centroids", 256)),

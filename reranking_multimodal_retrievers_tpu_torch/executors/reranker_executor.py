@@ -667,7 +667,8 @@ class RerankerExecutor(BaseExecutor):
         if self.reranker_family == "full_context":
             from ..engine import make_chunked_rerank_fn
 
-            chunked = make_chunked_rerank_fn(self.reranker, nway=K, chunk_size=chunk_size)
+            chunked = make_chunked_rerank_fn(self.reranker, nway=K, chunk_size=chunk_size,
+                                             mesh=self.mesh)
             return lambda mb: chunked(mb["input_ids"], mb["attention_mask"],
                                       mb["token_type_ids"], mb.get("query_pixel_values"))
 

@@ -223,11 +223,14 @@ class BertAttention(nn.Module):
         kv = hidden_states if kv_states is None else kv_states
         B, Lq, H = hidden_states.shape
         Lk = kv.shape[1]
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        hd = cfg.head_dim
 
         q3 = self.self.query(hidden_states)
         k3 = _linear(self.self.key, kv)
         v3 = _linear(self.self.value, kv)
+        # the heads this device holds: all of them, or its share under a
+        # tensor-parallel split (parallel/tensor_parallel.py)
+        nh = q3.shape[-1] // hd
         route = attention_route(cfg, Lq, can_flash, kv_states is not None)
         if route == "k2":
             bias = None
@@ -239,7 +242,7 @@ class BertAttention(nn.Module):
         elif route == "flash":
             qh, kh, vh = (x.view(B, Lq, nh, hd).transpose(1, 2) for x in (q3, k3, v3))
             ctx = segment_attention(qh, kh, vh, segment_mask, sm_scale=float(hd) ** -0.5)
-            ctx = ctx.transpose(1, 2).reshape(B, Lq, H).to(hidden_states.dtype)
+            ctx = ctx.transpose(1, 2).reshape(B, Lq, nh * hd).to(hidden_states.dtype)
         else:
             if mask_bias is None and segment_mask is not None:
                 mask_bias = additive_mask(segment_mask)
@@ -257,7 +260,7 @@ class BertAttention(nn.Module):
                 scores = scores + mask_bias.to(scores.dtype)
             probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
             ctx = torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float())
-            ctx = ctx.to(hidden_states.dtype).reshape(B, Lq, H)
+            ctx = ctx.to(hidden_states.dtype).reshape(B, Lq, nh * hd)
         out = self.output.dense(ctx)
         return self.output.LayerNorm(out + hidden_states)
 

@@ -220,15 +220,17 @@ class Blip2QFormerAttention(nn.Module):
         B, Lq, H = x.shape
         kv_in = x if kv is None else kv
         Lk = kv_in.shape[1]
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        hd = cfg.head_dim
         a = self.attention
-        q = a.query(x).view(B, Lq, nh, hd)
+        q = a.query(x)
+        nh = q.shape[-1] // hd  # this device's heads (all, or its tensor-parallel share)
+        q = q.view(B, Lq, nh, hd)
         k = a.key(kv_in).view(B, Lk, nh, hd)
         v = a.value(kv_in).view(B, Lk, nh, hd)
         scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / math.sqrt(hd)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         ctx = torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float()).to(x.dtype)
-        return self.output.LayerNorm(self.output.dense(ctx.reshape(B, Lq, H)) + x)
+        return self.output.LayerNorm(self.output.dense(ctx.reshape(B, Lq, nh * hd)) + x)
 
 
 class _Dense(nn.Module):

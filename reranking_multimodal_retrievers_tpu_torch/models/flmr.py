@@ -357,17 +357,20 @@ class FLMRModelForRetrieval(FLMRBackbone):
                 context_attention_mask, query_pixel_values=None, query_image_features=None,
                 context_pixel_values=None, context_image_features=None,
                 use_in_batch_negatives: bool = True, num_negative_examples: int = 1,
-                gather_axis_name: Optional[str] = None) -> FLMRForwardOutput:
+                gather_group=None) -> FLMRForwardOutput:
         """Training forward (reference `modeling_flmr.py:788-1096`).
 
         The ``context_*`` batch has ``B * (1 + num_negative_examples)`` rows,
         each query's positive first in its group. ``loss`` is the CE of each
         query's aligned scores against its positive; ``in_batch_negative_loss``
         the CE of every query against every doc of the batch, labels
-        ``arange(B) * nway``."""
-        if gather_axis_name is not None:
-            raise NotImplementedError(
-                "cross-device in-batch negatives (gather_axis_name) are not ported yet")
+        ``arange(B) * nway``.
+
+        ``gather_group`` (a process group, the JAX ``gather_axis_name``):
+        Q, D and D_mask are all-gathered over its ranks before the
+        in-batch-negative loss, which then spans the global batch, labels
+        ``arange(B_all) * nway``, and is the same on every rank. The gather
+        differentiates through every rank's rows (``parallel/mesh.py``)."""
         query_out = self.query(query_input_ids, query_attention_mask,
                                pixel_values=query_pixel_values,
                                image_features=query_image_features)
@@ -387,8 +390,14 @@ class FLMRModelForRetrieval(FLMRBackbone):
                                                device=scores.device))
         ib_loss = None
         if use_in_batch_negatives:
-            ib_scores = in_batch_maxsim_scores(Q, D, D_mask)
-            ib_labels = torch.arange(Q.shape[0], device=Q.device) * nway
+            Q_all, D_all, D_mask_all = Q, D, D_mask
+            if gather_group is not None:
+                from ..parallel.mesh import gather_rows
+
+                Q_all, D_all = gather_rows(Q, gather_group), gather_rows(D, gather_group)
+                D_mask_all = gather_rows(D_mask, gather_group)
+            ib_scores = in_batch_maxsim_scores(Q_all, D_all, D_mask_all)
+            ib_labels = torch.arange(Q_all.shape[0], device=Q.device) * nway
             ib_loss = _softmax_ce(ib_scores, ib_labels)
         return FLMRForwardOutput(
             loss=loss, in_batch_negative_loss=ib_loss, scores=scores, scores_raw=scores_raw,

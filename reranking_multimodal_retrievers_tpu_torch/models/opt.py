@@ -111,10 +111,11 @@ class OPTAttention(nn.Module):
     def forward(self, x, mask_bias, key_mask=None):
         cfg = self.config
         B, L, H = x.shape
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        hd = cfg.head_dim
         q = self.q_proj(x)
         k = self.k_proj(x)
         v = self.v_proj(x)
+        nh = q.shape[-1] // hd  # this device's heads (all, or its tensor-parallel share)
         # the JAX package fuses only on a TPU and, there, only where its
         # kernel's sublane and lane packing allow (L % 8, 128-lane head
         # groups); K2 takes any L and head grouping, so on the card every
@@ -130,7 +131,7 @@ class OPTAttention(nn.Module):
         scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) + mask_bias
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         ctx = torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float()).to(x.dtype)
-        return self.out_proj(ctx.reshape(B, L, H))
+        return self.out_proj(ctx.reshape(B, L, nh * hd))
 
 
 class OPTDecoderLayer(nn.Module):

@@ -190,9 +190,10 @@ class T5Attention(nn.Module):
         kv_in = x if kv is None else kv
         B, Lq, _ = x.shape
         Lk = kv_in.shape[1]
-        nh, dk = cfg.num_heads, cfg.d_kv
+        dk = cfg.d_kv
         fuse = self._can_fuse(kv, x.device)
         q2 = self.q(x)
+        nh = q2.shape[-1] // dk  # this device's heads (all, or its tensor-parallel share)
 
         if kv is not None and Lq == 1:
             return self._single_query(x, q2, kv_in, position_bias), position_bias
@@ -224,7 +225,7 @@ class T5Attention(nn.Module):
         scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) + position_bias
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         ctx = torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float()).to(x.dtype)
-        return self.o(ctx.reshape(B, Lq, cfg.inner_dim)), position_bias
+        return self.o(ctx.reshape(B, Lq, nh * dk)), position_bias
 
     def _single_query(self, x, q2, kv, position_bias):
         """Cross-attention for one query row, reordered:
@@ -232,12 +233,26 @@ class T5Attention(nn.Module):
         pooled by the probabilities before the V projection (pooling
         commutes with the linear V map, LoRA term included), so the cost per
         layer is O(heads * d_model * Lk) instead of O(inner * d_model * Lk).
+
+        Under a tensor-parallel split the K and V weights hold this rank's
+        heads and are read here without their layers, so the encoder states
+        and V's (whole) ``lora_a`` enter through the identity whose backward
+        all-reduces over the model group, as a column-parallel layer's input
+        does: each rank's heads give only part of their gradients.
         """
         cfg = self.config
-        B, nh, dk = x.shape[0], cfg.num_heads, cfg.d_kv
+        B, dk = x.shape[0], cfg.d_kv
+        nh = q2.shape[-1] // dk
         D, Lk = kv.shape[-1], kv.shape[1]
         if position_bias is None:
             position_bias = torch.zeros(1, nh, 1, Lk, device=x.device)
+        group = getattr(self.k, "tp_group", None)
+        lora_a = getattr(self.v, "lora_a", None)
+        if group is not None:
+            from ..parallel.mesh import copy_to_group
+
+            kv = copy_to_group(kv, group)
+            lora_a = None if lora_a is None else copy_to_group(lora_a, group)
         kvf = kv.float()
         Wk = self.k.weight.float().view(nh, dk, D)
         qk = torch.einsum("bnd,ndD->bnD", q2.view(B, nh, dk).float(), Wk).to(q2.dtype)
@@ -246,11 +261,11 @@ class T5Attention(nn.Module):
         pooled = torch.einsum("bnk,bkD->bnD", probs.float(), kvf).to(kv.dtype)
         Wv = self.v.weight.float().view(nh, dk, D)
         ctx = torch.einsum("bnD,ndD->bnd", pooled.float(), Wv)
-        if hasattr(self.v, "lora_a"):
-            lo = torch.einsum("bnD,rD->bnr", pooled, self.v.lora_a.to(pooled.dtype))
+        if lora_a is not None:
+            lo = torch.einsum("bnD,rD->bnr", pooled, lora_a.to(pooled.dtype))
             Bv = self.v.lora_b.to(pooled.dtype).float().view(nh, dk, -1)
             ctx = ctx + self.v.scaling * torch.einsum("bnr,ndr->bnd", lo.float(), Bv)
-        return self.o(ctx.to(x.dtype).reshape(B, 1, cfg.inner_dim))
+        return self.o(ctx.to(x.dtype).reshape(B, 1, nh * dk))
 
 
 class T5FF(nn.Module):
@@ -325,7 +340,7 @@ class T5Block(nn.Module):
         if self.is_decoder and enc_states is not None:
             ca = self.layer[1]
             if enc_mask_bias is None:
-                enc_mask_bias = torch.zeros(1, cfg.num_heads, x.shape[1], enc_states.shape[1],
+                enc_mask_bias = torch.zeros(1, 1, x.shape[1], enc_states.shape[1],
                                             device=x.device)
             cross, _ = ca.EncDecAttention(ca.layer_norm(x), kv=enc_states,
                                           position_bias=enc_mask_bias)

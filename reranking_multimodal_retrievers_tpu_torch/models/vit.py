@@ -70,14 +70,16 @@ class CLIPAttention(nn.Module):
     def forward(self, x):
         cfg = self.config
         B, L, H = x.shape
-        nh, hd = cfg.num_attention_heads, cfg.head_dim
-        q = self.q_proj(x).view(B, L, nh, hd)
+        hd = cfg.head_dim
+        q = self.q_proj(x)
+        nh = q.shape[-1] // hd  # this device's heads (all, or its tensor-parallel share)
+        q = q.view(B, L, nh, hd)
         k = self.k_proj(x).view(B, L, nh, hd)
         v = self.v_proj(x).view(B, L, nh, hd)
         scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / math.sqrt(hd)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         ctx = torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float())
-        return self.out_proj(ctx.to(x.dtype).reshape(B, L, H))
+        return self.out_proj(ctx.to(x.dtype).reshape(B, L, nh * hd))
 
 
 class CLIPMLP(nn.Module):

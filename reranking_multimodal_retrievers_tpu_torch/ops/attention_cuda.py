@@ -157,14 +157,16 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
     out = torch.empty(B, L, HD, dtype=q.dtype, device=q.device)
     if B == 0 or L == 0:
         return out
-    err = _lib().attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        None if head_bias is None else head_bias.data_ptr(),
-        int(head_bias is not None and head_bias.dtype == torch.bfloat16), out.data_ptr(),
-        B, L, num_heads, hd, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), float(sm_scale), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    # the kernel launches on the current device: make it the tensors' own
+    with torch.cuda.device(q.device):
+        err = _lib().attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if head_bias is None else head_bias.data_ptr(),
+            int(head_bias is not None and head_bias.dtype == torch.bfloat16), out.data_ptr(),
+            B, L, num_heads, hd, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), float(sm_scale), int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err >= _ERR_TENSOR_MAP:
         raise RuntimeError(f"fused_self_attention: no TMA tensor map for these tensors "
                            f"(cuTensorMapEncodeTiled: {err - _ERR_TENSOR_MAP}, where 10000 "
@@ -227,14 +229,16 @@ def _launch_f32(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal):
     out = torch.empty(B, L, HD, dtype=torch.float32, device=q.device)
     if B == 0 or L == 0:
         return out
-    err = _lib_f32().attention_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        None if head_bias is None else head_bias.data_ptr(),
-        int(head_bias is not None and head_bias.dtype == torch.bfloat16), out.data_ptr(),
-        B, L, num_heads, HD // num_heads, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), float(sm_scale), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    # the kernel launches on the current device: make it the tensors' own
+    with torch.cuda.device(q.device):
+        err = _lib_f32().attention_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if head_bias is None else head_bias.data_ptr(),
+            int(head_bias is not None and head_bias.dtype == torch.bfloat16), out.data_ptr(),
+            B, L, num_heads, HD // num_heads, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), float(sm_scale), int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err < 0:
         raise ValueError(f"fused_self_attention_f32: shape refused by the kernel ({err})")
     _build.check(err, "fused_self_attention_f32")

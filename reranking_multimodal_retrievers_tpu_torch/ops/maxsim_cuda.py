@@ -97,15 +97,17 @@ def maxsim_scores(Q: torch.Tensor, D: torch.Tensor,
     if B == 0 or N == 0:
         return torch.zeros(B, N, dtype=torch.float32, device=Q.device)
     lib = _lib()
-    splits = lib.maxsim_splits(B, L_q, dim)
-    if splits < 1:
-        raise ValueError(f"dim {dim} is too wide for the kernel's shared memory")
-    # [S, B, N]: S > 1 only when a query has more rows than a block holds
-    out = torch.empty(splits, B, N, dtype=torch.float32, device=Q.device)
-    err = lib.maxsim_scores_bf16(
-        Q.data_ptr(), D.data_ptr(), None if mask is None else mask.data_ptr(),
-        out.data_ptr(), B, L_q, N, L_d, dim, int(score_dtype == torch.bfloat16),
-        torch.cuda.current_stream(Q.device).cuda_stream)
+    # the kernel launches on the current device: make it the tensors' own
+    with torch.cuda.device(Q.device):
+        splits = lib.maxsim_splits(B, L_q, dim)
+        if splits < 1:
+            raise ValueError(f"dim {dim} is too wide for the kernel's shared memory")
+        # [S, B, N]: S > 1 only when a query has more rows than a block holds
+        out = torch.empty(splits, B, N, dtype=torch.float32, device=Q.device)
+        err = lib.maxsim_scores_bf16(
+            Q.data_ptr(), D.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), B, L_q, N, L_d, dim, int(score_dtype == torch.bfloat16),
+            torch.cuda.current_stream(Q.device).cuda_stream)
     _build.check(err, "maxsim_scores")
     maxsim_scores.launches += 1
     return out[0] if splits == 1 else out.sum(dim=0)

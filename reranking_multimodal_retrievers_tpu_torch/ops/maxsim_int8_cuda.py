@@ -122,15 +122,17 @@ def maxsim_scores_int8(Qq: torch.Tensor, q_scales: torch.Tensor, Dq: torch.Tenso
     if B == 0 or N == 0:
         return torch.zeros(B, N, dtype=torch.float32, device=Qq.device)
     lib = _lib()
-    splits = lib.maxsim_int8_splits(B, L_q, dim)
-    if splits < 1:
-        raise ValueError(f"dim {dim} is too wide for the kernel's shared memory")
-    # [S, B, N]: S > 1 only when a query has more rows than a block holds
-    out = torch.empty(splits, B, N, dtype=torch.float32, device=Qq.device)
-    err = lib.maxsim_scores_int8(
-        Qq.data_ptr(), q_scales.data_ptr(), Dq.data_ptr(), d_scales.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        B, L_q, N, L_d, dim, torch.cuda.current_stream(Qq.device).cuda_stream)
+    # the kernel launches on the current device: make it the tensors' own
+    with torch.cuda.device(Qq.device):
+        splits = lib.maxsim_int8_splits(B, L_q, dim)
+        if splits < 1:
+            raise ValueError(f"dim {dim} is too wide for the kernel's shared memory")
+        # [S, B, N]: S > 1 only when a query has more rows than a block holds
+        out = torch.empty(splits, B, N, dtype=torch.float32, device=Qq.device)
+        err = lib.maxsim_scores_int8(
+            Qq.data_ptr(), q_scales.data_ptr(), Dq.data_ptr(), d_scales.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            B, L_q, N, L_d, dim, torch.cuda.current_stream(Qq.device).cuda_stream)
     _build.check(err, "maxsim_scores_int8")
     maxsim_scores_int8.launches += 1
     return out[0] if splits == 1 else out.sum(dim=0)

@@ -105,11 +105,25 @@ def label_params(model: nn.Module,
 def clip_grads_by_global_norm_(params: Sequence[torch.Tensor], max_norm: float) -> None:
     """``optax.clip_by_global_norm``: when the norm of every gradient taken
     together reaches ``max_norm``, scale each by ``max_norm / norm``
-    (``(g / norm) * max_norm``, optax's order); below it, leave them be."""
-    grads = [p.grad for p in params if p.grad is not None]
+    (``(g / norm) * max_norm``, optax's order); below it, leave them be.
+
+    A parameter split over a tensor-parallel group (``tp_dim``, set by
+    ``parallel/tensor_parallel.py``) holds part of its matrix: the squares
+    of those parts are summed over the group, those of whole (replicated)
+    parameters counted once, so that the norm is the whole model's."""
+    with_grad = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in with_grad]
     if not grads:
         return
-    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    whole = [g.float().square().sum() for p, g in zip(with_grad, grads)
+             if not hasattr(p, "tp_dim")]
+    split = [(p, g.float().square().sum()) for p, g in zip(with_grad, grads)
+             if hasattr(p, "tp_dim")]
+    if split:
+        from ..parallel.mesh import all_reduce
+
+        whole.append(all_reduce(torch.stack([sq for _, sq in split]).sum(), split[0][0].tp_group))
+    norm = torch.stack(whole).sum().sqrt()
     keep = norm < max_norm  # on the device: no host sync
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
@@ -147,6 +161,12 @@ class Adafactor(torch.optim.Optimizer):
     MIN_DIM_SIZE_TO_FACTOR = 128
     MIN_PARAM_SCALE = 1e-3
 
+    # a parameter split over a tensor-parallel group (``tp_dim``) is updated
+    # from its whole matrix and gradient, gathered over the group, and its
+    # state is kept whole: the factored moments are statistics of whole rows
+    # and columns (``parallel/tensor_parallel.py`` leaves that state as it is)
+    whole_state = True
+
     def __init__(self, params, lr: float = 1.0):
         super().__init__(params, dict(lr=lr))
 
@@ -163,8 +183,21 @@ class Adafactor(torch.optim.Optimizer):
         return loss
 
     def _update(self, p: torch.Tensor, group) -> None:
-        g = p.grad
-        state = self.state[p]
+        if hasattr(p, "tp_dim"):
+            from ..parallel.tensor_parallel import gather_param
+
+            whole = gather_param(p)
+            u = self._direction(p, whole, gather_param(p, p.grad), group)
+            part = torch.distributed.get_rank(p.tp_group)
+            p.add_(-u.chunk(whole.shape[p.tp_dim] // p.shape[p.tp_dim], dim=p.tp_dim)[part])
+        else:
+            p.add_(-self._direction(p, p, p.grad, group))
+        self.state[p]["step"] += 1
+
+    def _direction(self, key: torch.Tensor, p: torch.Tensor, g: torch.Tensor, group):
+        """The update of parameter ``p`` (whole) for gradient ``g``, its
+        state under ``key``; subtracted by the caller."""
+        state = self.state[key]
         dims = factored_dims(tuple(p.shape), self.MIN_DIM_SIZE_TO_FACTOR)
         if not state:
             state["step"] = 0
@@ -192,10 +225,9 @@ class Adafactor(torch.optim.Optimizer):
         u = u / torch.clamp((u * u).mean().sqrt() / self.CLIPPING_THRESHOLD, min=1.0)
         u = u * group["lr"]
         rms = (p * p).mean().sqrt()
-        u = u * torch.where(rms <= self.MIN_PARAM_SCALE,
-                            torch.full_like(rms, self.MIN_PARAM_SCALE), rms)
-        p.add_(-u)
-        state["step"] += 1
+        return u * torch.where(rms <= self.MIN_PARAM_SCALE,
+                               torch.full_like(rms, self.MIN_PARAM_SCALE), rms)
+
 
 
 def make_optimizer(model: nn.Module, optimizer_name: str = "AdamW", lr: float = 1e-3,

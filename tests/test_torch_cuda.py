@@ -1116,3 +1116,46 @@ def test_bem_scorer_on_card_matches_cpu(gen, tmp_path):
                 "question_type": "multi_answer"}):
         assert abs(card(ex, threshold_score=False) - cpu(ex, threshold_score=False)) <= 1e-4
     assert fused_self_attention_f32.launches == 24
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K2f32", "K3"])
+def test_kernels_launch_on_the_tensors_card(gen, kernel):
+    """With the current device 0, each kernel launches on the card its
+    tensors lie on (the second card) and agrees with its plain version
+    there; the current device stays 0."""
+    from reranking_multimodal_retrievers_tpu_torch.engine.index import quantize_docs
+    from reranking_multimodal_retrievers_tpu_torch.engine.search import quantize_queries
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_f32)
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 1)
+    g = torch.Generator(device=dev).manual_seed(1)
+    if kernel in ("K1", "K3"):
+        Q = torch.nn.functional.normalize(torch.randn(4, 32, 128, device=dev, generator=g), dim=-1)
+        D = torch.nn.functional.normalize(torch.randn(300, 64, 128, device=dev, generator=g),
+                                          dim=-1)
+        M = torch.rand(300, 64, device=dev, generator=g) > 0.3
+        if kernel == "K1":
+            got = maxsim_scores(Q.bfloat16(), D.bfloat16(), M)
+            want = maxsim_scores_reference(Q.bfloat16(), D.bfloat16(), M)
+            tol = 2e-3
+        else:
+            Qq, qs = quantize_queries(Q)
+            Dq, ds = quantize_docs(D, M)
+            got = maxsim_scores_int8(Qq, qs, Dq, ds, M)
+            want = maxsim_scores_int8_reference(Qq, qs, Dq, ds, M)
+            tol = 2e-3
+    else:
+        dtype = torch.bfloat16 if kernel == "K2" else torch.float32
+        q, k, v = (torch.randn(3, 96, 4 * 64, device=dev, generator=g).to(dtype)
+                   for _ in range(3))
+        bias = torch.where(torch.rand(3, 96, device=dev, generator=g) > 0.2, 0.0, -1e9)
+        fn = fused_self_attention if kernel == "K2" else fused_self_attention_f32
+        got = fn(q, k, v, bias, num_heads=4, sm_scale=0.125)
+        want = fused_self_attention_reference(q, k, v, bias, num_heads=4, sm_scale=0.125)
+        tol = 3e-2 if kernel == "K2" else 1e-4
+    assert got.device == dev and torch.cuda.current_device() == 0
+    assert (got.float() - want.float()).abs().max().item() <= tol

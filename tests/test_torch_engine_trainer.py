@@ -127,9 +127,9 @@ def _spy_port_steps(monkeypatch):
     """Each port step's loss, read where it is backpropagated."""
     seen, apply = [], trainer.apply_update
 
-    def spy(state, loss, guard=True):
+    def spy(state, loss, guard=True, **kw):
         seen.append(float(loss.detach()))
-        return apply(state, loss, guard)
+        return apply(state, loss, guard, **kw)
 
     monkeypatch.setattr(trainer, "apply_update", spy)
     return seen
@@ -230,6 +230,6 @@ def test_train_checkpoints(tmp_path):
 
 def test_mesh_raises(tmp_path):
     path, q, c = fixtures(tmp_path, False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):  # a mesh is a parallel.Mesh
         trainer.train(config(trainer.TriplesTrainerConfig), path, q, c, mesh=object(),
                       device="cpu")

@@ -313,5 +313,5 @@ def test_mesh_raises(tmp_path, monkeypatch):
     from reranking_multimodal_retrievers_tpu_torch.executors import FLMRExecutor
     from reranking_multimodal_retrievers_tpu_torch.utils import ConfigDict
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         FLMRExecutor(ConfigDict(), mesh=object(), device="cpu")

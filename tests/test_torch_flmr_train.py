@@ -142,5 +142,5 @@ def test_forward_options(use_in_batch_negatives):
         out = tm(**torch_batch(batch), num_negative_examples=1,
                  use_in_batch_negatives=use_in_batch_negatives)
     assert (out.in_batch_negative_loss is not None) == use_in_batch_negatives
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):  # the port gathers over a process group: gather_group
         tm(**torch_batch(batch), gather_axis_name="data")

@@ -173,9 +173,11 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         training.make_optimizer(model, optimizer_name="SGD")
     opt, sched, _ = training.make_optimizer(model)
-    for kw in (dict(mesh=object()), dict(tensor_parallel=True)):
-        with pytest.raises(NotImplementedError):
-            training.make_train_step(model, opt, sched, **kw)
+    # a mesh is a parallel.Mesh, and tensor parallelism needs one
+    with pytest.raises(TypeError):
+        training.make_train_step(model, opt, sched, mesh=object())
+    with pytest.raises(ValueError):
+        training.make_train_step(model, opt, sched, tensor_parallel=True)
 
 
 def _jax_step(jm, params, batch, kw, loss_key="ib_loss"):
