@@ -43,6 +43,18 @@ Phases, each printing one JSON line with its elapsed seconds:
      ``data/image_io.py`` (``tests/test_preprocess.py``'s bounds), the
      top-100 against that of the CPU-preprocessed queries up to near-ties;
      images/s on the card and on the host, each the best of 3 warm passes;
+  3e. PreFLMR-L and PreFLMR-G (``configs/okvqa_flmr_{L,G}.json``'s
+     ``model_config.flmr``: BERT-base, ViT-L/14 24 x 1024 or ViT-G/14 48 x
+     1664 (16 heads of 64 or 104) at 224, dim 128, 32-token prefix, the
+     1-layer mapping network; bf16 weights from the seed), one after the
+     other: phase 3's 1,024 docs encoded into a copy of phase 3's index
+     (the same padding docs), its 8 queries (320 rows each) served through
+     RetrievalService, k = 100 (K2 in the BERT encoders, K1 at [8, 320,
+     128] over the slabs); the top-100 against an fp32 copy of the weights
+     with the kernels off up to near-ties (1% of a total), beside the bf16
+     copy without them (information); PreFLMR-L's fp32 rows of one query
+     against the CPU; K1 and K2 against their plain versions at 3e's launch
+     shapes; query-encode and search ms, the tower's size, peak memory;
   3b. int8 retrieve: that index quantized on the card into a
      QuantizedTokenIndex and the same 8 queries served through
      RetrievalService(make_search_fn_int8), K3 over 32k-doc slabs; the
@@ -59,6 +71,14 @@ Phases, each printing one JSON line with its elapsed seconds:
      held against a CPU fp32 W8A8 recomputation of four candidates, and each
      dense layer's first rows against the same layer on the CPU, bitwise
      (a bf16 layer in its place would not match);
+  4c. monoPreFLMR-L (``bench.py:88-118``: 3e's PreFLMR-L and a 1-layer
+     cross-encoder with a 1,024-row position table) in bf16 over phase 4's
+     traffic: K2 at [100, 512, 12 x 64] in the text encoder and at [100,
+     800, 12 x 64] (512 text + 32 prefix + 256 patch rows) in the
+     cross-encoder, 104 launches a batch; four logits against the CPU in
+     fp32; K2 against its plain version at each launch shape (the first
+     query's key mask), timed beside ``scaled_dot_product_attention``;
+     candidates/s, the ViT-L/14 prefix's share of a batch, peak memory;
   5. monoBLIP2-Flan-T5: Blip2DecoderRerankModel at full width (ViT-g 39 x
      1408, the BERT-base Q-Former, 32 query tokens, Flan-T5-XL 24 + 24 x
      2048, 32 heads x 64) in bf16 with ``use_pallas_attention`` and
@@ -73,10 +93,18 @@ Phases, each printing one JSON line with its elapsed seconds:
      more than the tolerance; K2's head-bias variant against its plain
      version at the encoder's launch shape, at scores of order 1 and of
      std 8 (unscaled q, as T5 runs);
+  5b. the same weights and prompts with ``quantize_int8`` in Flan-T5-XL
+     (every projection, FFN and the head W8A8 through ``torch._int_mm``; K2
+     stays bf16, 240 launches a run): each W8A8 layer's first rows against
+     the same layer on the CPU, bitwise (the decoder's one-query
+     cross-attention reads its K and V weights, as the JAX package does);
+     p(yes) of four prompts against the same W8A8 model without K2; p(yes)
+     against phase 5's bf16 as information, with candidates/s, peak memory
+     and the device time by kind of kernel from ``torch.profiler``;
   6. monoBLIP2-Opt: the same vision side with OPT-2.7b (32 x 2560, 32 heads
      x 80), chunks of 5 rows (K2 with the causal mask at head_dim 80), the
      last real prompt position of each row through the 50k vocabulary; the
-     same checks;
+     same checks; 6b. OPT-2.7b W8A8, as 5b (640 K2 launches a run);
   8. FLMR training at ``bench.py:647``'s full width (BERT-base, ViT-B/32 at
      224, dim 128, 32-token prefix, 1-layer mapping network; fp32 from a
      seed, ``use_pallas_attention`` off as in the JAX package, so no kernel
@@ -250,9 +278,9 @@ Phases, each printing one JSON line with its elapsed seconds:
      0, 1 and 15 alone;
   7. after phase 15: the ``kernels`` line (K1 and K3 with their times at
      ``bench.py``'s batch and the 100k searches of phases 3 and 3b beside
-     the bound, K1 at stage 1's, the pooled index's, 3d's and 11b's launch
+     the bound, K1 at stage 1's, the pooled index's, 3d's, 3e's and 11b's launch
      shapes, K3 at 11c's, K2 at each main-path variant's launch shape (3d's
-     query encoder's included),
+     query encoder's, 3e's encoders', 4c's and 5b's and 6b's under W8A8 included),
      and K2's fp32 path at each of phase 11's, 12's and 13's launch shapes
      (K1 and K3 also at 13c's), at 14a's and at
      phase 2's head-bias and causal shapes, each with the bound of 3xTF32 products and the
@@ -263,13 +291,15 @@ runs phase 5's model once with every weight at std 0.02 (none of HF T5's
 scales): p(yes) of four candidates through K2 and through the plain path in
 bf16, and in fp32, as information.
 
-The launch counters are set to 0 just before each main-path phase (3, 3d, 3b,
-3c, 4, 4b, 5, 6, 8's training run, 9a, 9b, 9c, 9d's timed steps, 10a, 10b,
-10c, 10d, each CLI run of 11, 12 and 13, 14a, and each of 15a-15f in every
-rank, whose counts the parent sums) and read just after it; phases 8, 15a,
-9b, 9d, 10d, 11a, 11d's, every phase-12 training run and 13c's must launch
-none. Phase 3's index stays on the card until phase 10b. Each decoder
-family is built, run and freed before the next (about 8 GB each in bf16).
+The launch counters are set to 0 just before each main-path phase (3, 3d,
+3e for each scale, 3b, 3c, 4, 4b, 4c, 5, 5b, 6, 6b, 8's training run, 9a,
+9b, 9c, 9d's timed steps, 10a, 10b, 10c, 10d, each CLI run of 11, 12 and
+13, 14a, and each of 15a-15f in every rank, whose counts the parent sums)
+and read just after it; phases 8, 15a, 9b, 9d, 10d, 11a, 11d's, every
+phase-12 training run and 13c's must launch none. Phase 3's index stays on
+the card until phase 10b. Each of 3e's models, 4c's and each decoder family
+is built, run and freed before the next (about 8 GB a decoder family in
+bf16; 5b and 6b share 5's and 6's tensors).
 Any failed check raises and the script exits non-zero; without a CUDA card
 it exits non-zero before printing anything.
 """
@@ -931,7 +961,7 @@ def t5_init_probe(smi):
             "seconds": time.perf_counter() - t0}
 
 
-def decoder_rerank(family, text_config, chunk, yes_no, vocab_hi, smi):
+def decoder_rerank(family, text_config, chunk, yes_no, vocab_hi, smi, then=None):
     """Phases 5 and 6: a full-width Blip2DecoderRerankModel over
     ``text_config`` (Flan-T5-XL or OPT-2.7b) in bf16 with random weights from
     a seed scores DECODER_K prompts of one image through
@@ -940,8 +970,10 @@ def decoder_rerank(family, text_config, chunk, yes_no, vocab_hi, smi):
     card without the kernel, and K2's variant against its plain version at
     the LM's launch shape. For T5 the same K2 run with the encoder's head
     bias zeroed must miss fp32 by more than the tolerance (the check sees
-    the head bias). Returns (the phase's line, K2's line for the kernels
-    line). Frees the models before it returns."""
+    the head bias). ``then(model, ids, am, pix, p_yes)``, if given, runs
+    last on the same model and inputs (phases 5b and 6b). Returns (the
+    phase's line, K2's line for the kernels line, what ``then`` returned).
+    Frees the models before it returns."""
     from reranking_multimodal_retrievers_tpu_torch.engine import make_decoder_rerank_fn
     from reranking_multimodal_retrievers_tpu_torch.models import OPTConfig
     from reranking_multimodal_retrievers_tpu_torch.models.rerankers import Blip2DecoderRerankModel
@@ -1048,15 +1080,18 @@ def decoder_rerank(family, text_config, chunk, yes_no, vocab_hi, smi):
     err = (p_yes[:n].float() - want).abs().max().item()
     nobias_err = None
     if not is_opt:  # the check's power: K2 without the head bias must miss fp32
+        rel_bias = model.get_parameter(ENC_REL_BIAS)
+        kept = rel_bias.detach().clone()
         with torch.no_grad():
-            model.get_parameter(ENC_REL_BIAS).zero_()
+            rel_bias.zero_()
         p_nobias = make_decoder_rerank_fn(model, chunk_size=n)(ids[:n], am[:n],
                                                                pix.to(torch.bfloat16))
         nobias_err = (p_nobias.float() - want).abs().max().item()
+        with torch.no_grad():
+            rel_bias.copy_(kept)
+        del kept
     check_s = time.perf_counter() - t1
-    del model, fn
-    gc.collect()
-    torch.cuda.empty_cache()
+    del fn
     k2_share = launches["K2"] / 2 * k2["ms"] / 1e3 / run_s[-1]
     line = {"phase": f"rerank_{family}", "card": smi, "params": n_params, "candidates": K,
             "seq_len": L, "prefix": cfg.blip2.num_query_tokens, "chunk_rows": chunk,
@@ -1075,7 +1110,12 @@ def decoder_rerank(family, text_config, chunk, yes_no, vocab_hi, smi):
         emit(line)
     check(err <= P_YES_TOL, f"{family} p(yes) {p_yes[:n].tolist()} vs fp32 {want.tolist()}")
     check(not blind, f"{family} p(yes) without the head bias within {nobias_err} of fp32")
-    return line, {**k2, "launches": launches["K2"]}
+    gc.collect()
+    extra = None if then is None else then(model, ids, am, pix, p_yes)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, {**k2, "launches": launches["K2"]}, extra
 
 
 def grad_snapshots(model, names):
@@ -2803,11 +2843,15 @@ def _without_kernel(cfg):
     return dataclasses.replace(cfg, **changes)
 
 
-def _plain_twin(model):
-    """``model``'s class over its config without the kernel, sharing its
-    tensors: the same weights through the plain attention."""
+def _plain_twin(model, dtype=None):
+    """``model``'s class over its config without the kernel: the same
+    weights through the plain attention, sharing its tensors, or copies in
+    ``dtype``."""
     twin = type(model)(_without_kernel(model.config), device="meta")
-    twin.load_state_dict(model.state_dict(), assign=True)
+    state = model.state_dict()
+    if dtype is not None:
+        state = {k: v.to(dtype) for k, v in state.items()}
+    twin.load_state_dict(state, assign=True)
     return twin.eval()
 
 
@@ -5067,6 +5111,421 @@ def p15_kernel_rows(rows, parts):
     return totals, per_shape
 
 
+# ---- phases 3e, 4c, 5b and 6b: the published retrievers' larger scales,
+# monoPreFLMR-L, and the W8A8 decoder rerankers
+P3E_SCALES = ("L", "G")  # configs/okvqa_flmr_{L,G}.json
+# 3e's top-100 (bf16 weights, K1 and K2) against an fp32 copy of the same
+# weights without the kernels: each total sums 320 query tokens' maxima of
+# unit-vector products; bf16 keeps 8 mantissa bits (0.4% a rounding), and
+# 12 BERT layers, the ViT and the mapping network carry that into each
+# token's rows, so a total moves by well under 1% of itself; ranks may swap
+# only between docs within that tolerance
+P3E_TOPK_RTOL = 0.01
+# one PreFLMR-L query's rows, the card's fp32 copy (TF32 off in cuBLAS and
+# cuDNN) against the CPU in fp32: round-off through 12 + 24 + 1 layers of
+# unit-norm output rows
+P3E_CPU_TOL = 1e-4
+# 4c: bench.py's L model (:88-118): the cross-encoder's position table
+# sized past the 800-row joint sequence
+P4C_MAX_POSITIONS = 1024
+
+
+def _preflmr_config(scale, **bert_kw):
+    """FLMRConfig from ``configs/okvqa_flmr_{scale}.json``'s
+    ``model_config.flmr`` block, the BERT serving knobs ``bert_kw`` added."""
+    from reranking_multimodal_retrievers_tpu_torch.models import (
+        BertConfig, CLIPVisionConfig, FLMRConfig)
+
+    fc = dict(json.loads((CONFIGS / f"okvqa_flmr_{scale}.json").read_text())
+              ["model_config"]["flmr"])
+    return FLMRConfig(text_config=BertConfig(**fc.pop("text_config"), **bert_kw),
+                      vision_config=CLIPVisionConfig(**fc.pop("vision_config")), **fc)
+
+
+def p3e_preflmr(scale, index, corpus, queries, bert_kw, smi):
+    """Phase 3e: PreFLMR-``scale`` (``_preflmr_config``; BERT-base, ViT-L/14
+    or ViT-G/14 at 224, dim 128, 32-token prefix, the 1-layer mapping
+    network), bf16 weights drawn on the card from the seed, encodes phase
+    3's 1,024 docs into a copy of phase 3's 100,000-doc index (the same
+    padding docs) and its 8 queries, and serves them through
+    RetrievalService, k = 100 (K2 in the BERT encoders, K1 over the slabs).
+    The top-100 is held against an fp32 copy of the weights without the
+    kernels (``same_top_k``, P3E_TOPK_RTOL); for L, one query's fp32 rows
+    against the CPU. K1 and K2 against their plain versions on the first
+    inputs 3e gave them at each launch shape. Returns (the line, K1's rows,
+    K2's rows); frees its models."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import (
+        TokenIndex, encode_corpus, make_search_fn)
+    from reranking_multimodal_retrievers_tpu_torch.engine import search as search_mod
+    from reranking_multimodal_retrievers_tpu_torch.models import FLMRModelForRetrieval
+    from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import (
+        maxsim_scores_reference)
+    from reranking_multimodal_retrievers_tpu_torch.serving import RetrievalService
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fcfg = _preflmr_config(scale, **bert_kw)
+    flmr = FLMRModelForRetrieval(fcfg, device="cuda", dtype=torch.bfloat16,
+                                 generator=torch.Generator(device="cuda").manual_seed(SEED)).eval()
+    tower = sum(p.numel() for p in flmr.context_vision_encoder.parameters())
+    n_params = sum(p.numel() for p in flmr.parameters())
+    batches, names = corpus
+    q_ids, q_am, pix = queries
+    BQ, K = q_ids.shape[0], 100
+    n_enc, n_all = len(names), index.num_padded_docs
+
+    def doc_fn(batch):
+        out = flmr.doc(batch[0].cuda(), batch[1].cuda())
+        return out.late_interaction_output, out.context_mask
+
+    def query(model, dtype):
+        with torch.inference_mode():
+            return model.query(q_ids.cuda(), q_am.cuda(),
+                               pixel_values=pix.cuda().to(dtype)).late_interaction_output
+
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    k1_in, k2_in = {}, {}
+    reset_counts()
+    with _Recorder() as rec:
+        rec.patch(search_mod, "maxsim_scores",
+                  _first_inputs(k1_in, lambda Q, D, M=None, *r: (tuple(Q.shape),
+                                                                 tuple(D.shape))))
+        rec.patch(bert_mod, "fused_self_attention", _first_inputs(k2_in, _k2_bf16_key))
+        t1 = time.perf_counter()
+        enc = encode_corpus(doc_fn, batches, names, device="cuda")
+        emb, mask = index.embeddings.clone(), index.mask.clone()
+        emb[:n_enc], mask[:n_enc] = enc.embeddings, enc.mask
+        del enc
+        idx = TokenIndex(embeddings=emb, mask=mask, doc_ids=list(index.doc_ids))
+        Qm = query(flmr, torch.bfloat16)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t1
+        svc = RetrievalService(make_search_fn(n_all, k=K), idx, batch_queries=BQ, max_wait_ms=50)
+        try:
+            t1 = time.perf_counter()
+            results = [f.result(timeout=600) for f in [svc.search(Qm[i]) for i in range(BQ)]]
+            search_s = time.perf_counter() - t1
+        finally:
+            svc.close()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    layers = fcfg.text_config.num_hidden_layers
+    want_k2 = layers * (len(batches) + 1)  # each doc batch and the query batch
+    check(launches["K1"] > 0 and launches["K2"] == want_k2
+          and launches["K3"] == launches["K2f32"] == 0,
+          f"3e {scale} launches {launches}, want K2 = {want_k2}")
+    vc = fcfg.vision_config  # text, prefix and patch rows
+    LQ = q_ids.shape[1] + fcfg.mapping_network_prefix_length + (
+        vc.image_size // vc.patch_size) ** 2
+    check(tuple(Qm.shape) == (BQ, LQ, 128) and bool(torch.isfinite(Qm.float()).all()),
+          f"3e {scale} query rows {tuple(Qm.shape)}, want {LQ}")
+    check(all(len(ids) == K and np.isfinite(v).all() for ids, v in results),
+          f"3e {scale} results")
+    got_vals = np.stack([v for _, v in results]).astype(np.float32)
+    got_ids = np.asarray([[int(d) for d in ids] for ids, _ in results])
+
+    # the kernels at 3e's launch shapes (not the main path's launches)
+    k1_rows = [dict(k1_line(*e["args"][:3], f"3e PreFLMR-{scale} queries "
+                            f"{'x'.join(map(str, qs))} over a {ds[0]}-doc slab"),
+                    launches=e["calls"])
+               for (qs, ds), e in k1_in.items()]
+    k2_rows = [k2_bf16_line(e, f"key bias {'x'.join(map(str, shape))} "
+                               f"(3e PreFLMR-{scale} BERT encoders)")
+               for (shape, _), e in k2_in.items()]
+    check(sum(r["launches"] for r in k1_rows) == launches["K1"]
+          and sum(r["launches"] for r in k2_rows) == launches["K2"],
+          f"3e {scale}: K1 or K2 launches at shapes not recorded")
+    del k1_in, k2_in
+    query_ms = cuda_ms(lambda: query(flmr, torch.bfloat16), 3)
+    search_ms = cuda_ms(lambda: make_search_fn(n_all, k=K)(Qm, emb, mask), 3)
+
+    def top_k(Q, docs):
+        """The top-K of ``Q`` over ``docs`` (the first n_enc docs, fp32 or
+        bf16) and the rest of the index, by the plain score in fp32."""
+        with torch.inference_mode():
+            scores = torch.cat([maxsim_scores_reference(Q, docs, mask[:n_enc]),
+                                maxsim_scores_reference(Q, emb[n_enc:], mask[n_enc:])], dim=1)
+            vals, ids = torch.topk(scores, K, dim=1)
+        return vals.cpu().numpy(), ids.cpu().numpy()
+
+    def plain_docs(model, dtype):
+        with torch.inference_mode():
+            return torch.cat([model.doc(b[0].cuda(), b[1].cuda()).late_interaction_output
+                              for b in batches])[:n_enc].to(dtype)
+
+    # the same weights in fp32 without the kernels (the check) and, sharing
+    # the bf16 tensors, in bf16 without them (information: the kernels'
+    # share of the gap)
+    t1 = time.perf_counter()
+    flmr32 = _plain_twin(flmr, torch.float32)
+    Q32 = query(flmr32, torch.float32)
+    want_vals, want_ids = top_k(Q32, plain_docs(flmr32, torch.float32))
+    err = same_top_k(got_vals, got_ids, want_vals, want_ids, 0.0, P3E_TOPK_RTOL)
+    plain = _plain_twin(flmr)
+    pv, pi = top_k(query(plain, torch.bfloat16), plain_docs(plain, torch.bfloat16))
+    del plain
+    cpu_err = None
+    if scale == "L":  # one query's rows, card fp32 against CPU fp32
+        cpu = FLMRModelForRetrieval(flmr32.config, device="meta")
+        cpu.load_state_dict({k: v.cpu() for k, v in flmr32.state_dict().items()}, assign=True)
+        with torch.inference_mode():
+            want_q = cpu.eval().query(q_ids[:1], q_am[:1],
+                                      pixel_values=pix[:1].float()).late_interaction_output
+        cpu_err = (Q32[:1].cpu() - want_q).abs().max().item()
+        check(cpu_err <= P3E_CPU_TOL, f"3e {scale}: fp32 query rows card vs CPU {cpu_err}")
+        del cpu
+    check_s = time.perf_counter() - t1
+
+    def ranks_equal(a, b):
+        return int(sum(np.array_equal(x, y) for x, y in zip(a, b)))
+
+    line = {"phase": f"retrieve_preflmr_{scale}", "card": smi, "params": n_params,
+            "vision_tower_params": tower, "vision_tower_gb_bf16": tower * 2 / 1e9,
+            "vision": dataclasses.asdict(fcfg.vision_config), "query_rows": LQ,
+            "index": [n_all, emb.shape[1], 128], "queries": BQ, "k": K,
+            "setup_seconds": setup_s, "encode_seconds": encode_s, "search_seconds": search_s,
+            "query_encode_ms_8": query_ms, "search_ms": search_ms,
+            "top100_max_abs_err_vs_fp32": err, "top100_rtol": P3E_TOPK_RTOL,
+            "top100_identical_vs_fp32": ranks_equal(got_ids, want_ids),
+            "top100_same_sets_vs_fp32": int(sum(set(a) == set(b)
+                                                for a, b in zip(got_ids, want_ids))),
+            "top100_max_abs_err_bf16_without_kernels_vs_fp32":
+                float(np.abs(pv - want_vals).max()),
+            "top100_identical_bf16_without_kernels_vs_fp32": ranks_equal(pi, want_ids),
+            "score_range_top100": [float(want_vals[:, -1].min()), float(want_vals[:, 0].max())],
+            "fp32_query_rows_card_vs_cpu": cpu_err, "cpu_tol": P3E_CPU_TOL,
+            "check_seconds": check_s, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "k1_shapes": {r["variant"]: r["launches"] for r in k1_rows},
+            "k2_shapes": {r["variant"]: r["launches"] for r in k2_rows},
+            "launches": launches, "seconds": time.perf_counter() - t0}
+    del flmr, flmr32, idx, emb, mask, Qm, Q32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, k1_rows, k2_rows
+
+
+def p4c_rerank_l(fcfg_l, inputs, bert_kw, smi):
+    """Phase 4c: monoPreFLMR-L (``bench.py:88-118``: 3e's PreFLMR-L and a
+    1-layer cross-encoder with a 1,024-row position table) in bf16 from the
+    seed, phase 4's 8 queries x 100 candidates x 512 tokens and images
+    through RerankService in chunks of 100: K2 at [100, 512, 12 x 64] in the
+    12 text layers and at [100, 800, 12 x 64] in the cross-encoder (512
+    text + 32 prefix + 256 patch rows), 104 launches a batch. Four logits
+    against the CPU in fp32; K2 against its plain version at each launch
+    shape on the first inputs (the first query's key mask), timed beside
+    ``scaled_dot_product_attention``. Returns (the line, K2's rows); frees
+    its models."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import make_chunked_rerank_fn
+    from reranking_multimodal_retrievers_tpu_torch.models import BertConfig
+    from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import (
+        FullContextRerankModel, RerankConfig)
+    from reranking_multimodal_retrievers_tpu_torch.serving import RerankService
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ids, am, tt, pix = inputs
+    BQ, K, L = ids.shape
+    rcfg = RerankConfig(flmr=fcfg_l, cross_encoder=BertConfig(
+        num_hidden_layers=1, max_position_embeddings=P4C_MAX_POSITIONS, **bert_kw),
+        loss_fn="BCE", max_query_length=32, max_decoder_source_length=L)
+    reranker = FullContextRerankModel(rcfg, device="cuda", dtype=torch.bfloat16,
+                                      generator=torch.Generator(device="cuda").manual_seed(SEED)
+                                      ).eval()
+    joint = []
+    hook = reranker.reranker.register_forward_pre_hook(
+        lambda m, args: joint.append(args[0].shape[1]))
+    rsvc = RerankService(make_chunked_rerank_fn(reranker, nway=K, chunk_size=100), nway=K,
+                         max_batch=BQ, max_wait_ms=50, device="cuda")
+    k2_in = {}
+    reset_counts()
+    try:
+        with _Recorder() as rec:
+            rec.patch(bert_mod, "fused_self_attention", _first_inputs(k2_in, _k2_bf16_key))
+            batch_s = []
+            for _ in range(2):  # the first batch also warms up cuBLAS
+                t1 = time.perf_counter()
+                futs = [rsvc.rerank(ids[i], am[i], tt, pix[i]) for i in range(BQ)]
+                logits = np.stack([f.result(timeout=600) for f in futs])
+                batch_s.append(time.perf_counter() - t1)
+    finally:
+        hook.remove()
+        rsvc.close()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n_chunks = BQ * K // 100
+    Lj = L + fcfg_l.mapping_network_prefix_length + (
+        fcfg_l.vision_config.image_size // fcfg_l.vision_config.patch_size) ** 2
+    want_k2 = 2 * n_chunks * (fcfg_l.text_config.num_hidden_layers + 1)
+    check(set(joint) == {Lj} and len(joint) == 2 * n_chunks,
+          f"4c joint rows {sorted(set(joint))}, want {Lj}")
+    check(launches["K2"] == want_k2 and launches["K1"] == launches["K3"] == launches["K2f32"] == 0,
+          f"4c launches {launches}, want K2 = {want_k2}")
+    check(logits.shape == (BQ, K) and bool(np.isfinite(logits).all()), f"4c logits {logits.shape}")
+    k2_rows = [k2_bf16_line(e, f"key bias {'x'.join(map(str, shape))} (4c monoPreFLMR-L "
+                               f"{'cross-encoder' if shape[1] == Lj else 'text encoder'})")
+               for (shape, _), e in k2_in.items()]
+    check(sum(r["launches"] for r in k2_rows) == launches["K2"], "4c: K2 launches not recorded")
+    del k2_in
+    # the ViT-L/14 prefix once a query image, as the chunked program runs it
+    with torch.inference_mode():
+        pix8 = torch.as_tensor(pix).cuda().to(torch.bfloat16)
+        vit_ms = cuda_ms(lambda: reranker.encode_vision(pix8), 3)
+
+    t1 = time.perf_counter()
+    cpu_model = FullContextRerankModel(rcfg, device="meta")
+    cpu_model.load_state_dict({k: v.float().cpu() for k, v in reranker.state_dict().items()},
+                              assign=True)
+    want = make_chunked_rerank_fn(cpu_model.eval(), nway=4, chunk_size=4)(
+        torch.as_tensor(ids[0, :4]), torch.as_tensor(am[0, :4]), torch.as_tensor(tt[:4]),
+        torch.as_tensor(pix[:1]).float())[0].numpy()
+    err = float(np.abs(logits[0, :4] - want).max())
+    check(np.allclose(logits[0, :4], want, atol=RERANK_ATOL, rtol=RERANK_RTOL),
+          f"4c logits {logits[0, :4]} vs CPU fp32 {want}")
+    line = {"phase": "rerank_monopreflmr_l", "card": smi, "queries": BQ, "candidates": K,
+            "seq_len": L, "joint_rows": Lj, "max_position_embeddings": P4C_MAX_POSITIONS,
+            "batch_seconds": batch_s, "candidates_per_s": BQ * K / batch_s[-1],
+            "vit_l14_prefix_ms_8_images": vit_ms,
+            "vit_prefix_share_of_batch": vit_ms / 1e3 / batch_s[-1],
+            "k2_share_of_batch": sum(r["ms"] * r["launches"] for r in k2_rows) / 2 / 1e3
+            / batch_s[-1],
+            "max_abs_err_vs_cpu_fp32": err, "tol": [RERANK_ATOL, RERANK_RTOL],
+            "logit_std": float(logits.std()), "cpu_check_seconds": time.perf_counter() - t1,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "k2_shapes": {r["variant"]: r["launches"] for r in k2_rows},
+            "launches": launches, "seconds": time.perf_counter() - t0}
+    del reranker, cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, k2_rows
+
+
+def _profile_kinds(fn):
+    """Device ms of one call of ``fn`` by kind of kernel, from
+    ``torch.profiler`` (None if it sees no device time), and its 8 kernels
+    with the most time."""
+    kernels = library_kernels(fn)
+    if not kernels:
+        return None, None
+    kinds = (("K2", ("attention_kernel",)), ("int8_gemm", ("i8", "imma", "s8", "int8")),
+             ("gemm", ("gemm", "nvjet", "gemv", "cutlass")), ("reduce", ("reduce",)),
+             ("cast", ("direct_copy",)), ("elementwise", ("elementwise", "vectorized")))
+    by_kind = {}
+    for k in kernels:
+        n = k["name"].lower()
+        kind = next((a for a, subs in kinds if any(s in n for s in subs)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + k["us"] / 1e3
+    top = sorted(kernels, key=lambda k: -k["us"])[:8]
+    return by_kind, [{"name": k["name"][:120], "ms": k["us"] / 1e3, "count": k["count"]}
+                     for k in top]
+
+
+def w8a8_decoder(family, model, chunk, ids, am, pix, bf16_p_yes, smi):
+    """Phases 5b and 6b: phase 5's or 6's model and weights with
+    ``quantize_int8`` in the LM (every projection, FFN and head W8A8
+    through ``torch._int_mm``; lora_r 0), the same prompts through
+    ``make_decoder_rerank_fn``. K2 stays bf16 (head bias or causal hd 80).
+    Each W8A8 layer's first rows against the same layer on the CPU, bitwise
+    (``check_int8_layers``; T5's one-query cross-attention reads its K and V
+    weights directly, as the JAX package's does); p(yes) of DECODER_CHECK
+    prompts against the same W8A8 model on the card without the kernel.
+    Returns (the line, K2's launches and shape)."""
+    from reranking_multimodal_retrievers_tpu_torch.engine import make_decoder_rerank_fn
+    from reranking_multimodal_retrievers_tpu_torch.models import OPTConfig
+    from reranking_multimodal_retrievers_tpu_torch.models.rerankers import Blip2DecoderRerankModel
+    from reranking_multimodal_retrievers_tpu_torch.ops.quant import Int8Linear
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = model.config
+    text = cfg.blip2.text_config
+    is_opt = isinstance(text, OPTConfig)
+
+    cfg8 = dataclasses.replace(cfg, blip2=dataclasses.replace(
+        cfg.blip2, text_config=dataclasses.replace(text, quantize_int8=True)))
+    check(cfg8.blip2.text_config.lora_r == 0, f"{family}: W8A8 needs lora_r 0")
+    model8 = Blip2DecoderRerankModel(cfg8, device="meta")  # phase 5's or 6's tensors
+    model8.load_state_dict(model.state_dict(), assign=True)
+    model8.eval()
+    K = ids.shape[0]
+    layers = {name: m for name, m in model8.named_modules() if isinstance(m, Int8Linear)}
+    # the single-query cross-attention's K and V: weights read, no layer call
+    unread = {n for n in layers if ".EncDecAttention.k" in n or ".EncDecAttention.v" in n}
+    seen = {}
+    hooks = [m.register_forward_hook(keep_first_rows(seen, name)) for name, m in layers.items()]
+    fn = make_decoder_rerank_fn(model8, chunk_size=chunk)
+    reset_counts()
+    run_s = []
+    try:
+        for _ in range(2):  # the first run also warms up cuBLASLt
+            t1 = time.perf_counter()
+            p_yes = fn(ids, am, pix.to(torch.bfloat16))
+            torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t1)
+            for h in hooks:  # the first run feeds the layer check
+                h.remove()
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = read_counts()
+    n_layers = text.num_hidden_layers if is_opt else text.num_layers
+    want_k2 = 2 * n_layers * (K // chunk)
+    check(launches["K2"] == want_k2 and launches["K1"] == launches["K3"] == launches["K2f32"] == 0,
+          f"{family} W8A8 launches {launches}, want K2 = {want_k2}")
+    check(tuple(p_yes.shape) == (K,) and bool(torch.isfinite(p_yes).all())
+          and bool(((p_yes >= 0) & (p_yes <= 1)).all()), f"{family} W8A8 p(yes) {p_yes}")
+    check(set(seen) == set(layers) - unread,
+          f"{family}: W8A8 layers run {len(seen)} of {len(layers) - len(unread)}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # where the device time goes, traced over the first chunk's prompts (a
+    # trace of all K takes the profiler 40-70 s; not the main path's)
+    t1 = time.perf_counter()
+    by_kind, top = _profile_kinds(lambda: fn(ids[:chunk], am[:chunk], pix.to(torch.bfloat16)))
+    profile_s = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    layers_checked, layer_gap = check_int8_layers({n: layers[n] for n in seen}, seen)
+    layer_check_s = time.perf_counter() - t1
+    del seen
+    n = DECODER_CHECK
+    want = make_decoder_rerank_fn(_plain_twin(model8), chunk_size=n)(
+        ids[:n], am[:n], pix.to(torch.bfloat16))
+    err = (p_yes[:n].float() - want.float()).abs().max().item()
+    check(err <= P_YES_TOL,
+          f"{family} W8A8 p(yes) {p_yes[:n].tolist()} vs without K2 {want.tolist()}")
+
+    a, b = p_yes.float().cpu().numpy(), bf16_p_yes.float().cpu().numpy()
+    rho = float(np.corrcoef(np.argsort(np.argsort(a)), np.argsort(np.argsort(b)))[0, 1])
+    device_ms = sum(by_kind.values()) if by_kind else None
+    line = {"phase": f"rerank_{family}_w8a8", "card": smi, "candidates": K,
+            "seq_len": ids.shape[1], "chunk_rows": chunk, "run_seconds": run_s,
+            "candidates_per_s": K / run_s[-1], "peak_gb": peak,
+            "int8_layers": len(layers), "int8_layers_bitwise": layers_checked,
+            "int8_layers_weights_read": len(unread), "min_layer_gap_bf16": layer_gap,
+            "layer_check_seconds": layer_check_s,
+            "p_yes_checked": p_yes[:n].tolist(), "p_yes_without_kernel": want.tolist(),
+            "max_abs_err_vs_without_kernel": err, "tol": P_YES_TOL,
+            "max_abs_gap_vs_bf16": float(np.abs(a - b).max()), "spearman_vs_bf16": rho,
+            "top1_same_as_bf16": bool(np.argmax(a) == np.argmax(b)),
+            "p_yes_spread": [float(a.min()), float(a.max())],
+            "profiled_prompts": chunk, "device_ms_by_kind": by_kind, "device_ms": device_ms,
+            # W8A8's quantize and rescale passes are casts, elementwise
+            # kernels and the row maxima (with the LayerNorms' and GELU's)
+            "cast_elementwise_reduce_share": (
+                sum(by_kind.get(k, 0.0) for k in ("cast", "elementwise", "reduce")) / device_ms
+                if device_ms else None),
+            "top_kernels": top, "profile_seconds": profile_s,
+            "launches": launches, "seconds": time.perf_counter() - t0}
+    del model8, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, {"launches": launches["K2"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5274,6 +5733,9 @@ def main() -> int:
                            device="cuda")
     retrieved = (Qm, qout.query_mask.int(), index.embeddings[cand], index.mask[cand].int())
     del ref_scores, cand
+    # phase 3e's traffic: phase 3's docs and queries
+    p3_corpus = (batches, [str(i) for i in range(N_ENC)])
+    p3_queries = (torch.as_tensor(q_ids), torch.as_tensor(q_am), pix)
 
     # ---- 3d. raw images preprocessed on the card into phase 3's FLMR and
     # index (main path)
@@ -5283,6 +5745,17 @@ def main() -> int:
     del flmr
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 3e. PreFLMR-L and PreFLMR-G over phase 3's docs and queries (main
+    # path), each against an fp32 copy of its weights without the kernels
+    p3e_launches, k1_p3e, k2_p3e = [], [], []
+    for scale in P3E_SCALES:
+        line, k1_rows, k2_rows = p3e_preflmr(scale, index, p3_corpus, p3_queries, bert_kw, smi)
+        p3e_launches.append(line["launches"])
+        k1_p3e += k1_rows
+        k2_p3e += k2_rows
+        emit(line)
+    del p3_corpus
 
     # ---- 3b. int8 retrieve over the same index, quantized on the card (main path)
     qindex, line = int8_retrieve(index, Qm, K, candidates)
@@ -5358,17 +5831,30 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- 5. monoBLIP2-Flan-T5 (main path)
-    line, k2_t5 = decoder_rerank(
-        "blip2_flan_t5_xl", T5Config.flan_t5_xl(use_pallas_attention=True, position_bias_bf16=True),
-        chunk=10, yes_no=T5_YES_NO, vocab_hi=30000, smi=smi)
+    # ---- 4c. monoPreFLMR-L over the same traffic (main path): the joint
+    # sequence of 512 text + 32 prefix + 256 patch rows
+    line, k2_p4c = p4c_rerank_l(_preflmr_config("L", **bert_kw), (ids, am, tt, pix), bert_kw,
+                                smi)
+    p4c_launches = line["launches"]
     emit(line)
 
-    # ---- 6. monoBLIP2-Opt (main path)
-    line, k2_opt = decoder_rerank(
-        "blip2_opt_2_7b", OPTConfig.opt_2_7b(use_pallas_attention=True), chunk=5,
-        yes_no=OPT_YES_NO, vocab_hi=50000, smi=smi)
+    # ---- 5. monoBLIP2-Flan-T5 (main path), 5b. the same weights and
+    # prompts with the LM W8A8 (main path)
+    def w8a8(family, chunk):
+        return lambda model, *inputs: w8a8_decoder(family, model, chunk, *inputs, smi)
+
+    line, k2_t5, (line_5b, k2_t5_w8a8) = decoder_rerank(
+        "blip2_flan_t5_xl", T5Config.flan_t5_xl(use_pallas_attention=True, position_bias_bf16=True),
+        chunk=10, yes_no=T5_YES_NO, vocab_hi=30000, smi=smi, then=w8a8("blip2_flan_t5_xl", 10))
     emit(line)
+    emit(line_5b)
+
+    # ---- 6. monoBLIP2-Opt (main path), 6b. W8A8 (main path)
+    line, k2_opt, (line_6b, k2_opt_w8a8) = decoder_rerank(
+        "blip2_opt_2_7b", OPTConfig.opt_2_7b(use_pallas_attention=True), chunk=5,
+        yes_no=OPT_YES_NO, vocab_hi=50000, smi=smi, then=w8a8("blip2_opt_2_7b", 5))
+    emit(line)
+    emit(line_6b)
 
     # ---- 8. FLMR training, 8b. the reranker's train step and W8A8's backward
     emit(flmr_training(smi))
@@ -5453,9 +5939,10 @@ def main() -> int:
 
     # ---- 7. the kernels line and the result
     torch.cuda.synchronize()
-    phases = (retrieve_launches, p3d_launches, int8_launches, stream_launches, rerank_launches,
-              w8a8_launches, plaid_launches, pooled_launches, baleen_launches, triples_launches,
-              *cli_parts.values(), *p12_parts.values(), *p13_parts.values(), p14_launches,
+    phases = (retrieve_launches, p3d_launches, *p3e_launches, int8_launches, stream_launches,
+              rerank_launches, w8a8_launches, p4c_launches, line_5b["launches"],
+              line_6b["launches"], plaid_launches, pooled_launches, baleen_launches,
+              triples_launches, *cli_parts.values(), *p12_parts.values(), *p13_parts.values(), p14_launches,
               *p15_parts.values())
 
     def launches(name):
@@ -5488,6 +5975,13 @@ def main() -> int:
              replaces=attention, launches=launches("K2"), **k2[512], at_593=k2[593]),
         k2_line("head_bias bf16 (Flan-T5-XL encoder)", k2_t5),
         k2_line("causal, head_dim 80 (OPT-2.7b)", k2_opt),
+        # 5b and 6b launch K2 at phase 5's and 6's shapes: the same
+        # variant's numbers, measured in phases 5 and 6, with W8A8's launches
+        k2_line("head_bias bf16 (Flan-T5-XL encoder under W8A8, 5b; timed in phase 5)",
+                {**k2_t5, **k2_t5_w8a8}),
+        k2_line("causal, head_dim 80 (OPT-2.7b under W8A8, 6b; timed in phase 6)",
+                {**k2_opt, **k2_opt_w8a8}),
+        *(k2_line(row["variant"], row) for row in k2_p3e + k2_p4c),
         k2_line("key bias L=640 (interaction CrossEncoder, 9a)", k2_inter["9a"]),
         k2_line("key bias L=369 (interaction CrossEncoder on retrieved docs, 9c)",
                 k2_inter["9c"]),
@@ -5513,7 +6007,7 @@ def main() -> int:
         *(dict(name=f"maxsim_scores {row['variant']}", route="cuda",
                source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
                replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:67", **row)
-          for row in k1_p3d + k1_p13),
+          for row in k1_p3d + k1_p3e + k1_p13),
         *(dict(name=f"maxsim_scores_int8 {row['variant']}", route="cuda",
                source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim_int8.cu",
                replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183", **row)

@@ -4,7 +4,8 @@ the kernel's row groups and tiles, docs of 1 or more than 256 tokens, one
 doc, any L, strided q/k/v), at ``bench.py``'s query batch, a doc's total
 independent of the launch it falls in, and the int8 serving path
 on the card: streamed search against the device-resident one, and
-``Int8Linear`` (``torch._int_mm``) against its CPU result.
+``Int8Linear`` (``torch._int_mm``) against its CPU result, alone and in a
+W8A8 Flan-T5-XL-width block.
 
 Marked ``cuda``; every test skips without a CUDA device. This file imports
 no JAX, so it runs on a GPU machine that has none. There, from the
@@ -477,6 +478,77 @@ def test_k2_at_the_interaction_launch_shapes(gen, L):
     assert fused_self_attention.launches == launches + 1
     ref = fused_self_attention_reference(q, k, v, bias, num_heads=H, sm_scale=0.125)
     torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+def test_k2_at_the_monopreflmr_l_joint_length(gen):
+    """K2 at monoPreFLMR-L's cross-encoder length, [4, 512 + 32 + 256, 12 x
+    64]: text tails padded within the first 512 keys (one row unpadded),
+    the 288 vision rows after them always valid."""
+    B, L, H = 4, 800, 12
+    q, k, v = (torch.randn(B, L, H * 64, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    tlen = torch.tensor([512, 37, 300, 511], device="cuda")
+    pos = torch.arange(L, device="cuda")[None, :]
+    bias = torch.where((pos < tlen[:, None]) | (pos >= 512), 0.0, -1e9)
+    launches = fused_self_attention.launches
+    got = fused_self_attention(q, k, v, bias, num_heads=H, sm_scale=0.125)
+    torch.cuda.synchronize()
+    assert fused_self_attention.launches == launches + 1
+    ref = fused_self_attention_reference(q, k, v, bias, num_heads=H, sm_scale=0.125)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+def test_w8a8_t5_xl_block_on_card_equals_cpu(gen):
+    """One Flan-T5-XL-width encoder block (d_model 2048, 32 heads x 64, d_ff
+    5120) with quantize_int8 in bf16 on the card, K2 with its bf16 head
+    bias: each W8A8 layer's output is bitwise the same layer's on the CPU
+    for the card's input (the quantizers and ``_int_mm`` are exact on both),
+    and the encoder's output is the CPU's (plain attention) up to bf16
+    round-off."""
+    from reranking_multimodal_retrievers_tpu_torch.models.t5 import (
+        T5Config, T5ForConditionalGeneration)
+    from reranking_multimodal_retrievers_tpu_torch.ops.quant import Int8Linear
+
+    cfg = T5Config.flan_t5_xl(vocab_size=512, num_layers=1, num_decoder_layers=1,
+                              quantize_int8=True, use_pallas_attention=True,
+                              position_bias_bf16=True)
+    card = T5ForConditionalGeneration(cfg, dtype=torch.bfloat16, generator=gen).eval()
+    cpu = T5ForConditionalGeneration(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()}, assign=True)
+    layers = {n: m for n, m in card.encoder.named_modules() if isinstance(m, Int8Linear)}
+    assert len(layers) == 7  # q, k, v, o, wi_0, wi_1, wo
+    seen = {}
+
+    def keep(name):
+        def hook(module, args, out):
+            seen.setdefault(name, (args[0].clone(), out.clone()))
+        return hook
+
+    hooks = [m.register_forward_hook(keep(n)) for n, m in layers.items()]
+    ids = torch.randint(2, 512, (3, 96), device="cuda", generator=gen)
+    am = torch.ones_like(ids)
+    am[1, 40:] = 0
+    launches = fused_self_attention.launches
+    try:
+        with torch.inference_mode():
+            got = card.encode(ids, am).float().cpu()
+    finally:
+        for h in hooks:
+            h.remove()
+    assert fused_self_attention.launches == launches + 1
+    assert set(seen) == set(layers)
+    cpu_layers = dict(cpu.encoder.named_modules())
+    with torch.inference_mode():
+        for n, (x, y) in seen.items():
+            assert torch.equal(y.cpu(), cpu_layers[n](x.cpu())), n
+        want = cpu.eval().encode(ids.cpu(), am.cpu()).float()
+    # one bf16 block and the final RMS norm, values of order 1 and up to
+    # ~16: two bf16 spacings of each value (2^-8 relative each), and an
+    # additive 0.1 where the two attention paths' bf16 outputs differ by a
+    # spacing and a W8A8 code of the next layer moves by one (a code step
+    # is 1/127 of its row's largest value, 0.06 at one output here)
+    torch.testing.assert_close(got, want, atol=0.1, rtol=2 ** -7)
 
 
 @pytest.mark.parametrize("interaction_type,launches_per_call", [("CrossEncoder", 2),
