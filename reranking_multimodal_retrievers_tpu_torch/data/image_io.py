@@ -3,24 +3,31 @@ none).
 
 - :func:`write_png` writes an 8-bit RGB PNG with ``zlib`` and ``struct``
   (every scanline with filter 0).
-- :func:`read_image` reads an 8-bit non-interlaced PNG itself (grey, RGB,
-  palette, grey+alpha, RGBA, all five scanline filters) and returns an RGB
-  ``uint8 [H, W, 3]`` array, alpha dropped as PIL's ``convert("RGB")``
-  drops it. It also decodes a sequential Huffman JPEG itself (baseline or
-  extended, 8-bit, 1 or 3 components, any integer sampling factors,
-  restart markers), as the real M2KR images are: :func:`decode_jpeg`.
-  Any other format (a progressive, arithmetic-coded or CMYK JPEG, a
-  16-bit or interlaced PNG) is read by PIL, imported inside that branch:
-  the choice is made on the file's header, before any decoding, and a
-  file this module takes is never retried with PIL.
-- :func:`decode_jpeg` gives the pixels PIL's ``Image.open(...).convert(
-  "RGB")`` gives through libjpeg-turbo's defaults, bit for bit: the
-  ``islow`` integer IDCT (``jidctint.c``) with its range-limit table,
-  "fancy" triangle upsampling of h2v1, h1v2 and h2v2 chroma
-  (``jdsample.c``; box replication of other ratios, and of h2 chroma
-  planes of at most two columns) with the edge rows replicated, and the
-  fixed-point YCbCr -> RGB tables of ``jdcolor.c``. Its Huffman decoding is
-  pure Python, the rest numpy over all blocks at once.
+- :func:`read_image` reads every PNG itself (grey, RGB, palette,
+  grey+alpha, RGBA at each bit depth the format allows, Adam7 or not, all
+  five scanline filters) and returns an RGB ``uint8 [H, W, 3]`` array as
+  PIL's ``convert("RGB")`` gives it: alpha and ``tRNS`` dropped, grey
+  below 8 bits scaled, 16-bit grey clipped at 255 (PIL's mode ``I;16``),
+  other 16-bit samples' high byte. It also decodes every Huffman-coded
+  8-bit JPEG itself: :func:`decode_jpeg`. Any other format (an
+  arithmetic-coded, 12-bit or lossless JPEG, GIF, WebP, BMP, TIFF) is
+  read by PIL, imported inside that branch, and raises naming the format
+  where PIL is absent: the choice is made on the file's header, before
+  any decoding, and a file this module takes is never retried with PIL.
+- :func:`decode_jpeg` takes sequential (baseline or extended) and
+  progressive files of 1, 3 or 4 components, any integer sampling
+  factors and restart markers, and gives the pixels PIL's
+  ``Image.open(...).convert("RGB")`` gives through libjpeg-turbo's
+  defaults, bit for bit: ``jdphuff.c``'s four progressive decoders (EOB
+  runs, refinement correction bits), block smoothing of the coefficients
+  a progressive file leaves unrefined (``jdcoefct.c``, libjpeg-turbo's
+  5 x 5 estimates), the ``islow`` integer IDCT (``jidctint.c``) with its
+  range-limit table, "fancy" triangle upsampling of h2v1, h1v2 and h2v2
+  chroma (``jdsample.c``; box replication of other ratios, and of h2
+  chroma planes of at most two columns) with the edge rows replicated, the
+  fixed-point YCbCr -> RGB and YCCK -> CMYK tables of ``jdcolor.c``, and
+  PIL's inversion of Adobe CMYK and its CMYK -> RGB. Its Huffman decoding
+  is pure Python, the rest numpy over all blocks at once.
 - :class:`CLIPImageProcessor` turns images into CLIP pixel values
   ``[N, 3, s, s]`` fp32: shortest side resized to ``s`` (bicubic with
   antialiasing), centre crop, ``/255``, CLIP's mean and std. An image
@@ -46,6 +53,10 @@ import torch
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples a pixel
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -95,12 +106,13 @@ def _png_header(data: bytes):
     return w, h, depth, ctype, interlace
 
 
-def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-scanline filters (None, Sub, Up, Average, Paeth)."""
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int, at: int = 0) -> np.ndarray:
+    """Undo the per-scanline filters (None, Sub, Up, Average, Paeth) of
+    ``h`` rows of ``stride`` bytes starting at ``raw[at]``."""
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(h):
-        start = y * (stride + 1)
+        start = at + y * (stride + 1)
         ftype = raw[start]
         line = np.frombuffer(raw, np.uint8, stride, start + 1)
         if ftype == 0:
@@ -134,32 +146,74 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(rows: np.ndarray, w: int, chans: int, depth: int) -> np.ndarray:
+    """Unfiltered rows -> ``[h, w, chans]`` samples (``uint16``): 16-bit
+    big-endian, 8-bit, or 1/2/4-bit packed most significant bit first."""
+    h, n = rows.shape[0], w * chans
+    if depth == 16:
+        vals = np.frombuffer(rows.tobytes(), ">u2").reshape(h, -1)[:, :n]
+    elif depth == 8:
+        vals = rows[:, :n]
+    else:
+        bits = np.unpackbits(rows, axis=1)[:, :n * depth].reshape(h, n, depth)
+        vals = bits.astype(np.uint16) @ (np.uint16(1) << np.arange(depth - 1, -1, -1,
+                                                                     dtype=np.uint16))
+    return vals.astype(np.uint16).reshape(h, w, chans)
+
+
 def _read_png(data: bytes) -> np.ndarray:
-    w, h, depth, ctype, _ = _png_header(data)
+    w, h, depth, ctype, interlace = _png_header(data)
     chans = _CHANNELS[ctype]
     idat, palette = [], None
     for kind, body in _chunks(data):
         if kind == b"IDAT":
             idat.append(body)
         elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * chans, chans)
-    px = rows.reshape(h, w, chans)
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3].reshape(-1, 3)
+    if ctype == 3 and palette is None:
+        raise ValueError("palette PNG without PLTE")
+    raw = zlib.decompress(b"".join(idat))
+    bpp = max(1, chans * depth // 8)
+    if not interlace:
+        px = _samples(_unfilter(raw, h, -(-w * chans * depth // 8), bpp), w, chans, depth)
+    else:  # Adam7: seven passes, each a sub-image of its own rows and filters
+        px, at = np.zeros((h, w, chans), np.uint16), 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            stride = -(-pw * chans * depth // 8)
+            px[y0::dy, x0::dx] = _samples(_unfilter(raw, ph, stride, bpp, at), pw, chans, depth)
+            at += ph * (stride + 1)
+    return _png_rgb(px, depth, ctype, palette)
+
+
+def _png_rgb(px: np.ndarray, depth: int, ctype: int, palette: np.ndarray) -> np.ndarray:
+    """Samples as PIL's ``convert("RGB")`` gives them: a palette looked up
+    (entries past PLTE black), grey below 8 bits scaled to 0-255, 16-bit
+    grey (PIL's mode ``I;16``) clipped at 255, other 16-bit samples' high
+    byte; alpha and ``tRNS`` dropped."""
     if ctype == 3:
-        if palette is None:
-            raise ValueError("palette PNG without PLTE")
-        return palette[px[..., 0]]
+        full = np.zeros((256, 3), np.uint8)
+        full[:len(palette)] = palette[:256]
+        return full[px[..., 0]]
     if ctype in (0, 4):
-        return np.repeat(px[..., :1], 3, axis=2)
-    return np.ascontiguousarray(px[..., :3])
+        g = px[..., 0]
+        if depth == 16:
+            g = np.minimum(g, 255) if ctype == 0 else g >> 8
+        elif depth < 8:
+            g = g * (255 // ((1 << depth) - 1))
+        return np.repeat(g.astype(np.uint8)[..., None], 3, axis=2)
+    rgb = px[..., :3] >> 8 if depth == 16 else px[..., :3]
+    return np.ascontiguousarray(rgb.astype(np.uint8))
 
 
 def _is_own_png(data: bytes) -> bool:
-    """An 8-bit, non-interlaced PNG of a colour type this module reads."""
+    """A PNG of a colour type and bit depth the format allows."""
     if not data.startswith(PNG_SIGNATURE):
         return False
     _, _, depth, ctype, interlace = _png_header(data)
-    return depth == 8 and interlace == 0 and ctype in _CHANNELS
+    return depth in _PNG_DEPTHS.get(ctype, ()) and interlace in (0, 1)
 
 
 # ------------------------------------------------------------------- JPEG
@@ -169,7 +223,12 @@ _ZIGZAG = np.array([
     20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 _SOF_SEQUENTIAL = (0xC0, 0xC1)  # baseline, extended sequential (Huffman)
-_SOF_OTHER = (0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF)
+_SOF_PROGRESSIVE = 0xC2
+_SOF_NAMES = {0xC3: "a lossless JPEG", 0xC5: "a differential JPEG", 0xC6: "a differential JPEG",
+              0xC7: "a differential lossless JPEG", 0xC9: "an arithmetic-coded JPEG",
+              0xCA: "an arithmetic-coded progressive JPEG",
+              0xCB: "an arithmetic-coded lossless JPEG", 0xCD: "a differential JPEG",
+              0xCE: "a differential JPEG", 0xCF: "a differential JPEG"}
 
 
 def _segments(data: bytes):
@@ -191,27 +250,61 @@ def _segments(data: bytes):
         pos += 2 + length
 
 
-def _jpeg_frame(data: bytes):
-    """(width, height, [(id, h, v, tq)]) of a JPEG this module decodes, else
-    None: SOF0/SOF1 at 8 bits with 1 or 3 components whose sampling factors
-    divide the largest."""
+def _sof(data: bytes):
+    """(marker, precision, width, height, [(id, h, v, tq)]) of a JPEG's
+    frame header, or None."""
     if not data.startswith(b"\xff\xd8"):
         return None
     for marker, a, b in _segments(data):
-        if marker in _SOF_OTHER:
-            return None
-        if marker in _SOF_SEQUENTIAL:
+        if marker in _SOF_SEQUENTIAL or marker == _SOF_PROGRESSIVE or marker in _SOF_NAMES:
             precision, h, w, nc = struct.unpack(">BHHB", data[a:a + 6])
             comps = [tuple(data[a + 6 + 3 * i:a + 9 + 3 * i]) for i in range(nc)]
-            comps = [(cid, hv >> 4, hv & 15, tq) for cid, hv, tq in comps]
-            hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
-            if (precision != 8 or nc not in (1, 3) or h == 0
-                    or any(hmax % c[1] or vmax % c[2] for c in comps)):
-                return None
-            return w, h, comps
+            return marker, precision, w, h, [(cid, hv >> 4, hv & 15, tq) for cid, hv, tq in comps]
         if marker == 0xDA:
             return None
     return None
+
+
+def _jpeg_frame(data: bytes):
+    """(width, height, [(id, h, v, tq)], progressive) of a JPEG this module
+    decodes, else None: a Huffman-coded sequential (SOF0/SOF1) or
+    progressive (SOF2) frame at 8 bits with 1, 3 or 4 components whose
+    sampling factors divide the largest."""
+    sof = _sof(data)
+    if sof is None:
+        return None
+    marker, precision, w, h, comps = sof
+    if marker not in _SOF_SEQUENTIAL and marker != _SOF_PROGRESSIVE:
+        return None
+    hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+    if (precision != 8 or len(comps) not in (1, 3, 4) or h == 0
+            or any(hmax % c[1] or vmax % c[2] for c in comps)):
+        return None
+    return w, h, comps, marker == _SOF_PROGRESSIVE
+
+
+def image_format(data: bytes) -> str:
+    """What a file's header says it is, in words (for errors)."""
+    sof = _sof(data)
+    if sof is not None:
+        marker, precision, _, _, comps = sof
+        if marker in _SOF_NAMES:
+            return _SOF_NAMES[marker]
+        if precision != 8:
+            return f"a {precision}-bit JPEG"
+        return (f"a JPEG of {len(comps)} components with sampling factors "
+                f"{[(c[1], c[2]) for c in comps]}")
+    if data.startswith(b"\xff\xd8"):
+        return "a JPEG without a frame header"
+    if data.startswith(PNG_SIGNATURE):
+        return "a PNG of bit depth {2} and colour type {3}".format(*_png_header(data))
+    for magic, name in ((b"GIF87a", "a GIF"), (b"GIF89a", "a GIF"), (b"BM", "a BMP"),
+                        (b"II*\0", "a TIFF"), (b"MM\0*", "a TIFF")):
+        if data.startswith(magic):
+            return name
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "a WebP"
+    return f"an unknown format (header {data[:8].hex()})"
 
 
 def _huffman_lut(counts: bytes, symbols: bytes) -> List[int]:
@@ -390,8 +483,9 @@ def _upsample(plane: np.ndarray, hr: int, vr: int) -> np.ndarray:
     return np.repeat(np.repeat(a, vr, 0), hr, 1)
 
 
-def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
-    """jdcolor.c's ``ycc_rgb_convert``: SCALEBITS 16 fixed-point tables."""
+def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, clip: bool = True) -> np.ndarray:
+    """jdcolor.c's ``ycc_rgb_convert``: SCALEBITS 16 fixed-point tables
+    (unclipped for YCCK, whose conversion subtracts from 255 first)."""
     x = np.arange(256, dtype=np.int64) - 128
     half = 1 << 15
     cr_r = (91881 * x + half) >> 16          # FIX(1.40200)
@@ -402,21 +496,252 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     r = y + cr_r[cr]
     g = y + ((cb_g[cb] + cr_g[cr]) >> 16)
     b = y + cb_b[cb]
-    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+    out = np.stack([r, g, b], -1)
+    return np.clip(out, 0, 255).astype(np.uint8) if clip else out
+
+
+class _Bits:
+    """A bit reader over one restart interval's unstuffed bytes (zeros past
+    its end, as libjpeg pads a truncated segment)."""
+
+    __slots__ = ("seg", "p", "n", "acc", "nbits")
+
+    def __init__(self, seg: bytes):
+        self.seg, self.p, self.n, self.acc, self.nbits = seg, 0, len(seg), 0, 0
+
+    def _fill(self) -> None:
+        acc, nbits, p = self.acc & ((1 << self.nbits) - 1), self.nbits, self.p
+        while nbits < 16:
+            acc = (acc << 8) | (self.seg[p] if p < self.n else 0)
+            p += 1
+            nbits += 8
+        self.acc, self.nbits, self.p = acc, nbits, p
+
+    def huff(self, lut: List[int]) -> int:
+        if self.nbits < 16:
+            self._fill()
+        e = lut[(self.acc >> (self.nbits - 16)) & 0xFFFF]
+        self.nbits -= e & 31
+        return e >> 5
+
+    def bits(self, s: int) -> int:
+        if self.nbits < s:
+            self._fill()
+        self.nbits -= s
+        return (self.acc >> self.nbits) & ((1 << s) - 1)
+
+    def extend(self, s: int) -> int:
+        v = self.bits(s)
+        return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
+
+
+def _progressive_interval(seg: bytes, units, flats, ss: int, se: int, ah: int, al: int) -> None:
+    """One restart interval of a progressive scan (``jdphuff.c``'s four
+    decoders): ``units`` [(component, Huffman table, coefficient offset)]
+    in order. DC predictors and the EOB run start at zero."""
+    bits, zz = _Bits(seg), _ZIGZAG.tolist()
+    if ss == 0:
+        if ah == 0:  # DC first
+            preds: Dict[int, int] = {}
+            for c, lut, base in units:
+                s = bits.huff(lut)
+                preds[c] = preds.get(c, 0) + (bits.extend(s) if s else 0)
+                flats[c][base] = preds[c] << al
+        else:  # DC refine: one bit a block
+            p1 = 1 << al
+            for c, _, base in units:
+                if bits.bits(1):
+                    flats[c][base] |= p1
+        return
+    eobrun = 0
+    if ah == 0:  # AC first
+        for c, lut, base in units:
+            if eobrun:
+                eobrun -= 1
+                continue
+            flat, k = flats[c], ss
+            while k <= se:
+                rs = bits.huff(lut)
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    flat[base + zz[k]] = bits.extend(s) << al
+                elif r == 15:
+                    k += 15
+                else:
+                    eobrun = (1 << r) + (bits.bits(r) if r else 0) - 1
+                    break
+                k += 1
+        return
+    p1, m1 = 1 << al, -1 << al  # AC refine
+    for c, lut, base in units:
+        flat, k = flats[c], ss
+        if not eobrun:
+            while k <= se:
+                rs = bits.huff(lut)
+                r, s = rs >> 4, rs & 15
+                if s:
+                    s = p1 if bits.bits(1) else m1
+                elif r != 15:
+                    eobrun = (1 << r) + (bits.bits(r) if r else 0)
+                    break
+                # pass r zero coefficients, correcting the nonzero ones on the way
+                while k <= se:
+                    at = base + zz[k]
+                    if flat[at]:
+                        if bits.bits(1) and not flat[at] & p1:
+                            flat[at] += p1 if flat[at] >= 0 else m1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if s and k <= se:
+                    flat[base + zz[k]] = s
+                k += 1
+        if eobrun:  # the rest of the band: correction bits only
+            while k <= se:
+                at = base + zz[k]
+                if flat[at] and bits.bits(1) and not flat[at] & p1:
+                    flat[at] += p1 if flat[at] >= 0 else m1
+                k += 1
+            eobrun -= 1
+
+
+def _smooth_columns(nbx: int) -> np.ndarray:
+    """The block columns read as the 5 DC columns around each of ``nbx``
+    block columns: the neighbours, the edge column repeated past either
+    side."""
+    return np.clip(np.arange(nbx)[:, None] + np.arange(-2, 3)[None, :], 0, nbx - 1)
+
+
+def _smooth_rows(hib: int, v: int, imcu_rows: int) -> np.ndarray:
+    """The block rows read as the 5 DC rows around each of ``hib`` block
+    rows, as ``decompress_smooth_data`` indexes them per iMCU row (in the
+    last iMCU row's count; it may read the padding rows of an iMCU row)."""
+    out = []
+    for r in range(hib):
+        m, br = divmod(r, v)
+        rows = v if m < imcu_rows - 1 else (hib % v or v)
+        at, last = m * rows + br, rows * imcu_rows
+        prev = r - 1 if at > 0 else r
+        nxt = r + 1 if at < last - 1 else r
+        out.append([r - 2 if at > 1 else prev, prev, r, nxt, r + 2 if at < last - 2 else nxt])
+    return np.array(out, np.int64)
+
+
+# positions (natural order) of the coefficients block smoothing estimates
+_Q01, _Q10, _Q20, _Q11, _Q02, _Q03, _Q12, _Q21, _Q30 = 1, 8, 16, 9, 2, 3, 10, 17, 24
+# weights of the 5 x 5 DCs (row-major, DC01..DC25) for each estimate:
+# (coefficient bit index, position, weights without / with DC interpolation)
+_SMOOTH = [
+    (1, _Q01, {11: -7, 12: 50, 14: -50, 15: 7},
+     {1: -1, 2: -1, 4: 1, 5: 1, 6: -3, 7: 13, 9: -13, 10: 3, 11: -3, 12: 38, 14: -38, 15: 3,
+      16: -3, 17: 13, 19: -13, 20: 3, 21: -1, 22: -1, 24: 1, 25: 1}),
+    (2, _Q10, {3: -7, 8: 50, 18: -50, 23: 7},
+     {1: -1, 2: -3, 3: -3, 4: -3, 5: -1, 6: -1, 7: 13, 8: 38, 9: 13, 10: -1, 16: 1, 17: -13,
+      18: -38, 19: -13, 20: 1, 21: 1, 22: 3, 23: 3, 24: 3, 25: 1}),
+    (3, _Q20, {3: -1, 8: 13, 13: -24, 18: 13, 23: -1},
+     {3: 1, 7: 2, 8: 7, 9: 2, 12: -5, 13: -14, 14: -5, 17: 2, 18: 7, 19: 2, 23: 1}),
+    (4, _Q11, {10: 1, 16: 1, 17: -10, 19: 10, 2: -1, 20: -1, 22: 1, 24: -1, 4: 1, 6: -1, 7: 10,
+               9: -10},
+     {1: -1, 5: 1, 7: 9, 9: -9, 17: -9, 19: 9, 21: 1, 25: -1}),
+    (5, _Q02, {11: -1, 12: 13, 13: -24, 14: 13, 15: -1},
+     {7: 2, 8: -5, 9: 2, 11: 1, 12: 7, 13: -14, 14: 7, 15: 1, 17: 2, 18: -5, 19: 2}),
+    (6, _Q03, None, {7: 1, 9: -1, 12: 2, 14: -2, 17: 1, 19: -1}),
+    (7, _Q12, None, {7: 1, 8: -3, 9: 1, 17: -1, 18: 3, 19: -1}),
+    (8, _Q21, None, {7: 1, 9: -1, 12: -3, 14: 3, 17: 1, 19: -1}),
+    (9, _Q30, None, {7: 1, 8: 2, 9: 1, 17: -1, 18: -2, 19: -1}),
+]
+_SMOOTH_DC = {1: -2, 2: -6, 3: -8, 4: -6, 5: -2, 6: -6, 7: 6, 8: 42, 9: 6, 10: -6, 11: -8,
+              12: 42, 13: 152, 14: 42, 15: -8, 16: -6, 17: 6, 18: 42, 19: 6, 20: -6, 21: -2,
+              22: -6, 23: -8, 24: -6, 25: -2}
+
+
+def _smoothing_ok(coef_bits, qts) -> bool:
+    """``jdcoefct.c``'s ``smoothing_ok``: every DC partly known, no zero
+    quantizer among the ten it divides by, and some low coefficient not
+    fully known (never sent: -1, or its last point transform above 0)."""
+    useful = False
+    for bits, qt in zip(coef_bits, qts):
+        if bits[0] < 0 or not all(qt[p] for p in (0, _Q01, _Q10, _Q20, _Q11, _Q02, _Q03, _Q12,
+                                                   _Q21, _Q30)):
+            return False
+        useful = useful or any(bits[k] != 0 for k in range(1, 10))
+    return useful
+
+
+def _smooth(coef: np.ndarray, bits: List[int], qt: np.ndarray, hib: int, wib: int, v: int,
+            imcu_rows: int) -> None:
+    """Block smoothing of one component's quantized coefficients ``[rows,
+    cols, 64]`` in place, as libjpeg-turbo (2.1 and later) does it: each
+    zero low coefficient not known to be exact gets an estimate from the
+    5 x 5 DCs around its block; with no AC data at all, the DC too."""
+    rows, cols = _smooth_rows(hib, v, imcu_rows), _smooth_columns(wib)
+    dc = coef[:, :, 0].astype(np.int64)
+    grid = dc[rows[:, :, None, None], cols[None, None, :, :]]  # [hib, 5, wib, 5]
+    dcs = {1 + 5 * i + j: grid[:, i, :, j] for i in range(5) for j in range(5)}
+    change_dc = all(bits[k] == -1 for k in range(1, 10))
+    q00 = int(qt[0])
+    out = coef[:hib, :wib]
+    ws = out.astype(np.int64)
+
+    def estimate(weights, q):
+        num = q00 * sum(w * dcs[i] for i, w in weights.items())
+        pred = ((q << 7) + np.abs(num)) // (q << 8)
+        return pred, num < 0
+
+    for bit, pos, plain, interp in _SMOOTH:
+        al = bits[bit]
+        weights = interp if change_dc else plain
+        if al == 0 or weights is None:
+            continue
+        pred, neg = estimate(weights, int(qt[pos]))
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        pred = np.where(neg, -pred, pred)
+        ws[..., pos] = np.where(out[..., pos] == 0, pred, ws[..., pos])
+    if change_dc:
+        pred, neg = estimate(_SMOOTH_DC, q00)
+        ws[..., 0] = np.where(neg, -pred, pred)
+    out[...] = ws
+
+
+def _cmyk_to_rgb(c, m, y, k, ycck: bool) -> np.ndarray:
+    """Four decoded planes as PIL gives them: libjpeg's YCCK -> CMYK
+    (``jdcolor.c``) for an Adobe transform of 2, PIL's inversion of Adobe
+    CMYK (mode ``CMYK;I``), then its ``convert("RGB")`` (``Convert.c``
+    ``cmyk2rgb``: ``255 - K`` less ``255 - K`` times the ink, over 255)."""
+    planes = [p.astype(np.int64) for p in (c, m, y, k)]
+    if ycck:
+        rgb = _ycc_to_rgb(*planes[:3], clip=False)
+        planes[:3] = [np.clip(255 - rgb[..., i], 0, 255) for i in range(3)]
+    nk = planes[3]  # 255 - PIL's K, whose planes are the decoded ones inverted
+    out = []
+    for p in planes[:3]:
+        t = (255 - p) * nk + 128
+        out.append(np.clip(nk - (((t >> 8) + t) >> 8), 0, 255))
+    return np.stack(out, -1).astype(np.uint8)
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """A sequential Huffman JPEG (see :func:`_jpeg_frame`) as RGB ``uint8
-    [H, W, 3]``, bitwise as PIL decodes it through libjpeg-turbo."""
+    """A Huffman-coded 8-bit JPEG (see :func:`_jpeg_frame`), sequential or
+    progressive, of 1, 3 or 4 components, as RGB ``uint8 [H, W, 3]``,
+    bitwise as PIL decodes it through libjpeg-turbo (block smoothing of a
+    progressive file whose scans leave low coefficients unrefined
+    included)."""
     frame = _jpeg_frame(data)
     if frame is None:
-        raise ValueError("not a sequential 8-bit JPEG of 1 or 3 components")
-    width, height, comps = frame
+        raise ValueError(f"not a Huffman-coded 8-bit JPEG of 1, 3 or 4 components: "
+                         f"{image_format(data)}")
+    width, height, comps, progressive = frame
     hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
     mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
     qt: Dict[int, np.ndarray] = {}
+    latched: Dict[int, np.ndarray] = {}  # each component's table, fixed at its first scan
     huff: Dict[Tuple[int, int], List[int]] = {}
     flats = [[0] * (mcuy * c[2] * mcux * c[1] * 64) for c in comps]
+    coef_bits = [[-1] * 64 for _ in comps]
     index = {c[0]: i for i, c in enumerate(comps)}
     restart, adobe, jfif = 0, None, False
     pos = 2
@@ -454,8 +779,22 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             ns = data[a]
             scan = [(index[data[a + 1 + 2 * i]], data[a + 2 + 2 * i] >> 4,
                      data[a + 2 + 2 * i] & 15) for i in range(ns)]
+            ss, se, ahl = data[a + 1 + 2 * ns:a + 4 + 2 * ns]
+            ah, al = ahl >> 4, ahl & 15
+            if not progressive:
+                ss, se, ah, al = 0, 63, 0, 0
+            for c, _, _ in scan:
+                latched.setdefault(c, qt[comps[c][3]].copy())
+                for k in range(ss, se + 1):
+                    coef_bits[c][k] = al
+
+            def unit(c, td, ta, offset):
+                if not progressive:
+                    return (c, huff[(0, td)], huff[(1, ta)], offset)
+                return (c, huff.get((0, td) if ss == 0 else (1, ta)), offset)
+
             units = []
-            if ns == 1:
+            if ns == 1:  # non-interleaved: the component's own blocks, no MCU padding
                 c, td, ta = scan[0]
                 _, h, v, _ = comps[c]
                 bx = -(-(-(-width * h // hmax)) // 8)
@@ -463,7 +802,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 stride = mcux * h
                 for r in range(by):
                     for col in range(bx):
-                        units.append([(c, huff[(0, td)], huff[(1, ta)], (r * stride + col) * 64)])
+                        units.append([unit(c, td, ta, (r * stride + col) * 64)])
             else:
                 for my in range(mcuy):
                     for mx in range(mcux):
@@ -474,29 +813,37 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                             for yy in range(v):
                                 for xx in range(h):
                                     row, col = my * v + yy, mx * h + xx
-                                    mcu.append((c, huff[(0, td)], huff[(1, ta)],
-                                                (row * stride + col) * 64))
+                                    mcu.append(unit(c, td, ta, (row * stride + col) * 64))
                         units.append(mcu)
             segs, pos = _entropy_segments(data, b)
             per = restart or len(units)
             for s, seg in enumerate(segs):
-                group = units[s * per:(s + 1) * per]
+                group = [u for mcu in units[s * per:(s + 1) * per] for u in mcu]
                 if not group:
                     break
-                _decode_units(seg, [u for mcu in group for u in mcu], flats,
-                              [0] * len(comps))
+                if progressive:
+                    _progressive_interval(seg, group, flats, ss, se, ah, al)
+                else:
+                    _decode_units(seg, group, flats, [0] * len(comps))
             continue
         pos = b
+    tables = [latched.get(i, qt.get(c[3])) for i, c in enumerate(comps)]
+    smooth = progressive and _smoothing_ok(coef_bits, tables)
     planes = []
-    for (cid, h, v, tq), flat in zip(comps, flats):
+    for i, ((cid, h, v, tq), flat) in enumerate(zip(comps, flats)):
         nby, nbx = mcuy * v, mcux * h
-        coef = np.asarray(flat, np.int64).reshape(-1, 64) * qt[tq]
-        px = _idct_islow(coef).reshape(nby, nbx, 8, 8).transpose(0, 2, 1, 3)
-        px = px.reshape(nby * 8, nbx * 8)
         cw, ch = -(-width * h // hmax), -(-height * v // vmax)
+        coef = np.asarray(flat, np.int64).reshape(nby, nbx, 64)
+        if smooth:
+            _smooth(coef, coef_bits[i], tables[i], -(-ch // 8), -(-cw // 8), v, mcuy)
+        px = _idct_islow(coef.reshape(-1, 64) * tables[i]).reshape(nby, nbx, 8, 8)
+        px = px.transpose(0, 2, 1, 3).reshape(nby * 8, nbx * 8)
         planes.append(_upsample(px[:ch, :cw], hmax // h, vmax // v)[:height, :width])
     if len(comps) == 1:
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=2)
+    if len(comps) == 4:
+        # libjpeg: an Adobe transform of 0 is CMYK, any other YCCK; no marker, CMYK
+        return _cmyk_to_rgb(*planes, ycck=adobe is not None and adobe != 0)
     ids = tuple(c[0] for c in comps)
     rgb = (not jfif) and (adobe == 0 if adobe is not None else ids == (82, 71, 66))
     if rgb:
@@ -505,15 +852,21 @@ def decode_jpeg(data: bytes) -> np.ndarray:
 
 
 def read_image(path: str) -> np.ndarray:
-    """The image at ``path`` as RGB ``uint8 [H, W, 3]``."""
+    """The image at ``path`` as RGB ``uint8 [H, W, 3]``. PNGs and the JPEGs
+    of :func:`_jpeg_frame` are decoded here; anything else (an arithmetic,
+    12-bit or lossless JPEG, GIF, WebP, BMP, TIFF) is read by PIL, chosen
+    by the header, and raises naming the format where PIL is absent."""
     with open(path, "rb") as f:
         data = f.read()
     if _is_own_png(data):
         return _read_png(data)
     if _jpeg_frame(data) is not None:
         return decode_jpeg(data)
-    # other formats: progressive or CMYK JPEG, 16-bit PNG, ...
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise NotImplementedError(f"{path}: {image_format(data)}, which this module does not "
+                                  "decode, and PIL is not installed") from e
 
     with Image.open(path) as img:
         return np.asarray(img.convert("RGB"), np.uint8)

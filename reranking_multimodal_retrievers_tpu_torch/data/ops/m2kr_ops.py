@@ -2,11 +2,11 @@
 uses (reference `src/data_ops/merge_data_ops.py:200-683`;
 `configs/data/okvqa_data.libsonnet:8-27`), over ``data/table.py`` tables.
 
-:func:`_load_hf` reads a real M2KR split saved with ``datasets``'
-``save_to_disk`` through ``data/arrow_io.py``, without ``datasets``. Hub ids
-(and the parquet snapshots ``load_dataset`` reads) need the network or
-``pyarrow`` and raise. The dummy data and every transform run as in the JAX
-package."""
+:func:`_load_hf` reads real M2KR data without ``datasets`` or ``pyarrow``:
+a split saved with ``datasets``' ``save_to_disk`` through
+``data/arrow_io.py``, or a local copy of the hub's parquet snapshot through
+``data/parquet_io.py``. Hub ids need the network and raise. The dummy data
+and every transform run as in the JAX package."""
 
 from __future__ import annotations
 
@@ -23,22 +23,29 @@ logger = logging.getLogger(__name__)
 
 
 def _load_hf(path: str):
-    """Load a ``save_to_disk`` directory (a split dict of tables, or one
-    table), as the JAX package's ``_load_hf`` does with
-    ``datasets.load_from_disk``. Its ``hub-path///subfolder`` convention
-    (the reference's, `:243-260`) is kept exactly: for a local directory
-    ``path///sub`` it loads ``path`` and ignores ``sub``. Anything else (a
-    hub id) raises ``NotImplementedError`` naming the path."""
+    """Load M2KR data as the JAX package's ``_load_hf`` does, with its
+    ``path///sub`` convention (the reference's, `:243-260`): a
+    ``save_to_disk`` directory (a split dict of tables, or one table; ``sub``
+    ignored, as ``datasets.load_from_disk`` is given ``path`` alone), else a
+    local hub snapshot of parquet files read as ``datasets.load_dataset(path,
+    sub)`` reads it (``sub`` the config of its README, or without one a
+    sub-directory). Anything else (a hub id) raises ``NotImplementedError``
+    naming the path."""
     from ..arrow_io import is_saved_dataset, load_from_disk
+    from ..parquet_io import is_parquet_snapshot, load_parquet_snapshot
 
+    sub = None
     if "///" in path:
-        path = path.split("///", 1)[0]
+        path, sub = path.split("///", 1)
     if is_saved_dataset(path):
         return load_from_disk(path)
+    if is_parquet_snapshot(path, sub):
+        return load_parquet_snapshot(path, sub)
     raise NotImplementedError(
-        f"{path!r} is not a save_to_disk directory: hub ids and parquet snapshots need "
-        "the network or pyarrow, which the port does without; save the dataset with "
-        "datasets' save_to_disk and point the config at that directory")
+        f"{path!r} is neither a save_to_disk directory nor a local snapshot of parquet files "
+        "(a README.md whose YAML names configs, or parquet files under the config's "
+        "sub-directory): hub ids need the network, which the port does without; download "
+        "the snapshot and point the config at its directory")
 
 
 def make_dummy_m2kr(num_rows=16, num_passages=32, with_images=False, image_dir=None):

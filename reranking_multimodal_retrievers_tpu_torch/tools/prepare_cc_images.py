@@ -92,7 +92,7 @@ def fetch_images(
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("dataset", help="save_to_disk dataset directory with "
+    ap.add_argument("dataset", help="save_to_disk dataset directory or parquet file with "
                                     "image_id/image_url columns")
     ap.add_argument("images_dir")
     ap.add_argument("--id-column", default="image_id")
@@ -103,11 +103,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from ..data.arrow_io import load_from_disk
+    from ..data.parquet_io import read_parquet
 
     if args.dataset.endswith(".parquet"):
-        raise NotImplementedError(f"{args.dataset}: parquet files are not read by the port; "
-                                  "give a save_to_disk directory")
-    ds = load_from_disk(args.dataset)
+        ds = read_parquet(args.dataset)
+    else:
+        ds = load_from_disk(args.dataset)
     out = fetch_images(
         zip(ds[args.id_column], ds[args.url_column]),
         args.images_dir,

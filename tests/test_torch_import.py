@@ -9,7 +9,7 @@ to the CPU when CUDA is absent. The exceptions are imports inside a
 function: ``transformers`` in ``models/tokenization.py``, where a test's
 HF tokenizer is built (the port builds its own WordPiece tokenizer), and
 ``PIL`` in ``data/image_io.py``, for an image format other than the PNGs
-and sequential JPEGs it reads itself, and in ``data/ops/wit_ops.py``, for
+and Huffman-coded JPEGs it reads itself, and in ``data/ops/wit_ops.py``, for
 the offline re-encoding of ``ConvertWITImagePixels`` and the header check
 of a format other than PNG and JPEG, and in ``tools/prepare_cc_images.py``,
 which writes the fetched images as JPEGs. Every ``tools/`` module runs
