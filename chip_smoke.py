@@ -218,13 +218,17 @@ Phases, each printing one JSON line with its elapsed seconds:
      ``cli.main --mode prepare_data`` over it: ``LoadPreprocessedData``
      (128 train and 128 test rows) -> ``CaptionImageWithBLIP2v3`` (BLIP-2
      Flan-T5-XL, 3.94 B, fp32, its HF-named checkpoint written first from
-     the seed; K2's fp32 head-bias path in the T5 encoder at [8, 33,
-     32x64]) -> ``ExtractImageFeaturesWithViTv2`` (CLIP ViT-L/14 at 224)
+     the seed; a full-size synthetic Flan-T5 Unigram tokenizer of 32,100
+     pieces with a charsmap, read by ``models/unigram.py``; the prompt
+     "a photo of", so that K2's fp32 head-bias path in the T5 encoder runs
+     at [8, 48, 32x64]) -> ``ExtractImageFeaturesWithViTv2`` (CLIP ViT-L/14 at 224)
      -> ``PrepareDistillationScores`` (a live FLMR teacher at BERT-base
      width, 1 positive + 4 negatives; K2's fp32 key bias at [8, 32, 768]
      and [40, 64, 768]) -> ``PrepareDataloaders``; the first caption batch
-     against the plain path (greedy tokens up to near-ties), the first
-     teacher batch against it (rtol 1e-4 / atol 2e-5), the first ViT rows
+     against the plain path (greedy tokens up to near-ties; the captions
+     equal the Unigram decoding of the plain path's tokens; the prompt's
+     ids equal the pieces' own), the tokenizer's encodes/s and decodes/s
+     on the host, the first teacher batch against it (rtol 1e-4 / atol 2e-5), the first ViT rows
      against the CPU in fp32; 13c. ``--mode train`` (20 steps) and
      ``--mode test`` (K1, then K3 over an int8 index, both at L_d = 64)
      with ``configs/evqa_flmr.json``'s pipeline over 13a's directories at
@@ -235,8 +239,12 @@ Phases, each printing one JSON line with its elapsed seconds:
      version and dictionary setting), each table read by
      ``data/parquet_io.py`` to the committed SHA-256 of pyarrow's rows,
      and ``tests/fixtures/m2kr_images`` (progressive, block-smoothed,
-     CMYK and YCCK JPEGs, PNGs of every bit depth, Adam7) each decoded to
-     the SHA-256 of PIL's pixels (``tests/fixtures/digests.json``);
+     CMYK and YCCK JPEGs, PNGs of every bit depth, Adam7) and
+     ``tests/fixtures/codec_images`` (GIF, BMP and TIFF variants) each
+     decoded to the SHA-256 of PIL's pixels (``tests/fixtures/digests.json``),
+     a ``datasets`` ``Image`` column in parquet to the digest of
+     ``datasets``' decoding, and ``tests/fixtures/unigram_tokenizer``'s ids
+     and decoded strings to the digests of the ``tokenizers`` library's;
      parquet MB/s and images/s by format (host clock, best of 3 passes);
      then 13c's train and test runs with ``LoadM2KR`` pointed at the
      snapshot (``<dir>///EVQA_data``, ``<dir>///EVQA_passages``) and the
@@ -3315,19 +3323,94 @@ def _p13_captioner_config():
     return Blip2Config(text_config=T5Config.flan_t5_xl(use_pallas_attention=True))
 
 
+_P13_SYLL = ["ka", "lo", "mi", "ne", "ru", "sa", "ti", "vo", "ze", "po", "da", "fu", "gi", "ho"]
+# 13b's captioner prompt: the T5 encoder then runs 32 query tokens + 16
+P13_PROMPT = "a photo of"
+P13_PROMPT_TOKENS = 16  # blip2_greedy_captions pads the prompt to 16 tokens
+P13_VOCAB = 32_100  # Flan-T5's tokenizer: 32,000 pieces and 100 sentinels
+P13_TOK_TEXTS = 2048  # texts encoded and id rows decoded for the host rates
+
+
 def _p13_words(n):
     """``n`` distinct lower-case pseudo-words (the text of 13a's rows)."""
-    syll = ["ka", "lo", "mi", "ne", "ru", "sa", "ti", "vo", "ze", "po", "da", "fu", "gi", "ho"]
     out = []
     for i in range(n):
         w, j = "", i
         while True:
-            w += syll[j % len(syll)]
-            j //= len(syll)
+            w += _P13_SYLL[j % len(_P13_SYLL)]
+            j //= len(_P13_SYLL)
             if not j:
                 break
         out.append(w + "x")
     return out
+
+
+def _p13_tokenizer(words):
+    """A full-size synthetic Flan-T5 tokenizer directory: a Unigram model
+    of 32,100 pieces as Flan-T5's (``<pad>``, ``</s>``, ``<unk>``, then
+    the prompt's words, the metaspace, characters, 13a's pseudo-words and
+    their syllables as ``▁``-pieces and bare, more pseudo-words to the
+    count, then ``<extra_id_99..0>``), scores on a 1/4 grid from the seed
+    (the prompt's words best, so that each is one piece), and a charsmap of
+    full-width forms, the ideographic space, a combining sequence and a
+    ligature. Returns (its path, the pieces)."""
+    import string
+
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import (
+        write_precompiled_charsmap, write_unigram_tokenizer)
+
+    rng = np.random.default_rng(SEED + 13)
+    n = P13_VOCAB - 3 - 100
+    head = (["▁" + w for w in P13_PROMPT.split()] + ["▁"]
+            + list(string.ascii_lowercase + string.digits + string.punctuation)
+            + ["▁" + s for s in _P13_SYLL] + _P13_SYLL + ["▁" + w for w in words])
+    pieces = list(dict.fromkeys(head))
+    seen = set(pieces)
+    for w in _p13_words(n):
+        for p in ("▁" + w, w):
+            if len(pieces) < n and p not in seen:
+                pieces.append(p)
+                seen.add(p)
+    check(len(pieces) == n, f"13b: {len(pieces)} tokenizer pieces")
+    k = len(P13_PROMPT.split())
+    scores = [-1.0] * k + (-rng.integers(12, 80, n - k) / 4.0).tolist()
+    charsmap = {**{chr(0xFF01 + i): chr(0x21 + i) for i in range(94)}, "　": " ",
+                "é": "é", "ﬁ": "fi"}
+    path = write_unigram_tokenizer(str(P13_DIR / "flan_t5_tokenizer"), pieces, scores,
+                                   write_precompiled_charsmap(charsmap))
+    return path, pieces
+
+
+def _p13_tokenizer_rates(path, words):
+    """The tokenizer's host rates: a fresh load, then ``P13_TOK_TEXTS``
+    question-like texts (13a's words, some full-width or combining) encoded
+    as the captioner encodes a prompt, padded to 32, and as many id rows of
+    20 (a caption's length) decoded."""
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import UnigramTokenizer
+
+    rng = np.random.default_rng(SEED + 14)
+    texts = []
+    for i in range(P13_TOK_TEXTS):
+        t = " ".join(words[j] for j in rng.integers(0, len(words), int(rng.integers(6, 16))))
+        texts.append(t.replace("a", "ａ", 1) if i % 4 == 1 else
+                     t.replace("e", "é", 1) if i % 4 == 2 else t)
+    t0 = time.perf_counter()
+    tok = UnigramTokenizer.from_pretrained(path)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = tok(texts, padding="max_length", truncation=True, max_length=32, return_tensors="np")
+    enc_s = time.perf_counter() - t0
+    rows = rng.integers(3, P13_VOCAB - 100, (P13_TOK_TEXTS, 20))
+    t0 = time.perf_counter()
+    out = tok.batch_decode(rows, skip_special_tokens=True)
+    dec_s = time.perf_counter() - t0
+    check(len(out) == len(texts) and all(out), "13b: the tokenizer's decodes")
+    return {"pieces": len(tok), "load_seconds": load_s, "texts": len(texts),
+            "encode_seconds": enc_s, "encodes_per_s": len(texts) / enc_s,
+            "encode_tokens_per_s": int(enc["attention_mask"].sum()) / enc_s,
+            "decode_seconds": dec_s, "decodes_per_s": len(rows) / dec_s,
+            "decode_tokens_per_s": rows.size / dec_s,
+            "note": "host clock, one pass each from a fresh load (its word cache cold)"}
 
 
 def _p13_image(rng, h, w):
@@ -3524,6 +3607,8 @@ def p13_prepare(smi, words, base):
 
     t0 = time.perf_counter()
     write_test_vocab(str(P13_DIR / "vocab" / "vocab.txt"), words)
+    tok_path, tok_pieces = _p13_tokenizer(words)
+    tok_rates = _p13_tokenizer_rates(tok_path, words)
     # the captioner's HF-named checkpoint: random weights from the seed
     # (T5's relative-position tables at std REL_BIAS_STD, as phase 5 draws
     # them, so that the head bias moves attention), fp32 as HF stores them
@@ -3555,7 +3640,7 @@ def p13_prepare(smi, words, base):
     cfg = _p13_config(base, {
         "process:Caption": {"transform_name": "CaptionImageWithBLIP2v3", "setup_kwargs": {
             "captioner_checkpoint": str(P13_DIR / "captioner"),
-            "tokenizer_name": str(P13_DIR / "vocab"), "blip2_config": blip2,
+            "tokenizer_name": tok_path, "blip2_config": blip2, "prompt": P13_PROMPT,
             "max_caption_length": 20, "batch_size": 8,
             "caption_store_dir": str(P13_DIR / "store")}},
         "process:ViT": {"transform_name": "ExtractImageFeaturesWithViTv2", "setup_kwargs": {
@@ -3600,8 +3685,22 @@ def p13_prepare(smi, words, base):
     # to near-ties
     (args, kwargs, first_caps), = caps["calls"]
     model, rest = args[0], args[1:3]  # (tokenizer, images)
-    k_steps, again = _step_logits(model, rest, kwargs)
+    tok = rest[0]
+    check(type(tok).__name__ == "UnigramTokenizer" and kwargs.get("prompt") == P13_PROMPT,
+          f"13b: the captioner's tokenizer {type(tok).__name__} and prompt")
+    fed = []
+    orig_encode = model.encode_for_generation
+    model.encode_for_generation = lambda ids, *a: fed.append(ids.cpu()) or orig_encode(ids, *a)
+    try:
+        k_steps, again = _step_logits(model, rest, kwargs)
+    finally:
+        del model.encode_for_generation
     check(again == first_caps, "13b: the first caption batch is not deterministic")
+    # the prompt's ids the encoder took: the prompt's pieces, </s>, padding
+    want_ids = ([tok_pieces.index("▁" + w) + 3 for w in P13_PROMPT.split()] + [tok.eos_token_id])
+    want_ids += [tok.pad_token_id] * (P13_PROMPT_TOKENS - len(want_ids))
+    check(all(row.tolist() == want_ids for row in fed[0]),
+          f"13b: prompt ids {fed[0][0].tolist()} vs the pieces' {want_ids}")
     plain = _plain_twin(model)
     p_steps, _ = _step_logits(plain, rest, kwargs)
     k_tok = torch.stack([s.argmax(-1) for s in k_steps], 1).cpu().numpy()
@@ -3615,6 +3714,20 @@ def p13_prepare(smi, words, base):
         ties.append(None if not len(low) else int(low[0]))
         check(np.array_equal(k_tok[r, :upto], p_tok[r, :upto]),
               f"13b: caption {r} tokens {k_tok[r]} vs the plain path {p_tok[r]}")
+
+    def caption_text(row):  # what blip2_greedy_captions decodes of a row
+        ids = []
+        for t in row.tolist():
+            if t == tok.eos_token_id:
+                break
+            ids.append(t)
+        return tok.decode(ids, skip_special_tokens=True)
+    for r in range(k_tok.shape[0]):
+        check(first_caps[r] == caption_text(k_tok[r]),
+              f"13b: caption {r} {first_caps[r]!r} vs its tokens' decoding")
+        if ties[r] is None:
+            check(first_caps[r] == caption_text(p_tok[r]), f"13b: caption {r} "
+                  f"{first_caps[r]!r} vs the plain path's {caption_text(p_tok[r])!r}")
     step_err = max((a - b).abs().max().item() for a, b in zip(k_steps, p_steps))
     del plain, model, k_steps, p_steps
     caps["calls"].clear()
@@ -3655,6 +3768,9 @@ def p13_prepare(smi, words, base):
     torch.cuda.empty_cache()
 
     rows = _k2_rows(stores, "13b", launches["K2f32"])
+    enc_rows = cap_cfg.num_query_tokens + P13_PROMPT_TOKENS
+    check(any(shape[1] == enc_rows for shape, _ in stores["t5"]),
+          f"13b: no T5 encoder launch at {enc_rows} rows: {list(stores['t5'])}")
     cap_s = nodes["process:Caption"][0]
     vit_s, dist_s = nodes["process:ViT"][0], nodes["process:Distill"][0]
     n_rows = 2 * P13_NUM_DATA
@@ -3667,8 +3783,10 @@ def p13_prepare(smi, words, base):
             "caption_batch_seconds": caps["seconds"],
             "images_per_s": n_rows / vit_s, "teacher_questions": P13_NUM_DATA,
             "teacher_questions_per_s": P13_NUM_DATA / dist_s,
+            "tokenizer": {**tok_rates, "prompt": P13_PROMPT, "prompt_ids": want_ids},
             "first_caption_batch": {"captions": first_caps[:2], "tokens_equal_up_to_near_ties":
-                                    True, "near_tie_step": ties,
+                                    True, "captions_equal_plain_decoding": True,
+                                    "near_tie_step": ties,
                                     "min_top2_gap": float(gaps.min()),
                                     "max_abs_logit_diff": step_err},
             "first_teacher_batch": {"max_abs_err_vs_plain": teacher_err,
@@ -3795,6 +3913,8 @@ def p13_train_test(smi, cfg, part, n_train, n_test, corpus):
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 P13D_SNAPSHOT = FIXTURES / "m2kr_snapshot"
 P13D_IMAGES = FIXTURES / "m2kr_images"
+P13D_CODECS = FIXTURES / "codec_images"
+P13D_TOKENIZER = FIXTURES / "unigram_tokenizer"
 P13D_PASSES = 3  # passes over the tables and the images; the best is kept
 
 
@@ -3822,6 +3942,10 @@ def _pixels_digest(rgb):
 
 
 def _image_format(name):
+    for prefix, fmt in (("gif_", "GIF"), ("bmp_rle", "BMP, RLE"), ("bmp_", "BMP"),
+                        ("tiff_", "TIFF")):
+        if name.startswith(prefix):
+            return fmt
     if name.startswith("base_"):
         return "baseline JPEG"
     if name.startswith("prog_"):
@@ -3848,9 +3972,12 @@ def p13d_read(smi):
     digest, the snapshot's two configs through ``_load_hf`` with the row
     counts of its README, parquet MB/s and images/s by format. Returns
     (the line, the splits' sizes, the snapshot's words)."""
+    import hashlib
     import re
 
     from reranking_multimodal_retrievers_tpu_torch.data import image_io, parquet_io
+    from reranking_multimodal_retrievers_tpu_torch.data.ops.infoseek_ops import (
+        load_caption_tokenizer)
     from reranking_multimodal_retrievers_tpu_torch.data.ops.m2kr_ops import _load_hf
 
     t0 = time.perf_counter()
@@ -3872,19 +3999,39 @@ def p13d_read(smi):
     check(sizes == {sp["name"]: sp["num_examples"] for c in info for sp in c["splits"]},
           f"13d: snapshot splits {sizes} against its README")
     formats = {}
-    for name in sorted(digests["images"]):
-        formats.setdefault(_image_format(name), []).append(name)
+    for key, folder in (("images", P13D_IMAGES), ("codec_images", P13D_CODECS)):
+        for name in sorted(digests[key]):
+            formats.setdefault(_image_format(name), []).append(
+                (name, folder / name, digests[key][name]))
     per_format = {}
-    for fmt, names in formats.items():
-        paths = [str(P13D_IMAGES / name) for name in names]
+    for fmt, entries in formats.items():
+        names = [name for name, _, _ in entries]
+        paths = [str(path) for _, path, _ in entries]
         secs, pixels = _best_pass(lambda: [image_io.read_image(p) for p in paths])
-        for name, px in zip(names, pixels):
-            check(_pixels_digest(px) == digests["images"][name],
-                  f"13d: {name} decodes differently from PIL")
+        for (name, _, digest), px in zip(entries, pixels):
+            check(_pixels_digest(px) == digest, f"13d: {name} decodes differently from PIL")
         n_px = sum(px.shape[0] * px.shape[1] for px in pixels)
         per_format[fmt] = {"images": len(names), "megapixels": n_px / 1e6, "seconds": secs,
                            "images_per_s": len(names) / secs,
                            "megapixels_per_s": n_px / secs / 1e6}
+    # the datasets Image column, and the Unigram tokenizer, against the
+    # digests of datasets' and the tokenizers library's own results
+    columns = {}
+    for rel, digest in digests["image_columns"].items():
+        secs, table = _best_pass(lambda: parquet_io.read_parquet(str(FIXTURES / rel)))
+        hashes = [_pixels_digest(px) for px in table["image"]]
+        check(hashlib.sha256(json.dumps(hashes).encode()).hexdigest() == digest,
+              f"13d: {rel}'s Image column differs from datasets' decoding")
+        columns[rel] = {"rows": len(table), "seconds": secs}
+    tok_d = digests["tokenizer"]
+    tok = load_caption_tokenizer(str(P13D_TOKENIZER))
+    ids = [tok.encode(t) for t in tok_d["texts"]]
+    decoded = [tok.decode(i, skip_special_tokens=True) for i in ids]
+    check(type(tok).__name__ == "UnigramTokenizer"
+          and hashlib.sha256(json.dumps(ids).encode()).hexdigest() == tok_d["ids"]
+          and hashlib.sha256(json.dumps(decoded, ensure_ascii=False).encode("utf-8"))
+          .hexdigest() == tok_d["decoded"],
+          "13d: the Unigram tokenizer's ids or strings differ from the tokenizers library's")
     same = {}
     for name in ("prog_420_large.jpg", "base_420_large.jpg"):  # the same 320 x 240 content
         same[name] = _best_pass(lambda: image_io.read_image(str(P13D_IMAGES / name)))[0]
@@ -3892,7 +4039,8 @@ def p13d_read(smi):
             "parquet_read_seconds": read_s, "parquet_mb_per_s": nbytes / read_s / 1e6,
             "snapshot_bytes": snap_bytes, "snapshot_load_seconds": load_s,
             "snapshot_mb_per_s": snap_bytes / load_s / 1e6, "splits": sizes,
-            "images": per_format,
+            "images": per_format, "image_columns": columns,
+            "tokenizer_texts_equal_digests": len(tok_d["texts"]),
             "progressive_vs_baseline_320x240": {
                 "progressive_ms": same["prog_420_large.jpg"] * 1e3,
                 "baseline_ms": same["base_420_large.jpg"] * 1e3,

@@ -18,9 +18,13 @@ Python floats of its float32 values), bools, strings, bytes, lists, dicts
 (structs) and ``None`` for a null. It takes null, bool, int8-64, uint8-64,
 float16/32/64, string, large_string, binary, large_binary, list and
 large_list (nested), struct and fixed_size_list columns, several record
-batches and several shards. It raises, naming the column, on a compressed
-body, a dictionary-encoded column, any other Arrow type, and a column whose
-feature is an ``Image`` or ``Audio``.
+batches and several shards. A column whose feature is an ``Image`` (a
+``{bytes, path}`` struct) gives RGB ``uint8 [H, W, 3]`` arrays, decoded by
+``data/image_io.py`` from the bytes or, where they are null, the path:
+what the JAX package gets from ``datasets`` after ``convert("RGB")``. It
+raises, naming the column, on a compressed body, a dictionary-encoded
+column, any other Arrow type, and a column whose feature is an ``Audio``,
+``Video`` or ``Pdf``.
 
 :func:`save_to_disk` writes tables in the same layout, with the Arrow types
 ``datasets.Dataset.from_dict`` infers for Python values (int64, double,
@@ -52,7 +56,7 @@ _TYPE_NAMES = {7: "decimal", 8: "date", 9: "time", 10: "timestamp", 11: "interva
                22: "run_end_encoded", 23: "binary_view", 24: "utf8_view", 25: "list_view",
                26: "large_list_view"}
 _FLOATS = {0: np.float16, 1: np.float32, 2: np.float64}
-_UNREADABLE_FEATURES = ("Image", "Audio", "Video", "Pdf")
+_UNREADABLE_FEATURES = ("Audio", "Video", "Pdf")
 BATCH_ROWS = 1000  # rows a record batch, as datasets writes them
 
 
@@ -319,7 +323,7 @@ def _read_array(f: Field, batch: _Batch) -> List[Any]:
 
 
 def _unreadable(feature, path: str) -> None:
-    """Raise on an ``Image``/``Audio`` feature anywhere in ``feature``."""
+    """Raise on an ``Audio``/``Video``/``Pdf`` feature anywhere in ``feature``."""
     if isinstance(feature, dict):
         if feature.get("_type") in _UNREADABLE_FEATURES:
             raise NotImplementedError(
@@ -331,6 +335,61 @@ def _unreadable(feature, path: str) -> None:
     elif isinstance(feature, list):
         for v in feature:
             _unreadable(v, path)
+
+
+def _has_image(feature) -> bool:
+    if isinstance(feature, dict):
+        return feature.get("_type") == "Image" or any(
+            _has_image(v) for k, v in feature.items() if k != "_type")
+    return isinstance(feature, list) and any(_has_image(v) for v in feature)
+
+
+def _image_value(value: dict, path: str):
+    """A stored ``Image`` (``{bytes, path}``) as RGB ``uint8 [H, W, 3]``:
+    the bytes decoded, else the file at the path, as ``datasets`` reads it
+    (then ``convert("RGB")``, as the JAX package's loaders do)."""
+    from .image_io import decode_image, read_image
+
+    if value.get("bytes") is not None:
+        return decode_image(bytes(value["bytes"]), value.get("path") or path)
+    where = value.get("path")
+    if where is None:
+        raise ValueError(f"column {path!r}: an image with neither bytes nor a path")
+    if "://" in where:
+        raise NotImplementedError(f"column {path!r}: image {where!r} needs the network")
+    return read_image(where)
+
+
+def decode_feature(feature, value, path: str):
+    """``value`` as ``datasets`` gives a column of ``feature``: an ``Image``
+    (``decode`` on) decoded, anywhere inside lists, sequences and structs;
+    everything else as stored."""
+    if value is None:
+        return None
+    if isinstance(feature, list):
+        return [decode_feature(feature[0], v, path) for v in value]
+    if not isinstance(feature, dict):
+        return value
+    kind = feature.get("_type")
+    if kind == "Image":
+        return _image_value(value, path) if feature.get("decode", True) else value
+    if kind in ("Sequence", "List", "LargeList"):
+        sub = feature.get("feature")
+        if kind == "Sequence" and isinstance(sub, dict) and "_type" not in sub:
+            # a Sequence of a struct is stored as a struct of lists
+            return {k: decode_feature({"_type": "Sequence", "feature": f}, value.get(k),
+                                      f"{path}.{k}") for k, f in sub.items()}
+        return [decode_feature(sub, v, path) for v in value]
+    if kind is None:  # a struct
+        return {k: decode_feature(feature.get(k), v, f"{path}.{k}") for k, v in value.items()}
+    return value
+
+
+def decode_columns(columns: Dict[str, List[Any]], features: Mapping[str, Any]) -> None:
+    """Decode in place every column whose feature holds an ``Image``."""
+    for name, feat in features.items():
+        if name in columns and _has_image(feat):
+            columns[name] = [decode_feature(feat, v, name) for v in columns[name]]
 
 
 def read_arrow_stream(path: str) -> Dict[str, List[Any]]:
@@ -370,10 +429,12 @@ def _load_split(path: str) -> Table:
     with open(os.path.join(path, "state.json")) as f:
         state = json.load(f)
     info_path = os.path.join(path, "dataset_info.json")
+    features: Dict[str, Any] = {}
     if os.path.exists(info_path):
         with open(info_path) as f:
-            for name, feat in (json.load(f).get("features") or {}).items():
-                _unreadable(feat, name)
+            features = json.load(f).get("features") or {}
+        for name, feat in features.items():
+            _unreadable(feat, name)
     columns: Dict[str, List[Any]] = {}
     for entry in state["_data_files"]:
         cols = read_arrow_stream(os.path.join(path, entry["filename"]))
@@ -385,6 +446,7 @@ def _load_split(path: str) -> Table:
         else:
             for k in columns:
                 columns[k] += cols[k]
+    decode_columns(columns, features)
     return Table(columns)
 
 

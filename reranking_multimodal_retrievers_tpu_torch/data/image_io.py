@@ -9,11 +9,13 @@ none).
   PIL's ``convert("RGB")`` gives it: alpha and ``tRNS`` dropped, grey
   below 8 bits scaled, 16-bit grey clipped at 255 (PIL's mode ``I;16``),
   other 16-bit samples' high byte. It also decodes every Huffman-coded
-  8-bit JPEG itself: :func:`decode_jpeg`. Any other format (an
-  arithmetic-coded, 12-bit or lossless JPEG, GIF, WebP, BMP, TIFF) is
-  read by PIL, imported inside that branch, and raises naming the format
-  where PIL is absent: the choice is made on the file's header, before
-  any decoding, and a file this module takes is never retried with PIL.
+  8-bit JPEG itself: :func:`decode_jpeg`, and GIFs, BMPs and TIFFs
+  through ``data/image_codecs.py`` (a variant it does not take raises,
+  naming it). Any other format (an arithmetic-coded, 12-bit or lossless
+  JPEG, WebP) is read by PIL, imported inside that branch, and raises
+  naming the format where PIL is absent: the choice is made on the file's
+  header, before any decoding, and a file this module takes is never
+  retried with PIL.
 - :func:`decode_jpeg` takes sequential (baseline or extended) and
   progressive files of 1, 3 or 4 components, any integer sampling
   factors and restart markers, and gives the pixels PIL's
@@ -42,6 +44,7 @@ none).
 
 from __future__ import annotations
 
+import io
 import os
 import struct
 import tempfile
@@ -50,6 +53,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .image_codecs import codec_format, decode_codec
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples a pixel
@@ -298,10 +303,9 @@ def image_format(data: bytes) -> str:
         return "a JPEG without a frame header"
     if data.startswith(PNG_SIGNATURE):
         return "a PNG of bit depth {2} and colour type {3}".format(*_png_header(data))
-    for magic, name in ((b"GIF87a", "a GIF"), (b"GIF89a", "a GIF"), (b"BM", "a BMP"),
-                        (b"II*\0", "a TIFF"), (b"MM\0*", "a TIFF")):
-        if data.startswith(magic):
-            return name
+    codec = codec_format(data)
+    if codec is not None:
+        return codec
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "a WebP"
     return f"an unknown format (header {data[:8].hex()})"
@@ -851,25 +855,48 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     return _ycc_to_rgb(*planes)
 
 
-def read_image(path: str) -> np.ndarray:
-    """The image at ``path`` as RGB ``uint8 [H, W, 3]``. PNGs and the JPEGs
-    of :func:`_jpeg_frame` are decoded here; anything else (an arithmetic,
-    12-bit or lossless JPEG, GIF, WebP, BMP, TIFF) is read by PIL, chosen
-    by the header, and raises naming the format where PIL is absent."""
-    with open(path, "rb") as f:
-        data = f.read()
+def _decode_own(data: bytes, name: str):
+    """The pixels of a file this module decodes itself (PNG, the JPEGs of
+    :func:`_jpeg_frame`, GIF, BMP, TIFF), else None."""
     if _is_own_png(data):
         return _read_png(data)
     if _jpeg_frame(data) is not None:
         return decode_jpeg(data)
     try:
+        return decode_codec(data)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{name}: {e}") from e
+
+
+def _pil_rgb(source, data: bytes, name: str) -> np.ndarray:
+    """What is left (an arithmetic, 12-bit or lossless JPEG, WebP), through
+    PIL; naming the format where PIL is absent."""
+    try:
         from PIL import Image
     except ImportError as e:
-        raise NotImplementedError(f"{path}: {image_format(data)}, which this module does not "
+        raise NotImplementedError(f"{name}: {image_format(data)}, which this module does not "
                                   "decode, and PIL is not installed") from e
 
-    with Image.open(path) as img:
+    with Image.open(source) as img:
         return np.asarray(img.convert("RGB"), np.uint8)
+
+
+def decode_image(data: bytes, name: str = "image") -> np.ndarray:
+    """An image file's bytes as RGB ``uint8 [H, W, 3]``: PNGs, the JPEGs of
+    :func:`_jpeg_frame`, GIFs, BMPs and TIFFs (``data/image_codecs.py``; a
+    variant it does not take raises, naming it) decoded here, the rest by
+    PIL, chosen by the header (``name`` says which file in errors)."""
+    got = _decode_own(data, name)
+    return got if got is not None else _pil_rgb(io.BytesIO(data), data, name)
+
+
+def read_image(path: str) -> np.ndarray:
+    """The image at ``path`` as RGB ``uint8 [H, W, 3]``, as
+    :func:`decode_image` gives it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    got = _decode_own(data, path)
+    return got if got is not None else _pil_rgb(path, data, path)
 
 
 def _as_uint8(img) -> np.ndarray:

@@ -130,16 +130,35 @@ def build_captioner(blip2_config, checkpoint_dir=None):
 
 
 def load_caption_tokenizer(path):
-    """The captioner's tokenizer: a WordPiece vocabulary directory
-    (``vocab.txt``), where the JAX package calls ``AutoTokenizer``. A
-    SentencePiece directory (Flan-T5's own ``spiece.model``) is not read."""
-    from ...models.tokenization import WordPieceTokenizer
+    """The captioner's tokenizer, where the JAX package calls
+    ``AutoTokenizer``: a directory whose ``tokenizer.json`` holds a
+    ``Unigram`` model (Flan-T5's), read by ``UnigramTokenizer``, else a
+    WordPiece vocabulary directory (``vocab.txt``). Anything else raises,
+    naming it; a SentencePiece ``spiece.model`` without ``tokenizer.json``
+    is not read."""
+    import json
 
+    from ...models.tokenization import UnigramTokenizer, WordPieceTokenizer
+
+    spec_path = os.path.join(path, "tokenizer.json") if path else ""
+    model = None
+    if spec_path and os.path.exists(spec_path):
+        with open(spec_path, encoding="utf-8") as f:
+            model = (json.load(f).get("model") or {}).get("type")
+        if model == "Unigram":
+            return UnigramTokenizer.from_pretrained(path)
     if path and os.path.exists(os.path.join(path, "vocab.txt")):
         return WordPieceTokenizer.from_pretrained(path)
+    if model is not None:
+        raise NotImplementedError(f"tokenizer {path!r}: its tokenizer.json holds a {model!r} "
+                                  "model; the port reads Unigram models")
+    if path and os.path.exists(os.path.join(path, "spiece.model")):
+        raise NotImplementedError(f"tokenizer {path!r}: a SentencePiece spiece.model without "
+                                  "tokenizer.json is not read")
     raise NotImplementedError(
-        f"tokenizer {path!r}: the port reads WordPiece vocabularies (vocab.txt); "
-        "SentencePiece tokenizers are not ported")
+        f"tokenizer {path!r}: the port reads a tokenizer.json with a Unigram model or a "
+        "WordPiece vocab.txt, and the directory holds neither (a SentencePiece spiece.model "
+        "alone is not read)")
 
 
 @register_transform_functor

@@ -23,8 +23,9 @@ bools, strings, bytes, lists, dicts (structs) and ``None`` for a null.
   the nullable columns' placement run in numpy; a PLAIN byte array's
   offsets come from one Python pass over its length prefixes.
 - The ``huggingface`` key of the footer's key-value metadata carries the
-  ``datasets`` features; a column whose feature is an ``Image`` or
-  ``Audio`` raises as ``arrow_io`` raises.
+  ``datasets`` features; a column whose feature is an ``Image`` is decoded
+  as ``arrow_io`` decodes it (RGB arrays), and an ``Audio``, ``Video`` or
+  ``Pdf`` raises as ``arrow_io`` raises.
 
 :func:`load_parquet_snapshot` reads a directory laid out as a dataset repo
 of the HF hub (M2KR's): the ``configs:`` list of its ``README.md`` YAML
@@ -45,7 +46,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .arrow_io import _unreadable
+from .arrow_io import _unreadable, decode_columns
 from .table import Table, concatenate_tables
 
 PAR1 = b"PAR1"
@@ -501,9 +502,10 @@ def read_parquet(path: str) -> Table:
         data = f.read()
     meta = _footer(data, path)
     kv = {e[1].decode("utf-8"): (e.get(2) or b"").decode("utf-8") for e in meta.get(5) or []}
+    feats = {}
     if "huggingface" in kv:
-        feats = json.loads(kv["huggingface"]).get("info", {}).get("features", {})
-        for name, feat in (feats or {}).items():
+        feats = json.loads(kv["huggingface"]).get("info", {}).get("features", {}) or {}
+        for name, feat in feats.items():
             _unreadable(feat, name)
     root, leaves = _schema(meta[2])
     groups = []
@@ -515,7 +517,9 @@ def read_parquet(path: str) -> Table:
                                           f"({chunk[1].decode()!r})")
             rep, dfn, values = _column_chunk(data, leaf, chunk[3], path)
             cols.append(_Leaf(rep, dfn, values, leaf.max_def))
-        groups.append(Table(_assemble(root, cols)))
+        columns = _assemble(root, cols)
+        decode_columns(columns, feats)
+        groups.append(Table(columns))
     if not groups:
         return Table({c.name: [] for c in root.children})
     return groups[0] if len(groups) == 1 else concatenate_tables(groups)

@@ -25,7 +25,8 @@ so it runs on a machine without ``transformers``; so do the FLMR
 tokenizers' ``from_pretrained``, which read a local tokenizer directory's
 ``vocab.txt`` and ``tokenizer_config.json``. ``transformers`` is imported
 only where a test's HF tokenizer is built (:func:`tiny_bert_tokenizer`):
-the module imports without it.
+the module imports without it. :class:`UnigramTokenizer` (T5's, from an HF
+``tokenizer.json``) lives in ``models/unigram.py`` and is exported here.
 """
 
 from __future__ import annotations
@@ -39,6 +40,10 @@ import unicodedata
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+# the Unigram tokenizer of T5-family ``tokenizer.json`` files, beside WordPiece
+from .unigram import (UnigramTokenizer, write_precompiled_charsmap,  # noqa: F401
+                      write_unigram_tokenizer)
 
 
 # --- pure-Python WordPiece (BertTokenizerFast's normaliser, pre-tokenizer,

@@ -22,10 +22,25 @@ It writes, under ``tests/fixtures/``:
   whose refinement or AC scans were cut (block smoothing), CMYK and YCCK,
   sequential and progressive, and PNGs (Adam7, 1/2/4/16 bits, grey, palette,
   grey+alpha, RGB, RGBA, ``tRNS``);
+- ``codec_images/``: GIFs (interlaced, a frame at an offset with a local
+  palette and a transparency index, no palette, LZW tables that fill and
+  clear), BMPs (1/4/8-bit, core header, top-down, RLE8/RLE4 with and
+  without a delta escape, 16-bit 555 and 565, 24 and 32 bits) and TIFFs
+  (little- and big-endian, strips and tiles, raw, PackBits, LZW old and
+  new, Adobe and old Deflate, the predictor, planar, RGBA, grey 1/8/16
+  bits, palette, CMYK), written by :func:`gif_bytes`, :func:`bmp_bytes`
+  and :func:`tiff_bytes`;
+- ``image_column/images.parquet``: an ``Image`` column written by
+  ``datasets`` (the bytes of some of those files, a PNG and a JPEG);
+- ``unigram_tokenizer/``: a T5-style Unigram ``tokenizer.json`` directory
+  written by the port's ``write_unigram_tokenizer``;
 - ``digests.json``: the SHA-256 of each parquet file's rows as
   ``pyarrow.parquet.read_table(path).to_pylist()`` gives them
-  (:func:`rows_digest`) and of each image's pixels as PIL's
-  ``Image.open(path).convert("RGB")`` gives them (:func:`pixels_digest`).
+  (:func:`rows_digest`), of each image's pixels as PIL's
+  ``Image.open(path).convert("RGB")`` gives them (:func:`pixels_digest`),
+  of the image column as ``datasets.Image().decode_example`` gives it
+  (:func:`images_digest`), and of the ``tokenizers`` library's ids and
+  decoded strings of :data:`TOKENIZER_TEXTS`.
 
 The digest functions import neither pyarrow nor PIL, so that a reader can
 be held against them where those are absent.
@@ -47,6 +62,12 @@ SNAPSHOT = os.path.join(HERE, "m2kr_snapshot")
 VARIANTS = os.path.join(HERE, "parquet_variants")
 IMAGES = os.path.join(HERE, "m2kr_images")
 DIGESTS = os.path.join(HERE, "digests.json")
+CODECS = os.path.join(HERE, "codec_images")
+IMAGE_COLUMN = os.path.join(HERE, "image_column", "images.parquet")
+TOKENIZER = os.path.join(HERE, "unigram_tokenizer")
+TOKENIZER_TEXTS = ["a photo of", "a photo of the cat on the mat", "ａ ｐｈｏｔｏ  of\tthe　sun",
+                   "café é ñ", "東京 가각 xyz", "<extra_id_0> kato lomi </s> cat",
+                   "the cat on the mat " * 5, "", "zz ẞ ◆"]
 SEED = 0
 QUESTIONS = {"train": 1024, "valid": 256, "test": 256}
 TRAIN_SHARDS = 2
@@ -231,6 +252,323 @@ def png_case(rng, h, w, depth, ctype, interlace, trns):
     return png_bytes(samples, depth, ctype, extra, interlace, seed=int(rng.integers(1 << 30)))
 
 
+# GIF, BMP and TIFF, written here with struct and zlib so that every variant
+# the port's decoders take is produced, and PIL reads each as the reference
+def _lzw_codes(data: bytes, min_size: int, max_next: int = 4094):
+    """LZW codes of ``data`` with a clear code first, a clear whenever the
+    table reaches ``max_next`` and the end code last."""
+    clear = 1 << min_size
+    codes = [clear]
+    table = {bytes([i]): i for i in range(clear)}
+    nxt, w = clear + 2, b""
+    for b in data:
+        wk = w + bytes([b])
+        if wk in table:
+            w = wk
+            continue
+        codes.append(table[w])
+        if nxt < max_next:
+            table[wk] = nxt
+            nxt += 1
+        else:
+            codes.append(clear)
+            table = {bytes([i]): i for i in range(clear)}
+            nxt = clear + 2
+        w = bytes([b])
+    if w:
+        codes.append(table[w])
+    codes.append(clear + 1)
+    return codes
+
+
+def _pack_codes(codes, min_size: int, msb: bool, early: int) -> bytes:
+    """Codes packed into bytes, the width growing as a decoder expects it:
+    ``early`` 1 for TIFF's early change, 0 for GIF and old-style TIFF."""
+    clear = 1 << min_size
+    size, nxt, acc, nbits, out = min_size + 1, clear + 2, 0, 0, bytearray()
+    first = True
+    for c in codes:
+        if msb:
+            acc = (acc << size) | c
+            nbits += size
+            while nbits >= 8:
+                nbits -= 8
+                out.append((acc >> nbits) & 255)
+        else:
+            acc |= c << nbits
+            nbits += size
+            while nbits >= 8:
+                out.append(acc & 255)
+                acc >>= 8
+                nbits -= 8
+        if c == clear:
+            size, nxt, first = min_size + 1, clear + 2, True
+            continue
+        if first:  # the first code after a clear adds no entry
+            first = False
+            continue
+        if nxt < 4096:
+            nxt += 1
+        if nxt + early >= (1 << size) and size < 12:
+            size += 1
+    if nbits:
+        out.append(((acc << (8 - nbits)) & 255) if msb else acc & 255)
+    return bytes(out)
+
+
+def gif_bytes(frame: np.ndarray, palette: np.ndarray, screen=None, offset=(0, 0),
+              local_palette=None, interlace=False, transparency=None, background=0,
+              truncate=None) -> bytes:
+    """A GIF89a of one frame of palette indices ``[h, w]``: a global palette
+    (``None``: none), a local one, an offset on a larger logical screen,
+    interlaced rows, a transparency index, the LZW data cut to ``truncate``
+    bytes."""
+    h, w = frame.shape
+    sw, sh = screen or (w, h)
+
+    def table(pal):
+        n = max(2, 1 << int(np.ceil(np.log2(max(len(pal), 2)))))
+        bits = int(np.log2(n)) - 1
+        padded = np.zeros((n, 3), np.uint8)
+        padded[:len(pal)] = pal
+        return bits, padded.tobytes()
+    out = bytearray(b"GIF89a" + struct.pack("<HH", sw, sh))
+    if palette is not None:
+        bits, body = table(palette)
+        out += bytes([0x80 | (bits << 4) | bits, background, 0]) + body
+    else:
+        out += bytes([0, background, 0])
+    if transparency is not None:
+        out += b"\x21\xf9\x04" + bytes([1]) + b"\0\0" + bytes([transparency, 0])
+    flags = 0x40 if interlace else 0
+    lbody = b""
+    if local_palette is not None:
+        bits, lbody = table(local_palette)
+        flags |= 0x80 | bits
+    out += b"," + struct.pack("<HHHH", offset[0], offset[1], w, h) + bytes([flags]) + lbody
+    rows = frame
+    if interlace:
+        order = [*range(0, h, 8), *range(4, h, 8), *range(2, h, 4), *range(1, h, 2)]
+        rows = frame[order]
+    min_size = max(2, int(frame.max()).bit_length())
+    data = _pack_codes(_lzw_codes(rows.astype(np.uint8).tobytes(), min_size), min_size,
+                       msb=False, early=0)
+    if truncate is not None:
+        data = data[:truncate]
+    out.append(min_size)
+    for i in range(0, len(data), 255):
+        out += bytes([len(data[i:i + 255])]) + data[i:i + 255]
+    out += b"\0"
+    if truncate is None:
+        out += b";"
+    return bytes(out)
+
+
+def _rle(indices: np.ndarray, four: bool, delta: bool = False) -> bytes:
+    """BMP RLE8/RLE4 of bottom-up rows: encoded runs, absolute runs padded
+    to a word, end of line, end of bitmap; with ``delta`` a delta escape
+    first skips the bottom row and two pixels of the next (left at 0)."""
+    out = bytearray()
+    h, w = indices.shape
+    rows, x0 = list(range(h - 1, -1, -1)), 0
+    if delta and h > 1 and w > 2:
+        out += b"\0\2\2\1"
+        rows, x0 = rows[1:], 2
+    for y in rows:
+        row = indices[y].tolist()
+        x, x0 = x0, 0
+        while x < w:
+            n = 1
+            while x + n < w and n < 255 and row[x + n] == row[x]:
+                n += 1
+            if n >= 3:
+                out += bytes([n, row[x] * 17 if four else row[x]])
+                x += n
+                continue
+            m = x
+            while m < w and m - x < 255 and not (m + 2 < w and row[m] == row[m + 1] == row[m + 2]):
+                m += 1
+            m -= x
+            if m < 3:
+                for v in row[x:x + m]:
+                    out += bytes([1, v * 17 if four else v])
+                x += m
+                continue
+            vals = row[x:x + m]
+            body = (bytes((vals[i] << 4) | (vals[i + 1] if i + 1 < m else 0)
+                          for i in range(0, m, 2)) if four else bytes(vals))
+            out += bytes([0, m]) + body + (b"\0" if len(body) % 2 else b"")
+            x += m
+        out += b"\0\0"
+    out += b"\0\1"
+    return bytes(out)
+
+
+def bmp_bytes(pixels: np.ndarray, bits: int, palette=None, core=False, top_down=False,
+              rle=False, masks=None, delta=False) -> bytes:
+    """A BMP: ``pixels`` palette indices ``[h, w]`` (1/4/8 bits) or RGB
+    ``[h, w, 3]`` (16/24/32 bits); a ``BITMAPCOREHEADER`` or a
+    ``BITMAPINFOHEADER``; RLE8/RLE4; 16-bit 555, or ``masks`` by
+    ``BI_BITFIELDS``; rows bottom-up unless ``top_down``."""
+    h, w = pixels.shape[:2]
+    if bits <= 8:
+        if rle:
+            body = _rle(pixels, four=bits == 4, delta=delta)
+        else:
+            stride = (w * bits + 31) // 32 * 4
+            rows = []
+            for r in pixels:
+                packed = np.packbits(((r[:, None] >> np.arange(bits - 1, -1, -1)) & 1)
+                                     .astype(np.uint8).reshape(-1))
+                rows.append(packed.tobytes().ljust(stride, b"\0"))
+            body = b"".join(rows if top_down else rows[::-1])
+    else:
+        rgb = pixels.astype(np.uint32)
+        if bits == 16:
+            rm, gm, bm = masks or (0x7C00, 0x3E0, 0x1F)
+            vals = np.zeros((h, w), np.uint32)
+            for ch, m in zip(range(3), (rm, gm, bm)):
+                width = bin(m).count("1")
+                shift = (m & -m).bit_length() - 1
+                vals |= (rgb[..., ch] >> (8 - width)) << shift
+            data = vals.astype("<u2").view(np.uint8).reshape(h, w * 2)
+        elif bits == 24:
+            data = pixels[..., ::-1].astype(np.uint8).reshape(h, w * 3)
+        else:
+            extra = (rgb[..., 0] * 7 + 3) & 255  # an alpha or pad byte PIL must ignore
+            data = np.stack([pixels[..., 2], pixels[..., 1], pixels[..., 0], extra], -1)
+            data = data.astype(np.uint8).reshape(h, w * 4)
+        stride = (data.shape[1] + 3) // 4 * 4
+        rows = [r.tobytes().ljust(stride, b"\0") for r in data]
+        body = b"".join(rows if top_down else rows[::-1])
+    comp = (1 if bits == 8 else 2) if rle else (3 if masks else 0)
+    if core:
+        header = struct.pack("<IHHHH", 12, w, h, 1, bits)
+        pal = b"".join(bytes([b, g, r]) for r, g, b in palette) if palette is not None else b""
+    else:
+        header = struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bits, comp,
+                             len(body), 2835, 2835, len(palette) if palette is not None else 0,
+                             0)
+        pal = (b"".join(bytes([b, g, r, 0]) for r, g, b in palette)
+               if palette is not None else b"")
+        if masks:
+            header += struct.pack("<III", *masks)
+    offset = 14 + len(header) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset) + header + pal
+            + body)
+
+
+def _packbits(data: bytes) -> bytes:
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j + 1 < len(data) and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1)]) + data[i:i + 1]
+            i = j + 1
+            continue
+        j = i
+        while j < len(data) and j - i < 128 and not (j + 1 < len(data) and data[j + 1] == data[j]):
+            j += 1
+        j = max(j, i + 1)
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, big_endian=False,
+               compression=1, predictor=1, planar=1, tile=None, rows_per_strip=None,
+               colormap=None, extra_samples=None, old_lzw=False) -> bytes:
+    """A baseline TIFF of ``samples`` ``[h, w, spp]`` (unsigned, ``bits``
+    each): strips or ``tile`` (width, length) tiles, chunky or planar,
+    uncompressed (1), LZW (5; ``old_lzw``: the pre-6.0 bit order), Adobe
+    Deflate (8), Deflate (32946) or PackBits (32773), horizontal predictor
+    (2), a 16-bit colormap, extra samples."""
+    e = ">" if big_endian else "<"
+    h, w, spp = samples.shape
+    dtype = np.dtype(e + ("u2" if bits == 16 else "u1"))
+
+    def chunk_bytes(block):  # [rows, cols, spp] -> encoded bytes
+        block = block.astype(np.int64)
+        if predictor == 2:
+            block = block.copy()
+            block[:, 1:] = (block[:, 1:] - block[:, :-1]) % (1 << bits)
+        if bits < 8:
+            rows = [np.packbits(((r.reshape(-1)[:, None] >> np.arange(bits - 1, -1, -1)) & 1)
+                                .astype(np.uint8).reshape(-1)).tobytes() for r in block]
+            raw = b"".join(rows)
+        else:
+            raw = block.astype(dtype).tobytes()
+        if compression == 1:
+            return raw
+        if compression == 32773:
+            stride = len(raw) // block.shape[0]
+            return b"".join(_packbits(raw[i:i + stride]) for i in range(0, len(raw), stride))
+        if compression == 5:
+            codes = _lzw_codes(raw, 8)
+            return _pack_codes(codes, 8, msb=not old_lzw, early=0 if old_lzw else 1)
+        return zlib.compress(raw, 6)
+
+    planes = [samples[..., k:k + 1] for k in range(spp)] if planar == 2 else [samples]
+    chunks = []
+    for plane in planes:
+        if tile:
+            tw, tl = tile
+            for ty in range(0, h, tl):
+                for tx in range(0, w, tw):
+                    block = np.zeros((tl, tw, plane.shape[2]), samples.dtype)
+                    part = plane[ty:ty + tl, tx:tx + tw]
+                    block[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(chunk_bytes(block))
+        else:
+            rps = rows_per_strip or h
+            for y in range(0, h, rps):
+                chunks.append(chunk_bytes(plane[y:y + rps]))
+    tags = {256: ("H", [w]), 257: ("H", [h]), 258: ("H", [bits] * spp),
+            259: ("H", [compression]), 262: ("H", [photometric]), 277: ("H", [spp]),
+            284: ("H", [planar])}
+    if predictor != 1:
+        tags[317] = ("H", [predictor])
+    if colormap is not None:
+        tags[320] = ("H", np.asarray(colormap, np.int64).T.reshape(-1).tolist())
+    if extra_samples is not None:
+        tags[338] = ("H", [extra_samples])
+    if photometric == 5:
+        tags[332] = ("H", [1])
+    offsets_tag, counts_tag = (324, 325) if tile else (273, 279)
+    if tile:
+        tags[322], tags[323] = ("H", [tile[0]]), ("H", [tile[1]])
+    else:
+        tags[278] = ("I", [rows_per_strip or h])
+    data_at = 8
+    offsets, blob = [], bytearray()
+    for c in chunks:
+        offsets.append(data_at + len(blob))
+        blob += c
+        if len(blob) % 2:
+            blob += b"\0"
+    tags[offsets_tag] = ("I", offsets)
+    tags[counts_tag] = ("I", [len(c) for c in chunks])
+    ifd_at = data_at + len(blob)
+    n = len(tags)
+    extra_at = ifd_at + 2 + 12 * n + 4
+    entries, extra = bytearray(), bytearray()
+    for tag in sorted(tags):
+        fmt, vals = tags[tag]
+        kind, size = (3, 2) if fmt == "H" else (4, 4)
+        payload = struct.pack(e + fmt * len(vals), *vals)
+        if len(payload) <= 4:
+            value = payload.ljust(4, b"\0")
+        else:
+            value = struct.pack(e + "I", extra_at + len(extra))
+            extra += payload + (b"\0" if len(payload) % 2 else b"")
+        entries += struct.pack(e + "HHI", tag, kind, len(vals)) + value
+    head = (b"MM\0*" if big_endian else b"II*\0") + struct.pack(e + "I", ifd_at)
+    return (head + bytes(blob) + struct.pack(e + "H", n) + bytes(entries)
+            + struct.pack(e + "I", 0) + bytes(extra))
+
+
 def image_cases():
     """(file name, bytes) of every fixture image."""
     rng = np.random.default_rng(SEED)
@@ -275,6 +613,133 @@ def image_cases():
                         f"{'_trns' if trns else ''}.png",
                         png_case(rng, 27, 35, depth, ctype, interlace, trns)))
     return out
+
+
+def codec_cases():
+    """(file name, bytes) of the GIF, BMP and TIFF fixtures: every variant
+    the port decodes, at small sizes."""
+    rng = np.random.default_rng(SEED + 2)
+    out = []
+    photo = _photo(rng, 23, 31)
+    idx16 = (photo[..., 0] // 16).astype(np.uint8)
+    pal16 = rng.integers(0, 256, (16, 3), dtype=np.uint8)
+    out.append(("gif_plain.gif", gif_bytes(idx16, pal16)))
+    out.append(("gif_interlaced.gif", gif_bytes(idx16, pal16, interlace=True)))
+    out.append(("gif_offset_local_trns.gif",
+                gif_bytes(idx16[:17, :20] % 8, pal16, screen=(31, 23), offset=(3, 4),
+                          local_palette=rng.integers(0, 256, (8, 3), dtype=np.uint8),
+                          transparency=2, background=5)))
+    out.append(("gif_no_palette.gif", gif_bytes(idx16, None)))
+    big = _photo(rng, 64, 64)
+    out.append(("gif_lzw_clears.gif", gif_bytes(
+        (big[..., 0] // 4 * 4 + big[..., 1] // 64).astype(np.uint8),
+        rng.integers(0, 256, (256, 3), dtype=np.uint8))))
+    for bits in (1, 4, 8):
+        pal = rng.integers(0, 256, (1 << bits, 3), dtype=np.uint8)
+        idx = (photo[..., 1] >> (8 - bits)).astype(np.uint8)
+        out.append((f"bmp_{bits}bit.bmp", bmp_bytes(idx, bits, pal)))
+        if bits == 8:
+            out.append(("bmp_8bit_core.bmp", bmp_bytes(idx, 8, pal, core=True)))
+            out.append(("bmp_8bit_topdown.bmp", bmp_bytes(idx, 8, pal, top_down=True)))
+        if bits in (4, 8):
+            runs = np.repeat(idx[:, ::3], 3, axis=1)[:, :31]
+            out.append((f"bmp_rle{bits}.bmp", bmp_bytes(runs, bits, pal, rle=True)))
+            out.append((f"bmp_rle{bits}_delta.bmp", bmp_bytes(runs, bits, pal, rle=True,
+                                                              delta=True)))
+    out.append(("bmp_16bit_555.bmp", bmp_bytes(photo, 16)))
+    out.append(("bmp_16bit_565.bmp", bmp_bytes(photo, 16, masks=(0xF800, 0x7E0, 0x1F))))
+    out.append(("bmp_24bit.bmp", bmp_bytes(photo, 24)))
+    out.append(("bmp_24bit_topdown.bmp", bmp_bytes(photo, 24, top_down=True)))
+    out.append(("bmp_32bit.bmp", bmp_bytes(photo, 32)))
+    alpha = np.concatenate([photo, photo[..., :1] // 2 + 64], -1)
+    grey = photo[..., :1]
+    cmyk = np.concatenate([255 - photo, photo[..., 1:2] // 3], -1)
+    tiffs = [("rgb_raw_le", photo, 8, 2, {}),
+             ("rgb_raw_be_tiles", photo, 8, 2, {"big_endian": True, "tile": (16, 16)}),
+             ("rgb_packbits_strips", photo, 8, 2, {"compression": 32773, "rows_per_strip": 5}),
+             ("rgb_lzw_predictor", photo, 8, 2, {"compression": 5, "predictor": 2}),
+             ("rgb_lzw_old", photo, 8, 2, {"compression": 5, "old_lzw": True}),
+             ("rgb_adobe_deflate_planar", photo, 8, 2, {"compression": 8, "planar": 2,
+                                                        "rows_per_strip": 8}),
+             ("rgb_deflate_be_tiles_predictor", photo, 8, 2,
+              {"compression": 32946, "big_endian": True, "tile": (16, 16), "predictor": 2}),
+             ("rgba_lzw", alpha, 8, 2, {"compression": 5, "extra_samples": 2}),
+             ("rgba_associated", alpha, 8, 2, {"extra_samples": 1}),
+             ("grey8_min_is_white", grey, 8, 0, {}),
+             ("grey8_lzw", grey, 8, 1, {"compression": 5, "rows_per_strip": 7}),
+             ("grey16_be_predictor", grey.astype(np.uint16) * 3, 16, 1,
+              {"compression": 8, "big_endian": True, "predictor": 2}),
+             ("bit1_min_is_white_packbits", grey // 128, 1, 0, {"compression": 32773}),
+             ("palette_lzw", grey, 8, 3, {"compression": 5, "colormap": rng.integers(
+                 0, 65536, (256, 3))}),
+             ("cmyk_deflate", cmyk, 8, 5, {"compression": 8})]
+    for name, samples, bits, photometric, kw in tiffs:
+        out.append((f"tiff_{name}.tif", tiff_bytes(samples, bits, photometric, **kw)))
+    return out
+
+
+def write_image_column(codec_files):
+    """One parquet file written by ``datasets`` with an ``Image`` column (the
+    bytes of some codec fixtures and a PNG and a JPEG), and the digest of
+    ``datasets``' own decoding of it, each image then ``convert("RGB")``."""
+    import datasets
+    import pyarrow.parquet as pq
+
+    names = [n for n in codec_files if n.startswith(("gif_plain", "bmp_rle8", "tiff_rgb_lzw",
+                                                     "tiff_cmyk"))]
+    rows = [{"bytes": open(os.path.join(CODECS, n), "rb").read(), "path": n} for n in names]
+    for n in ("png_c3_d4_plain.png", "prog_444_17x9.jpg"):
+        rows.append({"bytes": open(os.path.join(IMAGES, n), "rb").read(), "path": n})
+    ds = datasets.Dataset.from_dict(
+        {"id": [r["path"] for r in rows], "image": rows},
+        features=datasets.Features({"id": datasets.Value("string"), "image": datasets.Image()}))
+    os.makedirs(os.path.dirname(IMAGE_COLUMN), exist_ok=True)
+    ds.to_parquet(IMAGE_COLUMN)
+    feature = datasets.Image()
+    decoded = [feature.decode_example(v) for v in pq.read_table(IMAGE_COLUMN)["image"].to_pylist()]
+    return images_digest([np.asarray(im.convert("RGB")) for im in decoded])
+
+
+def images_digest(images) -> str:
+    """SHA-256 of a list of images' pixel digests."""
+    return hashlib.sha256(json.dumps([pixels_digest(i) for i in images]).encode()).hexdigest()
+
+
+def tokenizer_pieces():
+    """The fixture tokenizer's pieces and scores (multiples of 1/4) and its
+    charsmap: full-width forms, ideographic space, a combining sequence."""
+    rng = np.random.default_rng(SEED + 3)
+    vocab = ["a", "photo", "of", "the", "cat", "on", "mat", "sun", "kato", "lomi", "café",
+             "東京", "가각", "ph", "ot", "at", "th"]
+    pieces = list(dict.fromkeys(["▁", *"abcdefghijklmnopqrstuvwxyz.,éñ東京가각",
+                                 *("▁" + w for w in vocab), *vocab]))
+    scores = (-rng.integers(4, 60, len(pieces)) / 4.0).tolist()
+    charsmap = {**{chr(0xFF01 + i): chr(0x21 + i) for i in range(94)}, "　": " ",
+                "é": "é", "ﬁ": "fi"}
+    return pieces, scores, charsmap
+
+
+def write_tokenizer():
+    """The Unigram tokenizer directory (written by the port's
+    ``write_unigram_tokenizer``) and the digests of ``tokenizers``' ids and
+    decoded strings for :data:`TOKENIZER_TEXTS`."""
+    import sys
+
+    from tokenizers import Tokenizer
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import (
+        write_precompiled_charsmap, write_unigram_tokenizer)
+
+    pieces, scores, charsmap = tokenizer_pieces()
+    write_unigram_tokenizer(TOKENIZER, pieces, scores, write_precompiled_charsmap(charsmap),
+                            extra_ids=8)
+    tok = Tokenizer.from_file(os.path.join(TOKENIZER, "tokenizer.json"))
+    ids = [tok.encode(t).ids for t in TOKENIZER_TEXTS]
+    decoded = [tok.decode(i, skip_special_tokens=True) for i in ids]
+    return {"texts": TOKENIZER_TEXTS, "ids": hashlib.sha256(json.dumps(ids).encode()).hexdigest(),
+            "decoded": hashlib.sha256(json.dumps(decoded, ensure_ascii=False).encode("utf-8"))
+            .hexdigest()}
 
 
 # ------------------------------------------------------------------ tables
@@ -470,6 +935,16 @@ def main():
     for name in images:
         with Image.open(os.path.join(IMAGES, name)) as img:
             digests["images"][name] = pixels_digest(np.asarray(img.convert("RGB")))
+    os.makedirs(CODECS, exist_ok=True)
+    digests["codec_images"] = {}
+    for name, data in codec_cases():
+        with open(os.path.join(CODECS, name), "wb") as f:
+            f.write(data)
+        with Image.open(os.path.join(CODECS, name)) as img:
+            digests["codec_images"][name] = pixels_digest(np.asarray(img.convert("RGB")))
+    digests["image_columns"] = {
+        os.path.relpath(IMAGE_COLUMN, HERE): write_image_column(sorted(digests["codec_images"]))}
+    digests["tokenizer"] = write_tokenizer()
     with open(DIGESTS, "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -402,6 +402,7 @@ def test_opt_fp32_kernel_path_matches_plain_path(gen, L, heads, hd):
     (2, 130, 2, 80, True, True, None, True, None),     # causal hd 80 across three query blocks
     (4, 161, 12, 64, True, False, None, False, None),  # the cross-encoder's L
     (2, 161, 4, 64, True, False, torch.float32, False, 1.0),  # T5's sm_scale 1: |scores| ~ 30
+    (8, 48, 32, 64, True, False, torch.float32, False, 1.0),  # the captioner's encoder, prompted
     (2, 161, 2, 80, True, True, torch.bfloat16, True, None),  # every option at 161
     (2, 300, 2, 64, True, False, None, True, None),    # causal: tiles above the diagonal skipped
     (2, 300, 2, 80, False, False, torch.float32, False, None),  # five key tiles, fp32 head bias

@@ -550,6 +550,54 @@ def test_blip2_greedy_captions_equal_jax(tmp_path, prompt):
         load_caption_tokenizer(str(tmp_path))
 
 
+def _tiny_unigram_dir(path):
+    """A T5-style Unigram tokenizer directory (ids under the tiny T5's 256):
+    letters, ``▁``-words and their parts, a charsmap of full-width forms."""
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import (
+        write_precompiled_charsmap, write_unigram_tokenizer)
+
+    rng = np.random.default_rng(5)
+    words = ["a", "photo", "of", "the", "cat", "on", "mat", "sun", "ph", "oto", "at", "th"]
+    pieces = list(dict.fromkeys(["▁", *"abcdefghijklmnopqrstuvwxyz.,",
+                                 *("▁" + w for w in words), *words]))
+    scores = (-rng.integers(4, 60, len(pieces)) / 4.0).tolist()
+    charsmap = write_precompiled_charsmap({chr(0xFF01 + i): chr(0x21 + i) for i in range(94)})
+    return write_unigram_tokenizer(path, pieces, scores, charsmap, extra_ids=8)
+
+
+@pytest.mark.parametrize("prompt", ["a photo of", "ａ <extra_id_0> photo of the cat on the "
+                                    "mat under the sun, a photo"])
+def test_blip2_greedy_captions_unigram_equal_jax(tmp_path, prompt):
+    """The captioner with Flan-T5's kind of tokenizer: the port's captions
+    with a prompt through ``UnigramTokenizer`` equal the JAX package's through
+    ``AutoTokenizer`` on the same directory and weights, as strings; the
+    second prompt is longer than the encoder's 16 prompt tokens."""
+    from transformers import AutoTokenizer
+
+    from reranking_multimodal_retrievers_tpu.data.ops.infoseek_ops import (
+        blip2_greedy_captions as jcaptions)
+    from reranking_multimodal_retrievers_tpu_torch.data.ops.infoseek_ops import (
+        blip2_greedy_captions, build_captioner, load_caption_tokenizer)
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import UnigramTokenizer
+
+    conf, model, params, ckpt, _ = _tiny_blip2(tmp_path)
+    tok_dir = _tiny_unigram_dir(str(tmp_path / "unigram"))
+    tok = load_caption_tokenizer(tok_dir)
+    assert isinstance(tok, UnigramTokenizer)
+    hf = AutoTokenizer.from_pretrained(tok_dir)
+    enc = [t([prompt], padding="max_length", truncation=True, max_length=16,
+             return_tensors="np") for t in (hf, tok)]
+    np.testing.assert_array_equal(enc[0]["input_ids"], enc[1]["input_ids"])
+    rng = np.random.default_rng(4)
+    imgs = [rng.integers(0, 256, (32, 32, 3), dtype=np.uint8) for _ in range(5)]
+    want = jcaptions(model, params, hf, [PIL_Image.fromarray(i) for i in imgs], prompt=prompt,
+                     max_new_tokens=6, image_size=32)
+    got = blip2_greedy_captions(build_captioner(conf, ckpt), tok, imgs, prompt=prompt,
+                                max_new_tokens=6, image_size=32)
+    assert got == want
+    assert any(got), "every caption decoded empty: the check would be vacuous"
+
+
 @pytest.mark.parametrize("version", ["", "v2", "v3"])
 def test_caption_nodes_equal_jax(tmp_path, version):
     conf, _, _, ckpt, tok_dir = _tiny_blip2(tmp_path)

@@ -1,5 +1,5 @@
 """The port stands alone: it imports no JAX, flax, optax, orbax, transformers,
-datasets, pyarrow, pandas, PIL, safetensors (``models/checkpoint_dir.py``
+tokenizers, regex, datasets, pyarrow, pandas, PIL, safetensors (``models/checkpoint_dir.py``
 reads and writes the format itself), tests or the JAX package, it imports
 with those modules blocked, with them blocked it reads a ``save_to_disk``
 directory, decodes a baseline JPEG and runs the tiny ``prepare_data``
@@ -33,9 +33,9 @@ PORT = ROOT / "reranking_multimodal_retrievers_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "transformers", "tests",
              "reranking_multimodal_retrievers_tpu", "datasets", "pyarrow", "pandas", "PIL",
-             "safetensors"}
+             "safetensors", "tokenizers", "regex"}
 BLOCKED = ("jax", "flax", "optax", "orbax", "transformers", "datasets", "pyarrow", "pandas",
-           "PIL", "safetensors", "reranking_multimodal_retrievers_tpu")
+           "PIL", "safetensors", "reranking_multimodal_retrievers_tpu", "tokenizers", "regex")
 # imports allowed inside a function body (not at module level) of a file
 LAZY_ALLOWED = {PORT / "models" / "tokenization.py": {"transformers"},
                 PORT / "data" / "image_io.py": {"PIL"},

@@ -203,14 +203,26 @@ def test_other_encodings_raise_naming_the_column(tmp_path, encoding):
 
 
 def test_an_image_feature_raises_as_arrow_io_does(tmp_path):
-    features = {"picture": {"_type": "Image"}, "q": {"dtype": "string", "_type": "Value"}}
-    table = pa.table({"picture": [{"bytes": b"x", "path": None}], "q": ["a"]})
-    table = table.replace_schema_metadata(
-        {"huggingface": json.dumps({"info": {"features": features}})})
-    path = str(tmp_path / "img.parquet")
-    pq.write_table(table, path)
-    with pytest.raises(NotImplementedError, match="'picture' is a datasets Image"):
-        parquet_io.read_parquet(path)
+    """An ``Image`` column whose bytes are no image raises as ``arrow_io``'s
+    decoding of the same value raises; an ``Audio`` column raises naming
+    it (``Image`` columns are decoded: ``tests/test_torch_image_formats.py``)."""
+    from reranking_multimodal_retrievers_tpu_torch.data import arrow_io
+
+    for kind in ("Image", "Audio"):
+        features = {"picture": {"_type": kind}, "q": {"dtype": "string", "_type": "Value"}}
+        table = pa.table({"picture": [{"bytes": b"x", "path": None}], "q": ["a"]})
+        table = table.replace_schema_metadata(
+            {"huggingface": json.dumps({"info": {"features": features}})})
+        path = str(tmp_path / f"{kind}.parquet")
+        pq.write_table(table, path)
+        if kind == "Audio":
+            with pytest.raises(NotImplementedError, match="'picture' is a datasets Audio"):
+                parquet_io.read_parquet(path)
+            continue
+        with pytest.raises(Exception) as want:
+            arrow_io.decode_feature(features["picture"], {"bytes": b"x", "path": None}, "picture")
+        with pytest.raises(type(want.value)):
+            parquet_io.read_parquet(path)
 
 
 # -------------------------------------------------------------------- YAML
