@@ -25,7 +25,13 @@ Phases, each printing one JSON line with its elapsed seconds:
      and with the causal mask at OPT-2.7b's [5, 544, 32 x 80], against its
      plain version and timed the same way; the names of the kernels the fp32
      yardstick runs at the cross-encoder's [50, 161, 12 x 64], read once
-     from ``torch.profiler``;
+     from ``torch.profiler``; K2 bf16 and fp32 at the head widths beside 64
+     and 80 (``K2_WIDTHS_BF16``, ``K2_WIDTHS_F32``: 8 x 16, 24 x 32, 8 x 48,
+     8 x 96, 8 x 112 and 6 x 128 with the key bias; 32 and 128 with a head
+     bias and under the causal mask), each against its plain version with
+     its bound and SDPA's time on the same mask, and with the main path's
+     launches at its shape and at its head width, looked up in the
+     per-shape counts the main path's phases record;
   3. retrieve: full-width FLMR (BERT-base, ViT-B/32, dim 128, 32-token
      prefix, 1-layer mapping network; random bf16 weights from a seed)
      encodes 1,024 docs into a TokenIndex padded with random unit vectors to
@@ -246,11 +252,25 @@ Phases, each printing one JSON line with its elapsed seconds:
      ``datasets``' decoding, and ``tests/fixtures/unigram_tokenizer``'s ids
      and decoded strings to the digests of the ``tokenizers`` library's;
      parquet MB/s and images/s by format (host clock, best of 3 passes);
-     then 13c's train and test runs with ``LoadM2KR`` pointed at the
-     snapshot (``<dir>///EVQA_data``, ``<dir>///EVQA_passages``) and the
-     rows' images at the committed files (K1, K3 and fp32 K2 over the
-     index of all 8,192 passages). Everything under
-     ``build/chip_smoke_p13/``, removed after;
+     the snapshot's re-encoded copy ``tests/fixtures/m2kr_snapshot_v2``
+     (ZSTD and LZ4_RAW, DELTA_BYTE_ARRAY and DELTA_LENGTH_BYTE_ARRAY on
+     data pages v2) digesting as the SNAPPY files and loading to the same
+     rows, every variant (ZSTD, LZ4, LZ4_RAW, the delta and byte-stream-
+     split encodings) to its digest, parquet MB/s by codec, and the WebP
+     files (``tests/fixtures/webp_images``; ``m2kr_images_webp``, each
+     M2KR image as lossy, lossless or lossy-with-alpha WebP under its own
+     name) to PIL's pixels, megapixels/s by WebP variant; then 13c's train
+     and test runs with ``LoadM2KR`` pointed at the re-encoded copy
+     (``<dir>///EVQA_data``, ``<dir>///EVQA_passages``) and the rows'
+     images at the WebP re-encodings (K1, K3 and fp32 K2 over the index of
+     all 8,192 passages); 13e. ``cli.main`` with ``use_pallas_attention``
+     over the same data at two head geometries, 8 train steps and a test
+     (64 queries) each: ``configs/evqa_flmr.json`` as published (4 heads x 16, which
+     the JAX package's gate refuses: K2 launches 0 times, in training
+     too) and the same block with ``configs/synth_flmr.json``'s text tower
+     (4 heads x 32: the test launches fp32 K2 at head_dim 32; training
+     keeps the flag off, K2 having no backward). Everything under ``build/chip_smoke_p13/``,
+     removed after;
   14. the tools (``tools/``, ``ops/host_ops.py``), after phase 13, under
      ``build/chip_smoke_p14/``, removed after: 14a. a seeded BERT-base BEM
      classifier (4 token types, fp32) written as an HF directory, 128
@@ -296,7 +316,7 @@ Phases, each printing one JSON line with its elapsed seconds:
      one process's test of the same checkpoint), the reranker's test over
      that dump, one file of each kind written (rank 0's); on fewer cards
      the overask error. ``python3 chip_smoke.py --phase 15`` runs phases
-     0, 1 and 15 alone, ``--phase 13d`` phases 0, 1 and 13d;
+     0, 1 and 15 alone, ``--phase 13d`` phases 0, 1, 13d and 13e;
   7. after phase 15: the ``kernels`` line (K1 and K3 with their times at
      ``bench.py``'s batch and the 100k searches of phases 3 and 3b beside
      the bound, K1 at stage 1's, the pooled index's, 3d's, 3e's and 11b's launch
@@ -877,6 +897,17 @@ def w8a8_rerank(reranker, rcfg, ids, am, tt, pix, bf16_logits, cpu_state):
             "seconds": time.perf_counter() - t0}
 
 
+def _k2_dtype(q):
+    return {torch.bfloat16: "bf16", torch.float32: "fp32"}[q.dtype]
+
+
+def _k2_mask(bias, head_bias, causal):
+    """Which of K2's options a call takes: "causal", "head" (a head bias),
+    "key" (a key bias alone) or "none"."""
+    return ("causal" if causal else "head" if head_bias is not None
+            else "key" if bias is not None else "none")
+
+
 def k2_variant(name, q, k, v, bias, head_bias, *, heads, scale, causal, sdpa_mask, flops):
     """One K2 variant against its plain version on the card at a phase's
     launch shape, timed beside the plain version and
@@ -900,7 +931,8 @@ def k2_variant(name, q, k, v, bias, head_bias, *, heads, scale, causal, sdpa_mas
     b_ms, b_by = bound(flops, nbytes)
     times = k2_timed(lambda: fused_self_attention(q, k, v, bias, head_bias, **kw),
                      lambda: sdpa(qh, kh, vh, attn_mask=sdpa_mask, scale=scale), flops, b_ms)
-    return dict(variant=name, shape=[B, L, HD], heads=heads, max_abs_err=err, tol=K2_TOL,
+    return dict(variant=name, shape=[B, L, HD], heads=heads, dtype=_k2_dtype(q),
+                mask=_k2_mask(bias, head_bias, causal), max_abs_err=err, tol=K2_TOL,
                 plain_ms=cuda_ms(lambda: fused_self_attention_reference(q, k, v, bias,
                                                                         head_bias, **kw), 3),
                 bound_ms=b_ms, bound_by=b_by, flops=flops, **times)
@@ -2359,8 +2391,9 @@ def k2f32_check(name, q, k, v, bias, head_bias=None, *, heads, scale, causal=Fal
     library = lambda: sdpa(qh, kh, vh, attn_mask=sdpa_mask, scale=scale)  # noqa: E731
     times = k2_timed(kernel, library, flops, b_ms)
     times.update(device_ms=device_ms(kernel), library_device_ms=device_ms(library))
-    return dict(variant=name, shape=[B, L, HD], heads=heads, max_abs_err=err,
-                tol=[K2F32_RTOL, K2F32_ATOL],
+    return dict(variant=name, shape=[B, L, HD], heads=heads, head_dim=HD // heads,
+                dtype=_k2_dtype(q), mask=_k2_mask(bias, head_bias, causal),
+                max_abs_err=err, tol=[K2F32_RTOL, K2F32_ATOL],
                 plain_ms=cuda_ms(lambda: fused_self_attention_reference(
                     q, k, v, bias, head_bias, **kw), 3),
                 bound_ms=b_ms, bound_by=b_by, bound_ffma_ms=ffma_ms,
@@ -2441,6 +2474,112 @@ def k2f32_variants(gen, smi):
               **row})
         rows.append(row)
         del q, k, v
+    return rows
+
+
+# Phase 2's K2 rows at the head widths beyond 64 and 80 (the _narrow and
+# _wide libraries of csrc/attention.cu and attention_f32.cu): (heads,
+# head_dim, batch, L, variant); bf16 at the BERT-like [100, 512] shapes and the T5/OPT-like
+# [10|5, 512] ones, fp32 at the CLI's [64, 32] and at [16, 512]
+K2_WIDTHS_BF16 = [
+    (24, 32, 100, 512, "key"), (6, 128, 100, 512, "key"), (8, 16, 8, 512, "key"),
+    (8, 48, 100, 512, "key"), (8, 96, 100, 512, "key"), (8, 112, 100, 512, "key"),
+    (24, 32, 10, 512, "head"), (6, 128, 10, 512, "head"),
+    (24, 32, 5, 512, "causal"), (6, 128, 5, 512, "causal")]
+K2_WIDTHS_F32 = [
+    (4, 32, 64, 32, "key"), (8, 16, 64, 32, "key"), (8, 48, 64, 32, "key"),
+    (4, 96, 64, 32, "key"), (4, 112, 64, 32, "key"), (2, 128, 64, 32, "key"),
+    (24, 32, 16, 512, "key"), (6, 128, 16, 512, "key"),
+    (24, 32, 10, 512, "head"), (6, 128, 10, 512, "head"),
+    (24, 32, 5, 512, "causal"), (6, 128, 5, 512, "causal")]
+
+
+def k2_library(hd, fp32):
+    """The library (``ops/_build.py::SOURCES``) of K2's instance at head
+    width ``hd``."""
+    from reranking_multimodal_retrievers_tpu_torch.ops import attention_cuda
+
+    return attention_cuda._library("attention_f32" if fp32 else "attention", hd)
+
+
+def k2_source(hd, fp32):
+    """The source in the repo of K2's instance at head width ``hd``."""
+    from reranking_multimodal_retrievers_tpu_torch.ops import _build
+
+    return ("reranking_multimodal_retrievers_tpu_torch/csrc/"
+            + _build.SOURCES[k2_library(hd, fp32)])
+
+
+def _k2_where(row):
+    """(dtype, shape, heads, mask) of a K2 row, or None where it has none."""
+    if not all(key in row for key in ("dtype", "shape", "heads", "mask")):
+        return None
+    return row["dtype"], tuple(row["shape"]), row["heads"], row["mask"]
+
+
+def k2_width_launches(widths, path_rows):
+    """Each head-width row's ``launches``: the main path's launches at its
+    dtype, shape, heads and mask, summed from the per-shape counts the
+    main path's phases recorded in this run (``path_rows``, each checked
+    against its phase's launch count); and ``launches_at_head_dim``: the
+    same at its dtype, head_dim and mask whatever the shape (the same
+    compiled instance)."""
+    def instance(where):
+        dtype, shape, heads, mask = where
+        return dtype, shape[-1] // heads, mask
+
+    recorded = [(_k2_where(r), r["launches"]) for r in path_rows if _k2_where(r) is not None]
+    for row in widths:
+        where = _k2_where(row)
+        row["launches"] = sum(n for w, n in recorded if w == where)
+        row["launches_at_head_dim"] = sum(n for w, n in recorded
+                                          if instance(w) == instance(where))
+
+
+def k2_width_rows(gen, smi):
+    """K2 bf16 and fp32 at the head widths the port took on beside 64 and
+    80, each against its plain version (bf16 within K2_TOL, fp32 within
+    K2F32_RTOL/K2F32_ATOL), timed beside its plain version and
+    ``scaled_dot_product_attention`` on the same mask, with its bound; key
+    bias (right-padded keys), bf16 or fp32 head bias with the key bias, and
+    the causal mask with the key bias. Their launches on the main path are
+    filled in after it ran (:func:`k2_width_launches`)."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import causal_bias
+
+    rows = []
+    for fp32, table in ((False, K2_WIDTHS_BF16), (True, K2_WIDTHS_F32)):
+        dtype = torch.float32 if fp32 else torch.bfloat16
+        for heads, hd, B, L, variant in table:
+            q, k, v = (torch.randn(B, L, heads * hd, device="cuda", generator=gen).to(dtype)
+                       for _ in range(3))
+            lens = torch.randint(L // 2, L + 1, (B,), device="cuda", generator=gen)
+            keep = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+            bias = torch.where(keep, 0.0, -1e9)
+            hb, causal, pairs = None, variant == "causal", L * L
+            if variant == "key":
+                mask = keep[:, None, None, :]
+            elif variant == "head":
+                hb = torch.randn(heads, L, L, device="cuda", generator=gen).to(dtype)
+                mask = (bias[:, None, None, :] + hb.float()[None]).to(dtype)
+            else:
+                pairs = L * (L + 1) // 2
+                mask = (causal_bias(L, "cuda")[None, None] == 0) & keep[:, None, None, :]
+            what = {"key": "key bias", "head": "head bias and key bias",
+                    "causal": "causal and key bias"}[variant]
+            name = (f"{'fp32 ' if fp32 else ''}{what}, head_dim {hd} at "
+                    f"[{B}, {L}, {heads}x{hd}] (phase 2)")
+            flops = 4 * B * heads * pairs * hd
+            if fp32:
+                row = k2f32_check(name, q, k, v, bias, hb, heads=heads, scale=hd ** -0.5,
+                                  causal=causal, sdpa_mask=mask, flops=flops)
+            else:
+                row = k2_variant(name, q, k, v, bias, hb, heads=heads, scale=hd ** -0.5,
+                                 causal=causal, sdpa_mask=mask, flops=flops)
+            row.update(head_dim=hd, library=k2_library(hd, fp32), source=k2_source(hd, fp32))
+            emit({"phase": "kernel_check", "kernel": "K2 fused_self_attention, head widths",
+                  "card": smi, **row})
+            rows.append(row)
+            del q, k, v, hb, mask
     return rows
 
 
@@ -3804,9 +3943,9 @@ def p13_prepare(smi, words, base):
 
 def _p13_full_width(cfg):
     """``cfg`` with ``synth_flmr_fullsize.json``'s FLMR block (BERT-base,
-    ViT-B/32, dim 128), Ks and train/valid/test blocks: the FLMR block of
-    ``configs/evqa_flmr.json`` is 64 wide with 4 heads (head_dim 16), a
-    width at which K2 has no variant (head_dim 64 or 80)."""
+    ViT-B/32, dim 128), Ks and train/valid/test blocks: the full-width path
+    (``configs/evqa_flmr.json``'s own block, 64 wide with 4 heads, runs in
+    13e)."""
     with open(CONFIGS / FLMR_CONFIG) as f:
         full = json.load(f)
     cfg["model_config"]["flmr"] = full["model_config"]["flmr"]
@@ -3816,37 +3955,42 @@ def _p13_full_width(cfg):
     return cfg
 
 
-def p13_train_test(smi, cfg, part, n_train, n_test, corpus):
-    """13c and 13d: FLMR ``--mode train`` (P13_STEPS steps) and ``--mode
-    test`` (K1, then K3 over an int8 index) from ``cli.main`` with ``cfg``
-    (``configs/evqa_flmr.json``'s pipeline over a part's data at
-    :func:`_p13_full_width`'s widths). Returns (the lines, K1 row, K3 row,
-    K2 rows, launch counts)."""
+def p13_train_test(smi, cfg, part, n_train, n_test, corpus, steps=P13_STEPS, int8=True,
+                   want_k2=True, train_pallas=False, test_opts=()):
+    """13c, 13d and 13e: FLMR ``--mode train`` (``steps`` steps, with
+    ``use_pallas_attention`` as ``train_pallas`` says) and ``--mode test``
+    (K1 and, where ``want_k2``, K2's fp32 path; then, where ``int8``, K3
+    over an int8 index; ``test_opts`` on both) from ``cli.main`` with
+    ``cfg`` (``configs/evqa_flmr.json``'s pipeline over a part's data).
+    Returns (the lines, K1 row, K3 row or None, K2 rows, launch counts)."""
     from reranking_multimodal_retrievers_tpu_torch.engine import search as search_mod
     from reranking_multimodal_retrievers_tpu_torch.executors import FLMRExecutor
     from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
 
     exp = (Path(cfg["meta"]["EXPERIMENT_FOLDER"]) / cfg["meta"]["experiment_name"]
            / "version_0")
-    run = f"p{part}_flmr"
+    run = f"p{part.replace(' ', '_')}_flmr"
+    pallas = "model_config.flmr.text_config.use_pallas_attention=true"
     lines, parts = [], {}
 
     t0 = time.perf_counter()
+    n_steps = steps
     steps = []
     reset_counts()
     with _Recorder() as rec:
         rec.patch(FLMRExecutor, "training_step", _clock(steps))
-        _p13_cli(cfg, run, "train", f"train.trainer_paras.limit_train_batches={P13_STEPS}",
+        _p13_cli(cfg, run, "train", f"train.trainer_paras.limit_train_batches={n_steps}",
                  "train.trainer_paras.max_epochs=1", "train.trainer_paras.log_every_n_steps=1",
-                 "valid.trainer_paras.limit_val_batches=0")
+                 "valid.trainer_paras.limit_val_batches=0", *([pallas] if train_pallas else []))
     trained = parts[f"{part}_train"] = read_counts()
     check(sum(trained.values()) == 0, f"{part} training launched {trained}")
-    check(len(steps) == P13_STEPS, f"{part} took {len(steps)} steps")
+    check(len(steps) == n_steps, f"{part} took {len(steps)} steps")
     losses = [m["ib_loss"] for m in _metrics_lines(exp) if "ib_loss" in m]
     check(len(losses) > 0 and np.isfinite(losses).all(), f"{part} losses {losses}")
     batch = cfg["train"]["batch_size"]
     lines.append({"phase": f"{run}_train", "steps": len(steps), "batch": batch,
-                  "cuts": {"steps": f"{P13_STEPS} of an epoch's {n_train // batch}"},
+                  "cuts": {"steps": f"{n_steps} of an epoch's {n_train // batch}"},
+                  "use_pallas_attention": train_pallas,
                   "steps_per_s": _steps_per_s(steps), "examples_per_s": batch * _steps_per_s(steps),
                   "ib_losses": losses, "launches": trained, "card": smi,
                   "seconds": time.perf_counter() - t0})
@@ -3864,8 +4008,8 @@ def p13_train_test(smi, cfg, part, n_train, n_test, corpus):
             rec.patch(search_mod, "maxsim_scores_int8",
                       _first_inputs(k3_in, lambda Qq, *r: tuple(Qq.shape)))
             rec.patch(bert_mod, "fused_self_attention", _first_inputs(k2_in, _k2_key))
-            _p13_cli(cfg, run, "test", f"meta.experiment_dir='{exp}'",
-                     "model_config.flmr.text_config.use_pallas_attention=true", *opts)
+            _p13_cli(cfg, run, "test", f"meta.experiment_dir='{exp}'", pallas, *test_opts,
+                     *opts)
         torch.cuda.synchronize()
         launches = read_counts()
         preds = _dump(exp)["predictions"]
@@ -3885,12 +4029,18 @@ def p13_train_test(smi, cfg, part, n_train, n_test, corpus):
 
     line, k1_in, _, k2_in = test(f"{run}_test")
     tested = parts[f"{part}_test"] = line["launches"]
-    check(tested["K1"] > 0 and tested["K2f32"] > 0 and tested["K3"] == 0,
-          f"{part} test launches {tested}")
+    check(tested["K1"] > 0 and (tested["K2f32"] > 0) == want_k2 and tested["K2"] == 0
+          and tested["K3"] == 0, f"{part} test launches {tested}")
+    text = cfg["model_config"]["flmr"]["text_config"]
+    line["head_geometry"] = [text["num_attention_heads"],
+                             text["hidden_size"] // text["num_attention_heads"]]
     lines.append(line)
     (_, k1_entry), = k1_in.items()
     k1_row = dict(k1_line(*k1_entry["args"][:3], f"CLI test over {corpus}, L_d = 64 ({part})"),
                   launches=tested["K1"])
+    if not int8:
+        rows = _k2_rows({"bert": k2_in}, part, tested["K2f32"]) if want_k2 else []
+        return lines, k1_row, None, rows, parts
     line, _, k3_in, k2_in_int8 = test(f"{run}_test_int8", "model_config.modules="
                                       "['freeze_vision_encoders','use_int8_index']")
     tested_int8 = parts[f"{part}_test_int8"] = line["launches"]
@@ -3912,7 +4062,16 @@ def p13_train_test(smi, cfg, part, n_train, n_test, corpus):
 # digests in tests/fixtures/digests.json)
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 P13D_SNAPSHOT = FIXTURES / "m2kr_snapshot"
+# the same rows re-encoded (ZSTD, LZ4_RAW, DELTA_BYTE_ARRAY and
+# DELTA_LENGTH_BYTE_ARRAY on data pages v2), which 13d and 13e train and
+# test over, its images the WebP re-encodings of m2kr_images under their names
+P13D_SNAPSHOT_V2 = FIXTURES / "m2kr_snapshot_v2"
 P13D_IMAGES = FIXTURES / "m2kr_images"
+P13D_IMAGES_WEBP = FIXTURES / "m2kr_images_webp"
+P13D_WEBP = FIXTURES / "webp_images"
+P13E_STEPS = 8  # three past TIMED_FROM, for a steps/s
+P13E_TEST_BATCHES = 16  # 64 of the 256 test queries (each query's WebP image decoded on the host)
+P13E_CONFIGS = ("evqa_flmr.json", "synth_flmr.json")
 P13D_CODECS = FIXTURES / "codec_images"
 P13D_TOKENIZER = FIXTURES / "unigram_tokenizer"
 P13D_PASSES = 3  # passes over the tables and the images; the best is kept
@@ -3941,7 +4100,11 @@ def _pixels_digest(rgb):
     return hashlib.sha256(f"{rgb.shape}".encode() + rgb.tobytes()).hexdigest()
 
 
-def _image_format(name):
+def _image_format(name, data=None):
+    if data is not None and data[:4] == b"RIFF":
+        from reranking_multimodal_retrievers_tpu_torch.data.webp import webp_variant
+
+        return webp_variant(data).replace(" (extended)", "")
     for prefix, fmt in (("gif_", "GIF"), ("bmp_rle", "BMP, RLE"), ("bmp_", "BMP"),
                         ("tiff_", "TIFF")):
         if name.startswith(prefix):
@@ -3965,6 +4128,20 @@ def _best_pass(fn):
         out = fn()
         best = min(best, time.perf_counter() - t)
     return best, out
+
+
+def _parquet_codecs(path):
+    """The codecs of a parquet file's column chunks, as one name (``"+"``
+    between several), from its footer."""
+    import struct as _struct
+
+    from reranking_multimodal_retrievers_tpu_torch.data import parquet_io
+
+    data = Path(path).read_bytes()
+    (n,) = _struct.unpack_from("<I", data, len(data) - 8)
+    meta = parquet_io._Compact(data, len(data) - 8 - n).struct()
+    codecs = {parquet_io.CODECS.get(c[3][4], str(c[3][4])) for rg in meta[4] for c in rg[1]}
+    return "+".join(sorted(codecs))
 
 
 def p13d_read(smi):
@@ -3998,11 +4175,35 @@ def p13d_read(smi):
         info = parquet_io.front_matter(f.read())["dataset_info"]
     check(sizes == {sp["name"]: sp["num_examples"] for c in info for sp in c["splits"]},
           f"13d: snapshot splits {sizes} against its README")
+    # the re-encoded copy: its files digest as the SNAPPY snapshot's, and it
+    # loads to the same rows; parquet MB/s by the codecs a file uses
+    for rel in tables:
+        if rel.startswith("m2kr_snapshot/"):
+            twin = rel.replace("m2kr_snapshot/", "m2kr_snapshot_v2/", 1)
+            check(digests["tables"].get(twin) == digests["tables"][rel],
+                  f"13d: {twin} does not digest as {rel}")
+    v2_bytes = sum(f.stat().st_size for f in P13D_SNAPSHOT_V2.rglob("*.parquet"))
+    v2_s, v2 = _best_pass(lambda: {**_load_hf(f"{P13D_SNAPSHOT_V2}///EVQA_data"),
+                                   **_load_hf(f"{P13D_SNAPSHOT_V2}///EVQA_passages")})
+    check({k: len(t) for k, t in v2.items()} == sizes
+          and all(list(v2[k]) == list(loaded[k]) for k in sizes),
+          "13d: the re-encoded snapshot loads to other rows")
+    by_codec = {}
+    for rel in tables:
+        by_codec.setdefault(_parquet_codecs(FIXTURES / rel), []).append(rel)
+    codec_rates = {}
+    for codec, rels in sorted(by_codec.items()):
+        n = sum((FIXTURES / rel).stat().st_size for rel in rels)
+        secs, _ = _best_pass(lambda: [parquet_io.read_parquet(str(FIXTURES / rel))
+                                      for rel in rels])
+        codec_rates[codec] = {"files": len(rels), "bytes": n, "seconds": secs,
+                              "mb_per_s": n / secs / 1e6}
     formats = {}
-    for key, folder in (("images", P13D_IMAGES), ("codec_images", P13D_CODECS)):
+    for key, folder in (("images", P13D_IMAGES), ("codec_images", P13D_CODECS),
+                        ("webp_images", P13D_WEBP), ("m2kr_images_webp", P13D_IMAGES_WEBP)):
         for name in sorted(digests[key]):
-            formats.setdefault(_image_format(name), []).append(
-                (name, folder / name, digests[key][name]))
+            fmt = _image_format(name, (folder / name).read_bytes())
+            formats.setdefault(fmt, []).append((name, folder / name, digests[key][name]))
     per_format = {}
     for fmt, entries in formats.items():
         names = [name for name, _, _ in entries]
@@ -4039,6 +4240,8 @@ def p13d_read(smi):
             "parquet_read_seconds": read_s, "parquet_mb_per_s": nbytes / read_s / 1e6,
             "snapshot_bytes": snap_bytes, "snapshot_load_seconds": load_s,
             "snapshot_mb_per_s": snap_bytes / load_s / 1e6, "splits": sizes,
+            "snapshot_v2_bytes": v2_bytes, "snapshot_v2_load_seconds": v2_s,
+            "snapshot_v2_mb_per_s": v2_bytes / v2_s / 1e6, "parquet_by_codec": codec_rates,
             "images": per_format, "image_columns": columns,
             "tokenizer_texts_equal_digests": len(tok_d["texts"]),
             "progressive_vs_baseline_320x240": {
@@ -4055,25 +4258,25 @@ def p13d_read(smi):
     return line, sizes, words
 
 
-def _p13d_config(base):
+def _p13d_config(base, part="13d"):
     """``configs/evqa_flmr.json`` with its M2KR node pointed at the
-    committed snapshot through the ``///`` convention, the rows' images at
-    the committed files, 13d's paths and vocabulary, at
-    :func:`_p13_full_width`'s widths."""
+    committed re-encoded snapshot through the ``///`` convention, the rows'
+    images at their WebP re-encodings, a part's paths and 13d's vocabulary
+    (13d then takes :func:`_p13_full_width`'s widths, 13e its own)."""
     import copy
 
     cfg = copy.deepcopy(base)
-    cfg["meta"]["EXPERIMENT_FOLDER"] = str(P13_DIR / "experiments_13d")
+    cfg["meta"]["EXPERIMENT_FOLDER"] = str(P13_DIR / f"experiments_{part}")
     dp = cfg["data_pipeline"]
-    dp["cache_dir"] = str(P13_DIR / "cache_13d")
+    dp["cache_dir"] = str(P13_DIR / f"cache_{part}")
     dp["transforms"]["input:LoadM2KR"]["setup_kwargs"].update(
-        data_path=f"{P13D_SNAPSHOT}///EVQA_data",
-        passage_path=f"{P13D_SNAPSHOT}///EVQA_passages",
-        image_root_folder=str(P13D_IMAGES))
+        data_path=f"{P13D_SNAPSHOT_V2}///EVQA_data",
+        passage_path=f"{P13D_SNAPSHOT_V2}///EVQA_passages",
+        image_root_folder=str(P13D_IMAGES_WEBP))
     out = dp["transforms"]["output:PrepareDataloaders"]["setup_kwargs"]
     for tok in out["tokenizer_config"].values():
         tok["TokenizerModelVersion"] = str(P13_DIR / "vocab_13d")
-    return _p13_full_width(cfg)
+    return cfg
 
 
 def p13d_phase(smi, base):
@@ -4086,12 +4289,48 @@ def p13d_phase(smi, base):
     emit(line)
     write_test_vocab(str(P13_DIR / "vocab_13d" / "vocab.txt"), words)
     lines, k1_row, k3_row, rows, parts = p13_train_test(
-        smi, _p13d_config(base), "13d", sizes["train"], sizes["test"],
+        smi, _p13_full_width(_p13d_config(base)), "13d", sizes["train"], sizes["test"],
         "the parquet snapshot's 8,192 passages")
     for line in lines:
         emit(line)
     emit({"phase": "p13d", "seconds": time.perf_counter() - t0})
-    return k1_row, k3_row, rows, parts
+    t0 = time.perf_counter()
+    rows_e, parts_e = p13e_phase(smi, base, sizes)
+    emit({"phase": "p13e", "seconds": time.perf_counter() - t0})
+    return k1_row, k3_row, rows + rows_e, {**parts, **parts_e}
+
+
+def p13e_phase(smi, base, sizes):
+    """13e: ``cli.main`` with ``use_pallas_attention=true`` over 13d's
+    re-encoded snapshot at two head geometries, ``P13E_STEPS`` train steps
+    and a test each. ``evqa_flmr.json`` as published (4 heads x 16, which
+    the JAX gate refuses: K2 never launches, in training or test); its FLMR
+    block with ``synth_flmr.json``'s text tower (4 heads x 32: the test
+    launches K2's fp32 path; training keeps the flag off, K2 having no
+    backward; synth_flmr's own block has no vision tower for the rows'
+    images). Returns (K2 rows, launch counts)."""
+    import copy
+
+    with open(CONFIGS / "synth_flmr.json") as f:
+        synth = json.load(f)["model_config"]["flmr"]["text_config"]
+    rows, parts = [], {}
+    for config in P13E_CONFIGS:
+        tag = config.split(".")[0]
+        cfg = _p13d_config(base, f"13e_{tag}")
+        if tag == "synth_flmr":
+            cfg["model_config"]["flmr"]["text_config"] = copy.deepcopy(synth)
+        train_pallas = tag == "evqa_flmr"
+        batches = P13E_TEST_BATCHES
+        lines, _, _, k2_rows, got = p13_train_test(
+            smi, cfg, f"13e {tag}", sizes["train"], batches * cfg["test"]["batch_size"],
+            "the re-encoded snapshot's passages", steps=P13E_STEPS, int8=False,
+            want_k2=tag != "evqa_flmr", train_pallas=train_pallas,
+            test_opts=(f"test.trainer_paras.limit_test_batches={batches}",))
+        for line in lines:
+            emit(line)
+        rows += k2_rows
+        parts.update(got)
+    return rows, parts
 
 
 def p13_phases(smi, only_13d=False):
@@ -5891,9 +6130,10 @@ def main() -> int:
     # ---- 1. build
     t0 = time.perf_counter()
     build_s = _build.build_all()
-    maxsim_cuda._lib()  # load the four libraries
-    attention_cuda._lib()
-    attention_cuda._lib_f32()
+    maxsim_cuda._lib()  # load every library
+    for hd in attention_cuda.KERNEL_HEAD_DIMS:
+        attention_cuda._lib(hd)
+        attention_cuda._lib_f32(hd)
     maxsim_int8_cuda._lib()
     sass = sass_counts("attention_f32")
     check(sass["HMMA_TF32"] > 0 and sass["LDGSTS"] > 0,
@@ -5915,9 +6155,9 @@ def main() -> int:
                    source=source + "maxsim_int8.cu", replaces=replaces + "maxsim_pallas.py:183",
                    **r) for r in k3_rows),
             *(dict(name=f"fused_self_attention fp32 {r['variant']}", route="cuda",
-                   source=source + "attention_f32.cu",
+                   source=k2_source(r["head_dim"], True),
                    replaces=replaces + "attention_pallas.py:95", **r) for r in k2_rows)],
-            "not_ported": [], "phases_run": [0, 1, "13d"], "launches": parts})
+            "not_ported": [], "phases_run": [0, 1, "13d", "13e"], "launches": parts})
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                      "count": torch.cuda.device_count()}})
         return 0
@@ -5983,6 +6223,7 @@ def main() -> int:
         emit({"phase": "kernel_check", "kernel": "K2 fused_self_attention", **k2[L]})
         del q, k, v, got, ref
     k2f32_extra = k2f32_variants(gen, smi)
+    k2_widths = k2_width_rows(gen, smi)
     # what the fp32 yardstick runs at the cross-encoder's launch shape (11d)
     q, k, v = (torch.randn(50, 12, 161, 64, device="cuda", generator=gen) for _ in range(3))
     amask = (torch.rand(50, 161, device="cuda", generator=gen) > 0.2)[:, None, None, :]
@@ -6303,7 +6544,8 @@ def main() -> int:
                 "x_library", "share_of_bound", "tflops", "shape", "tol", "launches")
         return dict(name=f"fused_self_attention {variant}", route="cuda",
                     source="reranking_multimodal_retrievers_tpu_torch/csrc/attention.cu",
-                    replaces=attention, **{key: k2_line[key] for key in keys})
+                    replaces=attention, **{key: k2_line[key] for key in keys},
+                    **{key: k2_line[key] for key in ("dtype", "heads", "mask") if key in k2_line})
 
     def search_100k(ms, bound_ms, rate_key):
         """The 100k search of phase 3 or 3b (kernel launches over 4 slabs
@@ -6314,7 +6556,9 @@ def main() -> int:
                 f"search_100k_{rate_key}": ops / (ms * 1e-3) / 1e12}
 
     attention = "reranking_multimodal_retrievers_tpu/ops/attention_pallas.py:95"
-    emit({"kernels": [
+    widths = [dict(name=f"fused_self_attention {row['variant']}", route="cuda",
+                   replaces=attention, **row) for row in k2_widths]
+    kernels = [
         dict(name="maxsim_scores", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
              replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:67",
@@ -6363,11 +6607,11 @@ def main() -> int:
                replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183", **row)
           for row in k3_p13),
         *(dict(name=f"fused_self_attention fp32 {row['variant']}", route="cuda",
-               source="reranking_multimodal_retrievers_tpu_torch/csrc/attention_f32.cu",
-               replaces=attention, **row)
+               source=k2_source(row["head_dim"], True), replaces=attention, **row)
           for row in k2f32_rows + k2f32_p12 + k2f32_p13 + k2f32_p14 + k2f32_extra),
-        *p15_kernel_rows(p15_rows, p15_parts)[1],
-    ], "not_ported": []})
+        *p15_kernel_rows(p15_rows, p15_parts)[1]]
+    k2_width_launches(widths, kernels)
+    emit({"kernels": kernels + widths, "not_ported": []})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,5 +1,10 @@
 // K2, fp32 path: fused multi-head self-attention over fp32 q/k/v for Hopper
-// (sm_90a), head_dim 64 or 80, on the tensor cores in 3xTF32.
+// (sm_90a), at every head_dim that is a multiple of 16 from 16 to 128, on the
+// tensor cores in 3xTF32.
+//
+// ops/_build.py builds this file into one library a group of head widths
+// (K2_GROUPS), compiled in parallel: each exports attention_f32 for every
+// multiple of 16 from K2_HD_FIRST to K2_HD_LAST.
 //
 // Replaces reranking_multimodal_retrievers_tpu/ops/attention_pallas.py::
 // fused_self_attention (pallas_call at :175, body _attn_kernel at :36) where
@@ -61,9 +66,16 @@
 //   so the C fragment of Q K^T is the A fragment of P V as it stands, and V
 //   is read at those rows. The head dims are permuted likewise (a thread's
 //   k-slots of two k-steps are four consecutive dims), so Q, K and V
-//   fragments come as float4 shared loads. Q and K rows are unpadded (hd 64
-//   flips chunk bit 2 on odd rows, hd 80's 80-word rows need nothing) and V
-//   rows padded by 4 words: every fragment load is free of bank conflicts.
+//   fragments come as float4 shared loads. Q and K rows are unpadded (where
+//   hd is a multiple of 32, odd rows flip chunk bit 2; rows of 16 mod 32
+//   words need nothing) and V rows padded by 4 words: every fragment load is
+//   free of bank conflicts.
+// - Up to hd 80 a warp keeps its Q fragments in registers for the whole
+//   item. From hd 96 it reads them from shared memory at every tile, and
+//   items alternate between two Q buffers, so that the next item's Q can
+//   land while this one's last tile is computed: at hd 128 O alone is 64
+//   registers a thread. P V runs over at most 64 head dims at a time, so
+//   that its per-tile sums take 32 registers at any width.
 // - S stays in registers; scale, key bias, head bias (loaded into registers
 //   before the products) and the causal -1e9 are added there in fp32, in
 //   the plain version's order; the online softmax runs once a tile (exp2f
@@ -84,6 +96,11 @@
 #include <stdint.h>
 
 #include <type_traits>
+#include <utility>
+
+#if !defined(K2_HD_FIRST) || !defined(K2_HD_LAST)
+#error "define K2_HD_FIRST and K2_HD_LAST, the head widths this library instantiates"
+#endif
 
 namespace {
 
@@ -97,11 +114,13 @@ constexpr float kNegInf = -1e9f;  // the TPU kernel's causal mask value
 
 template <int HD>
 struct Layout {
-  static_assert(HD == 64 || HD == 80, "head_dim 64 or 80");
-  static constexpr bool kSwizzle = HD == 64;
+  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 128, "head_dim a multiple of 16 up to 128");
+  static constexpr bool kSwizzle = HD % 32 == 0;
+  static constexpr bool kQInRegs = HD <= 80;  // else two Q buffers, read at every tile
+  static constexpr int kQBufs = kQInRegs ? 1 : 2;
   static constexpr int kVStride = HD + 4;  // V rows: 4 mod 16 words
-  // offsets in floats: the Q buffer, then two stages of K, V, key bias
-  static constexpr int kStage0 = kBM * HD;
+  // offsets in floats: the Q buffer(s), then two stages of K, V, key bias
+  static constexpr int kStage0 = kQBufs * kBM * HD;
   static constexpr int kV = kBN * HD;
   static constexpr int kKB = kV + kBN * kVStride;
   static constexpr int kStage = kKB + kBN;
@@ -223,26 +242,30 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162f
 // Copy 64 rows of one head-dim slice of q, k or v ([B, L, H * HD] with row
 // stride rs) into a tile whose rows are `stride` words apart: row r holds
 // row row0 + (r & (slot rows - 1)) of head h0 + (r >> kSlotShift), zeros
-// past L or past the heads. Thread t copies chunk t % 16 of rows t / 16 + 8i
-// (and, at hd 80, chunk 16 + t % 4 of rows t / 4 + 32i): with one head an
-// item its source moves by whole rows, and its destinations are constant
-// offsets.
-template <int HD, int kSlotShift, bool kQK>
+// past L or past the heads. The 16-byte chunks of a row are copied in
+// passes of 16, 8 or 4 chunks, largest first (hd 80: 16 + 4, hd 112:
+// 16 + 8 + 4): in a pass of W chunks thread t copies chunk t % W of rows
+// t / W + (128 / W) i. With one head an item its source moves by whole
+// rows, and its destinations are constant offsets.
+template <int HD, int kSlotShift, bool kQK, int kStart = 0>
 __device__ __forceinline__ void copy_rows(float* tile, int stride, const float* base,
                                           long long rs, int row0, int h0, int L, int H) {
-  constexpr int kSlotRows = 1 << kSlotShift;
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int pass = 0; pass < (HD == 80 ? 2 : 1); ++pass) {
-    const int c = pass == 0 ? t % 16 : 16 + t % 4;
-    const int r0 = pass == 0 ? t / 16 : t / 4;
+  constexpr int kChunks = HD / 4;
+  if constexpr (kStart < kChunks) {
+    constexpr int kLeft = kChunks - kStart;
+    constexpr int W = kLeft >= 16 ? 16 : (kLeft >= 8 ? 8 : 4);
+    constexpr int kStep = kThreads / W;  // rows a pass covers at once
+    constexpr int kSlotRows = 1 << kSlotShift;
+    const int t = threadIdx.x;
+    const int c = kStart + t % W;
+    const int r0 = t / W;
     const float* src = base + (long long)h0 * HD + 4 * c + (long long)(row0 + r0) * rs;
     // the word offset of chunk c of row r0, swizzled as qk_off; r0 and
-    // r0 + 8i share their parity
-    const int dst0 = r0 * stride + 4 * ((kQK && HD == 64) ? c ^ ((r0 & 1) << 2) : c);
+    // r0 + kStep i share their parity
+    const int dst0 = r0 * stride + 4 * ((kQK && Layout<HD>::kSwizzle) ? c ^ ((r0 & 1) << 2) : c);
 #pragma unroll
-    for (int i = 0; i < (pass == 0 ? 8 : 2); ++i) {
-      const int rr = (pass == 0 ? 8 : 32) * i, r = r0 + rr;
+    for (int i = 0; i < kBM / kStep; ++i) {
+      const int rr = kStep * i, r = r0 + rr;
       // one head an item: row r is row row0 + r of head h0
       const int slot = kSlotShift == 6 ? 0 : r >> kSlotShift;
       const int j = kSlotShift == 6 ? r : r & (kSlotRows - 1);
@@ -252,6 +275,7 @@ __device__ __forceinline__ void copy_rows(float* tile, int stride, const float* 
           : base + (long long)(h0 + slot) * HD + 4 * c + (long long)(row0 + j) * rs;
       cp_async16(tile + dst0 + rr * stride, ok ? from : base, ok);
     }
+    copy_rows<HD, kSlotShift, kQK, kStart + W>(tile, stride, base, rs, row0, h0, L, H);
   }
 }
 
@@ -292,8 +316,16 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_kernel(const Params
   constexpr int kSlotShift = NJ == 8 ? 6 : (NJ == 4 ? 5 : 4);
   constexpr int kPairs = HD / 16;  // pairs of 8-dim k-steps of Q K^T (one float4 a thread)
   constexpr int kNT = HD / 8;      // 8-dim n-tiles of P V
+  // P V's column blocks: kQ32 of 32 dims (n-tiles 4q .. 4q + 3: dim 32q +
+  // 4g + u for column g of n-tile 4q + u), then one of 16 if hd % 32 == 16
+  // (n-tiles 4 kQ32 + u: dim 32 kQ32 + 2g + u); P V sums kBlocksPerPass
+  // blocks a pass
+  constexpr int kQ32 = HD / 32;
+  constexpr bool kR16 = HD % 32 == 16;
+  constexpr int kBlocks = kQ32 + (kR16 ? 1 : 0);
+  constexpr int kBlocksPerPass = Ly::kQInRegs ? kBlocks : 2;
+  constexpr int kPasses = (kBlocks + kBlocksPerPass - 1) / kBlocksPerPass;
   extern __shared__ __align__(16) float smem[];
-  float* const qbuf = smem;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -306,10 +338,11 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_kernel(const Params
   int item = blockIdx.x;
   if (item >= p.items) return;
   Item cur = decode(p, item);
-  load_step<HD, kSlotShift>(p, cur, 0, smem + Ly::kStage0, qbuf, true);
+  int jq = 0;  // the block's items so far: with two Q buffers, item jq's is jq & 1
+  load_step<HD, kSlotShift>(p, cur, 0, smem + Ly::kStage0, smem, true);
   cp_commit();
 
-  float qv[kPairs][2][4];  // the warp's Q rows g and g + 8, as loaded
+  float qv[Ly::kQInRegs ? kPairs : 1][2][4];  // the warp's Q rows g and g + 8, as loaded
   float o[kNT][4];
   float m[2], l[2];
   int tile = 0, stage = 0;
@@ -329,9 +362,10 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_kernel(const Params
     const int h = cur.h0 + slot;
     const int row0 = cur.qb * kBM + row_in_slot;  // the warp's first query row
     const bool active = h < p.H && row0 < p.L;
+    const float* qbuf = smem + (Ly::kQBufs == 2 ? (jq & 1) * kBM * HD : 0);
     if (tile == 0 && active) {
 #pragma unroll
-      for (int pp = 0; pp < kPairs; ++pp)
+      for (int pp = 0; pp < (Ly::kQInRegs ? kPairs : 0); ++pp)
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
           const float4 x = *reinterpret_cast<const float4*>(
@@ -346,11 +380,13 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_kernel(const Params
       m[0] = m[1] = -INFINITY;
       l[0] = l[1] = 0.f;
     }
-    // an item of one tile reads Q in the step that would copy the next Q
-    if (has_next && ntile == 0 && tile == 0) __syncthreads();
+    // with one Q buffer, an item of one tile reads Q in the step that would
+    // copy the next Q
+    if (Ly::kQBufs == 1 && has_next && ntile == 0 && tile == 0) __syncthreads();
     if (has_next) {
-      load_step<HD, kSlotShift>(p, nxt, ntile, smem + Ly::kStage0 + (stage ^ 1) * Ly::kStage, qbuf,
-                    ntile == 0);
+      float* nq = smem + (Ly::kQBufs == 2 ? ((jq + 1) & 1) * kBM * HD : 0);
+      load_step<HD, kSlotShift>(p, nxt, ntile, smem + Ly::kStage0 + (stage ^ 1) * Ly::kStage, nq,
+                                ntile == 0);
       cp_commit();
     }
 
@@ -379,14 +415,29 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_kernel(const Params
         for (int e = 0; e < 4; ++e) s[j][e] = ss[j][e] = 0.f;
 #pragma unroll
       for (int pp = 0; pp < kPairs; ++pp) {
+        float qr[2][4];  // this pair's Q values, from registers or from the Q buffer
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          if constexpr (Ly::kQInRegs) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) qr[rr][e] = qv[pp][rr][e];
+          } else {
+            const float4 x = *reinterpret_cast<const float4*>(
+                qbuf + qk_off<HD>(warp * 16 + g + 8 * rr, 4 * pp + t));
+            qr[rr][0] = x.x;
+            qr[rr][1] = x.y;
+            qr[rr][2] = x.z;
+            qr[rr][3] = x.w;
+          }
+        }
         // k-step 2pp + kk: slot t holds dim 16pp + 4t + 2kk, slot t + 4 the next
         uint32_t ah[2][4], al[2][4];
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
-          split(qv[pp][0][2 * kk], ah[kk][0], al[kk][0]);
-          split(qv[pp][1][2 * kk], ah[kk][1], al[kk][1]);
-          split(qv[pp][0][2 * kk + 1], ah[kk][2], al[kk][2]);
-          split(qv[pp][1][2 * kk + 1], ah[kk][3], al[kk][3]);
+          split(qr[0][2 * kk], ah[kk][0], al[kk][0]);
+          split(qr[1][2 * kk], ah[kk][1], al[kk][1]);
+          split(qr[0][2 * kk + 1], ah[kk][2], al[kk][2]);
+          split(qr[1][2 * kk + 1], ah[kk][3], al[kk][3]);
         }
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
@@ -432,41 +483,49 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_kernel(const Params
       // O = alpha O + P V: the tile's P V summed from zero, then added in
       // fp32 (the tensor cores truncate a tile's sum, not O's over every
       // tile); the C fragment of S is P's A fragment (keys 2t, 2t + 1)
-      float pv[kNT][4];
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
+      for (int ps = 0; ps < kPasses; ++ps) {
+        float pv[4 * kBlocksPerPass][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+        for (int n = 0; n < 4 * kBlocksPerPass; ++n)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        uint32_t ah[4], al[4];
-        split(s[j][0], ah[0], al[0]);
-        split(s[j][2], ah[1], al[1]);
-        split(s[j][1], ah[2], al[2]);
-        split(s[j][3], ah[3], al[3]);
-        const float* v0 = st + Ly::kV + (slot_base + 8 * j + 2 * t) * Ly::kVStride;
-        const float* v1 = v0 + Ly::kVStride;
+          for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
 #pragma unroll
-        for (int qq = 0; qq < 2; ++qq) {  // n-tile 4qq + u, column g: dim 32qq + 4g + u
-          const float4 x0 = *reinterpret_cast<const float4*>(v0 + 32 * qq + 4 * g);
-          const float4 x1 = *reinterpret_cast<const float4*>(v1 + 32 * qq + 4 * g);
-          mma3(pv[4 * qq + 0], ah, al, x0.x, x1.x);
-          mma3(pv[4 * qq + 1], ah, al, x0.y, x1.y);
-          mma3(pv[4 * qq + 2], ah, al, x0.z, x1.z);
-          mma3(pv[4 * qq + 3], ah, al, x0.w, x1.w);
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t ah[4], al[4];
+          split(s[j][0], ah[0], al[0]);
+          split(s[j][2], ah[1], al[1]);
+          split(s[j][1], ah[2], al[2]);
+          split(s[j][3], ah[3], al[3]);
+          const float* v0 = st + Ly::kV + (slot_base + 8 * j + 2 * t) * Ly::kVStride;
+          const float* v1 = v0 + Ly::kVStride;
+#pragma unroll
+          for (int qq = 0; qq < kBlocksPerPass; ++qq) {
+            const int q = ps * kBlocksPerPass + qq;
+            if (q < kQ32) {  // n-tile 4q + u, column g: dim 32q + 4g + u
+              const float4 x0 = *reinterpret_cast<const float4*>(v0 + 32 * q + 4 * g);
+              const float4 x1 = *reinterpret_cast<const float4*>(v1 + 32 * q + 4 * g);
+              mma3(pv[4 * qq + 0], ah, al, x0.x, x1.x);
+              mma3(pv[4 * qq + 1], ah, al, x0.y, x1.y);
+              mma3(pv[4 * qq + 2], ah, al, x0.z, x1.z);
+              mma3(pv[4 * qq + 3], ah, al, x0.w, x1.w);
+            } else if (kR16 && q == kQ32) {  // n-tile 4q + u, column g: dim 32q + 2g + u
+              const float2 y0 = *reinterpret_cast<const float2*>(v0 + 32 * q + 2 * g);
+              const float2 y1 = *reinterpret_cast<const float2*>(v1 + 32 * q + 2 * g);
+              mma3(pv[4 * qq + 0], ah, al, y0.x, y1.x);
+              mma3(pv[4 * qq + 1], ah, al, y0.y, y1.y);
+            }
+          }
         }
-        if constexpr (HD == 80) {  // n-tile 8 + u, column g: dim 64 + 2g + u
-          const float2 y0 = *reinterpret_cast<const float2*>(v0 + 64 + 2 * g);
-          const float2 y1 = *reinterpret_cast<const float2*>(v1 + 64 + 2 * g);
-          mma3(pv[8], ah, al, y0.x, y1.x);
-          mma3(pv[9], ah, al, y0.y, y1.y);
+#pragma unroll
+        for (int n = 0; n < 4 * kBlocksPerPass; ++n) {
+          const int nt = 4 * ps * kBlocksPerPass + n;
+          if (nt < kNT) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[nt][e] = __fmaf_rn(o[nt][e], alpha[e >> 1], pv[n][e]);
+          }
         }
       }
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          o[n][e] = __fmaf_rn(o[n][e], alpha[e >> 1], pv[n][e]);
 
       if (tile == cur.tiles - 1) {
 #pragma unroll
@@ -480,23 +539,27 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_kernel(const Params
             float* orow = p.out + ((long long)cur.b * p.L + row) * p.H * HD + (long long)h * HD;
             const int c0 = 2 * rr, c1 = 2 * rr + 1;  // C columns 2t and 2t + 1
 #pragma unroll
-            for (int qq = 0; qq < 2; ++qq) {
-              *reinterpret_cast<float4*>(orow + 32 * qq + 8 * t) =
-                  make_float4(o[4 * qq][c0] * inv, o[4 * qq + 1][c0] * inv,
-                              o[4 * qq + 2][c0] * inv, o[4 * qq + 3][c0] * inv);
-              *reinterpret_cast<float4*>(orow + 32 * qq + 8 * t + 4) =
-                  make_float4(o[4 * qq][c1] * inv, o[4 * qq + 1][c1] * inv,
-                              o[4 * qq + 2][c1] * inv, o[4 * qq + 3][c1] * inv);
+            for (int q = 0; q < kQ32; ++q) {
+              *reinterpret_cast<float4*>(orow + 32 * q + 8 * t) =
+                  make_float4(o[4 * q][c0] * inv, o[4 * q + 1][c0] * inv,
+                              o[4 * q + 2][c0] * inv, o[4 * q + 3][c0] * inv);
+              *reinterpret_cast<float4*>(orow + 32 * q + 8 * t + 4) =
+                  make_float4(o[4 * q][c1] * inv, o[4 * q + 1][c1] * inv,
+                              o[4 * q + 2][c1] * inv, o[4 * q + 3][c1] * inv);
             }
-            if constexpr (HD == 80)
-              *reinterpret_cast<float4*>(orow + 64 + 4 * t) =
-                  make_float4(o[8][c0] * inv, o[9][c0] * inv, o[8][c1] * inv, o[9][c1] * inv);
+            if constexpr (kR16) {
+              constexpr int q = kQ32;
+              *reinterpret_cast<float4*>(orow + 32 * q + 4 * t) =
+                  make_float4(o[4 * q][c0] * inv, o[4 * q + 1][c0] * inv, o[4 * q][c1] * inv,
+                              o[4 * q + 1][c1] * inv);
+            }
           }
         }
       }
     }
 
     if (!has_next) break;
+    if (ntile == 0) ++jq;
     cur = nxt;
     item = nitem;
     tile = ntile;
@@ -543,6 +606,25 @@ int launch_head_bias(const Params& p, int hb_mode, cudaStream_t stream) {
   return launch_slots<HD, float>(p, stream);
 }
 
+// this library's head widths: K2_HD_FIRST + 16 i for each i of the sequence
+using Widths = std::make_integer_sequence<int, (K2_HD_LAST - K2_HD_FIRST) / 16 + 1>;
+template <int I>
+constexpr int kWidth = K2_HD_FIRST + 16 * I;
+
+template <int... I>
+bool takes(std::integer_sequence<int, I...>, int hd) {
+  return ((hd == kWidth<I>) || ...);
+}
+
+template <int... I>
+int dispatch(std::integer_sequence<int, I...>, const Params& p, int hd, int hb_mode,
+             cudaStream_t stream) {
+  int err = -1;
+  ((hd == kWidth<I> ? (err = launch_head_bias<kWidth<I>>(p, hb_mode, stream), true) : false) ||
+   ...);
+  return err;
+}
+
 }  // namespace
 
 // q/k/v: fp32 [B, L, heads * hd] with unit stride in the last dim, batch and
@@ -550,14 +632,14 @@ int launch_head_bias(const Params& p, int hb_mode, cudaStream_t stream) {
 // key_bias: fp32 [B, L] contiguous or NULL; head_bias: [heads, L, L]
 // contiguous, bf16 when head_bias_bf16 is non-zero, else fp32, or NULL;
 // causal 0 or 1; out: fp32 [B, L, heads * hd] contiguous. Returns a
-// cudaError_t, or -1 for a head_dim other than 64 or 80, -2 for a grid too
+// cudaError_t, or -1 for a head_dim not among this library's widths, -2 for a grid too
 // large, -3 for q/k/v the 16-byte copies cannot read.
 extern "C" int attention_f32(const float* q, const float* k, const float* v,
                              const float* key_bias, const void* head_bias, int head_bias_bf16,
                              float* out, int B, int L, int heads, int head_dim, long long qs0,
                              long long qs1, long long ks0, long long ks1, long long vs0,
                              long long vs1, float sm_scale, int causal, void* stream) {
-  if (head_dim != 64 && head_dim != 80) return -1;
+  if (!takes(Widths{}, head_dim)) return -1;
   const uintptr_t ptr_bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
   if ((ptr_bits & 15) || ((qs0 | qs1 | ks0 | ks1 | vs0 | vs1) & 3)) return -3;
   Params p;
@@ -586,7 +668,5 @@ extern "C" int attention_f32(const float* q, const float* k, const float* v,
   p.causal = causal != 0;
   p.sm_scale = sm_scale;
   const int hb_mode = head_bias ? (head_bias_bf16 ? 1 : 2) : 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (head_dim == 64) return launch_head_bias<64>(p, hb_mode, s);
-  return launch_head_bias<80>(p, hb_mode, s);
+  return dispatch(Widths{}, p, head_dim, hb_mode, (cudaStream_t)stream);
 }

@@ -3,10 +3,10 @@
 // and the host side of TMA (tensor maps through the driver entry point the
 // runtime hands out, so that no library links -lcuda).
 //
-// Included by attention.cu (K2), maxsim.cu (K1) and maxsim_int8.cu (K3). Each
-// of them is its own shared library, so everything here has internal
+// Included by attention.cu (K2 bf16), maxsim.cu (K1) and maxsim_int8.cu
+// (K3). Each library is its own shared object, so everything here has internal
 // linkage. ops/_build.py hashes every csrc/*.cuh into each library's name: a
-// change here rebuilds all three.
+// change here rebuilds every library.
 
 #pragma once
 
@@ -16,7 +16,7 @@
 
 namespace {
 
-constexpr uint64_t kSw128 = 1, kSw32 = 3;  // wgmma descriptor layout types
+constexpr uint64_t kSw128 = 1, kSw64 = 2, kSw32 = 3;  // wgmma descriptor layout types
 
 // ---- PTX wrappers
 
@@ -186,6 +186,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 16] B[16 x 32], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

@@ -9,10 +9,11 @@ none).
   PIL's ``convert("RGB")`` gives it: alpha and ``tRNS`` dropped, grey
   below 8 bits scaled, 16-bit grey clipped at 255 (PIL's mode ``I;16``),
   other 16-bit samples' high byte. It also decodes every Huffman-coded
-  8-bit JPEG itself: :func:`decode_jpeg`, and GIFs, BMPs and TIFFs
-  through ``data/image_codecs.py`` (a variant it does not take raises,
-  naming it). Any other format (an arithmetic-coded, 12-bit or lossless
-  JPEG, WebP) is read by PIL, imported inside that branch, and raises
+  8-bit JPEG itself: :func:`decode_jpeg`, GIFs, BMPs and TIFFs through
+  ``data/image_codecs.py`` and WebPs (lossy, lossless, with alpha, the
+  first frame of an animation) through ``data/webp.py`` (a variant either
+  does not take raises, naming it). Any other format (an arithmetic-coded,
+  12-bit or lossless JPEG) is read by PIL, imported inside that branch, and raises
   naming the format where PIL is absent: the choice is made on the file's
   header, before any decoding, and a file this module takes is never
   retried with PIL.
@@ -55,6 +56,7 @@ import numpy as np
 import torch
 
 from .image_codecs import codec_format, decode_codec
+from .webp import decode_webp, webp_variant
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples a pixel
@@ -307,7 +309,10 @@ def image_format(data: bytes) -> str:
     if codec is not None:
         return codec
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "a WebP"
+        try:
+            return webp_variant(data)
+        except ValueError:
+            return "a WebP"
     return f"an unknown format (header {data[:8].hex()})"
 
 
@@ -857,11 +862,16 @@ def decode_jpeg(data: bytes) -> np.ndarray:
 
 def _decode_own(data: bytes, name: str):
     """The pixels of a file this module decodes itself (PNG, the JPEGs of
-    :func:`_jpeg_frame`, GIF, BMP, TIFF), else None."""
+    :func:`_jpeg_frame`, GIF, BMP, TIFF, WebP), else None."""
     if _is_own_png(data):
         return _read_png(data)
     if _jpeg_frame(data) is not None:
         return decode_jpeg(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        try:
+            return decode_webp(data)
+        except NotImplementedError as e:
+            raise NotImplementedError(f"{name}: {e}") from e
     try:
         return decode_codec(data)
     except NotImplementedError as e:
@@ -869,8 +879,8 @@ def _decode_own(data: bytes, name: str):
 
 
 def _pil_rgb(source, data: bytes, name: str) -> np.ndarray:
-    """What is left (an arithmetic, 12-bit or lossless JPEG, WebP), through
-    PIL; naming the format where PIL is absent."""
+    """What is left (an arithmetic, 12-bit or lossless JPEG), through PIL;
+    naming the format where PIL is absent."""
     try:
         from PIL import Image
     except ImportError as e:
@@ -883,9 +893,10 @@ def _pil_rgb(source, data: bytes, name: str) -> np.ndarray:
 
 def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     """An image file's bytes as RGB ``uint8 [H, W, 3]``: PNGs, the JPEGs of
-    :func:`_jpeg_frame`, GIFs, BMPs and TIFFs (``data/image_codecs.py``; a
-    variant it does not take raises, naming it) decoded here, the rest by
-    PIL, chosen by the header (``name`` says which file in errors)."""
+    :func:`_jpeg_frame`, GIFs, BMPs and TIFFs (``data/image_codecs.py``) and
+    WebPs (``data/webp.py``; a variant it does not take raises, naming it)
+    decoded here, the rest by PIL, chosen by the header (``name`` says which
+    file in errors)."""
     got = _decode_own(data, name)
     return got if got is not None else _pil_rgb(io.BytesIO(data), data, name)
 

@@ -8,15 +8,19 @@ bools, strings, bytes, lists, dicts (structs) and ``None`` for a null.
 
 - The footer (``FileMetaData``) and the page headers are Thrift
   compact-protocol structs, parsed generically into ``{field id: value}``.
-- Codecs: UNCOMPRESSED, SNAPPY (the raw block format, decoded here) and
-  GZIP (``zlib``). Any other codec raises ``NotImplementedError`` naming
-  it and the file.
+- Codecs: UNCOMPRESSED, SNAPPY (the raw block format, decoded here), GZIP
+  (``zlib``), ZSTD (``zstd.py``), LZ4_RAW (the LZ4 block format, decoded
+  here) and LZ4 (read as parquet-cpp reads it: Hadoop's framing of LZ4
+  blocks, else one raw block). BROTLI and LZO raise ``NotImplementedError``
+  naming the codec and the file.
 - Pages: data page v1 (levels inside the compressed body, each behind a
   4-byte length), data page v2 (levels before the compressed part;
   ``is_compressed`` honoured) and dictionary pages.
 - Encodings: PLAIN (every physical type but INT96), PLAIN_DICTIONARY and
-  RLE_DICTIONARY, RLE for levels and booleans. DELTA_*, BYTE_STREAM_SPLIT
-  and INT96 raise, naming the column.
+  RLE_DICTIONARY, RLE for levels and booleans, DELTA_BINARY_PACKED (INT32,
+  INT64), DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY (BYTE_ARRAY and
+  FIXED_LEN_BYTE_ARRAY) and BYTE_STREAM_SPLIT (FLOAT, DOUBLE, INT32, INT64,
+  FIXED_LEN_BYTE_ARRAY). INT96 raises, naming the column.
 - Records are assembled from the definition and repetition levels
   (Dremel): optional values, the 3-level ``LIST`` form and the legacy
   2-level forms, structs, lists of structs. Levels, dictionary gathers and
@@ -46,6 +50,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import zstd
 from .arrow_io import _unreadable, decode_columns
 from .table import Table, concatenate_tables
 
@@ -183,16 +188,100 @@ def snappy_decompress(data: bytes) -> bytes:
     return bytes(out)
 
 
+# ------------------------------------------------------------------ LZ4
+def lz4_block(data: bytes) -> bytes:
+    """The LZ4 block format: sequences of a token, literals and a 2-byte
+    back-reference (which may overlap its output); the last sequence has
+    literals only."""
+    out = bytearray()
+    pos, end = 0, len(data)
+    while pos < end:
+        token = data[pos]
+        pos += 1
+        ln = token >> 4
+        if ln == 15:
+            while True:
+                b = data[pos]
+                pos += 1
+                ln += b
+                if b != 255:
+                    break
+        if pos + ln > end:
+            raise ValueError("lz4: literals run past the block")
+        out += data[pos:pos + ln]
+        pos += ln
+        if pos == end:
+            break
+        if pos + 2 > end:
+            raise ValueError("lz4: a block cut inside a match offset")
+        off = data[pos] | data[pos + 1] << 8
+        pos += 2
+        ml = token & 15
+        if ml == 15:
+            while True:
+                b = data[pos]
+                pos += 1
+                ml += b
+                if b != 255:
+                    break
+        ml += 4
+        if off == 0 or off > len(out):
+            raise ValueError(f"lz4: a match from offset {off} at output byte {len(out)}")
+        start = len(out) - off
+        if ml <= off:
+            out += out[start:start + ml]
+        else:
+            out += (bytes(out[start:]) * (ml // off + 1))[:ml]
+    return bytes(out)
+
+
+def lz4_hadoop(data: bytes, size: int) -> bytes:
+    """Parquet's LZ4 codec as parquet-cpp reads it: Hadoop's framing (blocks
+    of a big-endian decompressed size, a big-endian compressed size and one
+    LZ4 block) where the whole page parses so into ``size`` bytes; else the
+    page is one raw LZ4 block (files of older parquet-cpp)."""
+    out, pos = [], 0
+    try:
+        while len(data) - pos >= 8:
+            n, c = struct.unpack_from(">II", data, pos)
+            pos += 8
+            if c > len(data) - pos or n > size - sum(map(len, out)):
+                raise ValueError("not Hadoop's framing")
+            block = lz4_block(data[pos:pos + c])
+            if len(block) != n:
+                raise ValueError("not Hadoop's framing")
+            out.append(block)
+            pos += c
+        if pos == len(data):
+            return b"".join(out)
+    except (ValueError, IndexError):
+        pass
+    return lz4_block(data)
+
+
+_READ_CODECS = (0, 1, 2, 5, 6, 7)
+
+
 def _check_codec(codec: int, path: str) -> None:
-    if codec not in (0, 1, 2):
-        raise NotImplementedError(f"{path}: the {CODECS.get(codec, codec)} codec is not read by "
-                                  "this reader (UNCOMPRESSED, SNAPPY and GZIP are)")
+    if codec not in _READ_CODECS:
+        raise NotImplementedError(
+            f"{path}: the {CODECS.get(codec, codec)} codec is not read by this reader "
+            f"({', '.join(CODECS[c] for c in _READ_CODECS)} are)")
 
 
-def _decompress(codec: int, data: bytes) -> bytes:
+def _decompress(codec: int, data: bytes, size: int) -> bytes:
+    """A page's ``data`` in ``codec``, to its ``size`` uncompressed bytes."""
     if codec == 0 or not data:
         return data
-    return snappy_decompress(data) if codec == 1 else zlib.decompress(data, 47)
+    if codec == 1:
+        return snappy_decompress(data)
+    if codec == 2:
+        return zlib.decompress(data, 47)
+    if codec == 6:
+        return zstd.decompress(data)
+    if codec == 7:
+        return lz4_block(data)
+    return lz4_hadoop(data, size)
 
 
 # ------------------------------------------------------------------ schema
@@ -329,6 +418,94 @@ def _python_values(leaf: _Node, vals, where: str) -> List[Any]:
     return list(vals)
 
 
+def _delta_binary_packed(buf: bytes, pos: int) -> Tuple[np.ndarray, int]:
+    """DELTA_BINARY_PACKED values at ``pos`` as int64 (an INT32 column's
+    wrap in 32 bits when cast) and the position after them: a header (block
+    size, miniblocks a block, value count, first value), then blocks of a
+    minimum delta, one bit width a miniblock and the bit-packed miniblocks
+    (none past the last value)."""
+    r = _Compact(buf, pos)
+    block, minis, total, first = r.varint(), r.varint(), r.varint(), r.zigzag()
+    per = block // minis if minis else 0
+    if total and (block % 128 or not minis or per % 8):
+        raise ValueError(f"DELTA_BINARY_PACKED: blocks of {block} values in {minis} miniblocks")
+    deltas, left = [], max(total - 1, 0)
+    while left > 0:
+        min_delta = r.zigzag()
+        widths = buf[r.pos:r.pos + minis]
+        r.pos += minis
+        for w in widths:
+            if left <= 0:
+                break
+            size = per * w // 8
+            d = (_unpack_bits(np.frombuffer(buf, np.uint8, size, r.pos), w) if w
+                 else np.zeros(per, np.int64))
+            r.pos += size
+            take = min(per, left)
+            deltas.append(d[:take] + np.int64(min_delta))
+            left -= take
+    out = np.empty(total, np.int64)
+    if total:
+        out[0] = first
+        if deltas:
+            np.cumsum(np.concatenate(deltas), out=out[1:])
+            out[1:] += np.int64(first)
+    return out, r.pos
+
+
+def _delta_lengths(buf: bytes, pos: int, n: int) -> Tuple[List[bytes], int]:
+    """DELTA_LENGTH_BYTE_ARRAY: the lengths, then the bytes one after the
+    other."""
+    lengths, pos = _delta_binary_packed(buf, pos)
+    if len(lengths) < n:
+        raise ValueError(f"DELTA_LENGTH_BYTE_ARRAY: {len(lengths)} lengths for {n} values")
+    ends = (pos + np.cumsum(lengths[:n])).tolist()
+    starts = [pos] + ends[:-1]
+    return [buf[a:b] for a, b in zip(starts, ends)], (ends[-1] if n else pos)
+
+
+def _dec_delta_int(leaf: _Node, buf: bytes, pos: int, n: int) -> np.ndarray:
+    vals, _ = _delta_binary_packed(buf, pos)
+    if len(vals) < n:
+        raise ValueError(f"DELTA_BINARY_PACKED: {len(vals)} values for {n}")
+    return vals[:n].astype("<i4" if leaf.ptype == INT32 else "<i8")
+
+
+def _dec_delta_length(leaf: _Node, buf: bytes, pos: int, n: int) -> List[bytes]:
+    return _delta_lengths(buf, pos, n)[0]
+
+
+def _dec_delta_bytes(leaf: _Node, buf: bytes, pos: int, n: int) -> List[bytes]:
+    """DELTA_BYTE_ARRAY: the prefix lengths, then the suffixes as
+    DELTA_LENGTH_BYTE_ARRAY; each value is the previous one's prefix and its
+    suffix."""
+    prefixes, pos = _delta_binary_packed(buf, pos)
+    suffixes, _ = _delta_lengths(buf, pos, n)
+    out, prev = [], b""
+    for k, suffix in zip(prefixes[:n].tolist(), suffixes):
+        prev = prev[:k] + suffix
+        out.append(prev)
+    return out
+
+
+def _dec_byte_stream_split(leaf: _Node, buf: bytes, pos: int, n: int):
+    """BYTE_STREAM_SPLIT: byte k of every value in stream k."""
+    w = {INT32: 4, INT64: 8, FLOAT: 4, DOUBLE: 8}.get(leaf.ptype, leaf.type_length)
+    vals = np.frombuffer(buf, np.uint8, n * w, pos).reshape(w, n).T.copy()
+    if leaf.ptype == FIXED_LEN_BYTE_ARRAY:
+        return [v.tobytes() for v in vals]
+    return vals.view({INT32: "<i4", INT64: "<i8", FLOAT: "<f4", DOUBLE: "<f8"}[leaf.ptype])[:, 0]
+
+
+# encoding -> (decoder of n values at a position, the physical types it takes)
+_DECODERS = {
+    5: (_dec_delta_int, (INT32, INT64)),
+    6: (_dec_delta_length, (BYTE_ARRAY,)),
+    7: (_dec_delta_bytes, (BYTE_ARRAY, FIXED_LEN_BYTE_ARRAY)),
+    9: (_dec_byte_stream_split, (INT32, INT64, FLOAT, DOUBLE, FIXED_LEN_BYTE_ARRAY)),
+}
+
+
 # -------------------------------------------------------------------- pages
 def _column_chunk(data: bytes, leaf: _Node, meta: Dict[int, Any], path: str):
     """(repetition levels, definition levels, Python values of the non-null
@@ -353,14 +530,14 @@ def _column_chunk(data: bytes, leaf: _Node, meta: Dict[int, Any], path: str):
         kind = header[1]
         if kind == DICTIONARY_PAGE:
             dh = header[7]
-            raw = _decompress(codec, body)
+            raw = _decompress(codec, body, header[2])
             dictionary = np.empty(dh[1], object)
             dictionary[:] = _python_values(leaf, _plain(leaf, raw, 0, dh[1], where), where)
             continue
         if kind == DATA_PAGE:
             dh = header[5]
             n, encoding = dh[1], dh[2]
-            raw = _decompress(codec, body)
+            raw = _decompress(codec, body, header[2])
             at = 0
             for level, max_level, store in ((dh.get(4), leaf.max_rep, reps),
                                             (dh.get(3), leaf.max_def, defs)):
@@ -381,7 +558,7 @@ def _column_chunk(data: bytes, leaf: _Node, meta: Dict[int, Any], path: str):
                 store.append(_hybrid(body, off, off + ln, int(max_level).bit_length(), n)
                              if max_level else np.zeros(n, np.int64))
             rest = body[rl + dl:]
-            raw = _decompress(codec, rest) if dh.get(7, True) else rest
+            raw = _decompress(codec, rest, header[2] - rl - dl) if dh.get(7, True) else rest
             at = 0
         else:
             continue  # an index page
@@ -399,6 +576,9 @@ def _column_chunk(data: bytes, leaf: _Node, meta: Dict[int, Any], path: str):
             (ln,) = struct.unpack_from("<I", raw, at)
             vals = _hybrid(raw, at + 4, at + 4 + ln, 1, present).astype(bool)
             parts.append(vals.tolist())
+        elif encoding in _DECODERS and leaf.ptype in _DECODERS[encoding][1]:
+            vals = _DECODERS[encoding][0](leaf, raw, at, present)
+            parts.append(_python_values(leaf, vals, where))
         else:
             raise NotImplementedError(f"{where}: the {ENCODINGS.get(encoding, encoding)} "
                                       "encoding, which this reader does not take")

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike
-from ..ops.attention_cuda import fused_self_attention
+from ..ops.attention_cuda import fused_self_attention, head_pack_feasible
 from ..ops.quant import Int8Linear
 from .init import materialize_
 
@@ -136,17 +136,20 @@ def flash_block_q(L: int) -> Optional[int]:
     return next((b for b in (512, 256, 128) if L_pad % b == 0), None)
 
 
-def attention_route(cfg: BertConfig, L: int, can_flash: bool, cross: bool) -> str:
+def attention_route(cfg: BertConfig, L: int, can_flash: bool, cross: bool,
+                    num_heads: int, head_dim: int) -> str:
     """Which core a layer's attention takes: ``"k2"`` under
-    ``use_pallas_attention`` (self-attention only; K2 takes any L, where the
-    JAX package's gate at ``models/bert.py:149-152`` also wants ``L % 8 == 0``
-    and falls back to the unfused path, which computes the same function);
-    else ``"flash"`` by the JAX package's gate (``models/bert.py:159-163``:
+    ``use_pallas_attention`` for self-attention where the JAX package's gate
+    (``models/bert.py:149-152``, ``head_pack_feasible``) admits ``num_heads``
+    heads of ``head_dim``, on the card as off it (K2 takes any L, where the
+    JAX gate also wants ``L % 8 == 0`` and falls back to the unfused path,
+    which computes the same function); else
+    ``"flash"`` by the JAX package's gate (``models/bert.py:159-163``:
     self-attention, ``L >= 256`` and a tile from ``flash_block_q``); else
     ``"unfused"``."""
     if not can_flash or cross:
         return "unfused"
-    if cfg.use_pallas_attention:
+    if cfg.use_pallas_attention and head_pack_feasible(num_heads, head_dim):
         return "k2"
     if cfg.use_flash_attention and L >= 256 and flash_block_q(L) is not None:
         return "flash"
@@ -231,7 +234,7 @@ class BertAttention(nn.Module):
         # the heads this device holds: all of them, or its share under a
         # tensor-parallel split (parallel/tensor_parallel.py)
         nh = q3.shape[-1] // hd
-        route = attention_route(cfg, Lq, can_flash, kv_states is not None)
+        route = attention_route(cfg, Lq, can_flash, kv_states is not None, nh, hd)
         if route == "k2":
             bias = None
             if segment_mask is not None:

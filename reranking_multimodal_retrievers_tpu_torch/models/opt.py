@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike
-from ..ops.attention_cuda import fused_self_attention
+from ..ops.attention_cuda import fused_self_attention, head_pack_feasible
 from ..ops.quant import Int8Linear, int8_dot
 from .bert import ATTN_MASK_BIAS
 from .init import materialize_
@@ -118,9 +118,10 @@ class OPTAttention(nn.Module):
         nh = q.shape[-1] // hd  # this device's heads (all, or its tensor-parallel share)
         # the JAX package fuses only on a TPU and, there, only where its
         # kernel's sublane and lane packing allow (L % 8, 128-lane head
-        # groups); K2 takes any L and head grouping, so on the card every
-        # masked call fuses and the CPU keeps JAX's unfused CPU path
-        if cfg.use_pallas_attention and key_mask is not None and x.device.type == "cuda":
+        # groups); K2 takes any L, so on the card a masked call fuses where
+        # the head geometry packs, and the CPU keeps JAX's unfused CPU path
+        if (cfg.use_pallas_attention and key_mask is not None
+                and x.device.type == "cuda" and head_pack_feasible(nh, hd)):
             key_bias = (1.0 - key_mask.float()) * ATTN_MASK_BIAS
             ctx = fused_self_attention(q, k, v, key_bias, causal=True, num_heads=nh,
                                        sm_scale=hd ** -0.5)

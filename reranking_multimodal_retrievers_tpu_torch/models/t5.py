@@ -165,14 +165,14 @@ class T5Attention(nn.Module):
                                                         cfg.num_heads)
             self.relative_attention_bias.init_std = D ** -0.5
 
-    def _can_fuse(self, kv, device: torch.device) -> bool:
-        """Encoder self-attention fuses. On the card K2 takes any head
-        grouping; elsewhere the JAX package's gate also asks for a head
-        geometry its kernel packs into 128 lanes, and the port follows it."""
+    def _can_fuse(self, kv) -> bool:
+        """Encoder self-attention fuses where the JAX package's gate
+        (``head_pack_feasible``) admits the configuration's head geometry, on
+        the card as off it."""
         cfg = self.config
         if not (cfg.use_pallas_attention and kv is None and self.bidirectional):
             return False
-        return device.type == "cuda" or head_pack_feasible(cfg.num_heads, cfg.d_kv)
+        return head_pack_feasible(cfg.num_heads, cfg.d_kv)
 
     def compute_bias(self, Lq: int, Lk: int) -> torch.Tensor:
         """[1, heads, Lq, Lk] relative-position bias in the table's dtype."""
@@ -191,7 +191,7 @@ class T5Attention(nn.Module):
         B, Lq, _ = x.shape
         Lk = kv_in.shape[1]
         dk = cfg.d_kv
-        fuse = self._can_fuse(kv, x.device)
+        fuse = self._can_fuse(kv)
         q2 = self.q(x)
         nh = q2.shape[-1] // dk  # this device's heads (all, or its tensor-parallel share)
 

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/*.cu`` file has a plain C interface (no PyTorch headers), so it
-compiles in seconds into its own shared library under ``build/torch_kernels/``
-at the repository root (listed in ``.gitignore``). All sources are compiled
-in parallel, one ``nvcc`` per source. A library is rebuilt only when the hash
-of its source, the shared headers (every ``csrc/*.cuh``) and the flags
-changes. A failed build raises.
+compiles in seconds into a shared library under ``build/torch_kernels/``
+at the repository root (listed in ``.gitignore``). K2's two sources are each
+built into one library a group of head widths (``K2_GROUPS``). All libraries
+are compiled in parallel, one ``nvcc`` each. A library is rebuilt only when
+the hash of its source, the shared headers (every ``csrc/*.cuh``) and its
+flags changes. A failed build raises.
 
 Nothing here runs at import time: the first kernel launch, or an explicit
 :func:`build_all`, triggers the build.
@@ -25,8 +26,15 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = {"maxsim": "maxsim.cu", "attention": "attention.cu", "maxsim_int8": "maxsim_int8.cu",
-           "attention_f32": "attention_f32.cu"}
+# K2's head widths by library suffix: every multiple of 16 from the first to
+# the last, given to nvcc as K2_HD_FIRST and K2_HD_LAST (a -D list would be
+# split at its commas), so that the groups compile in parallel
+K2_GROUPS = {"": (64, 80), "_narrow": (16, 48), "_wide": (96, 128)}
+K2_SOURCES = ("attention", "attention_f32")  # bf16 and fp32
+SOURCES = {"maxsim": "maxsim.cu", "maxsim_int8": "maxsim_int8.cu",
+           **{src + group: f"{src}.cu" for src in K2_SOURCES for group in K2_GROUPS}}
+DEFINES = {src + group: (f"-DK2_HD_FIRST={first}", f"-DK2_HD_LAST={last}")
+           for src in K2_SOURCES for group, (first, last) in K2_GROUPS.items()}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,11 +53,15 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + DEFINES.get(name, ())
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):  # any source may include any header
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -66,7 +78,7 @@ def build_all() -> float:
             procs = {}
             for name, out in todo.items():
                 tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+                cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / SOURCES[name])]
                 procs[name] = (subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, out)
             failed = []

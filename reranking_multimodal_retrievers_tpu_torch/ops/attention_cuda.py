@@ -8,8 +8,12 @@ headers say what bounds them on an H100 and how their designs answer that.
 :func:`fused_self_attention` takes the plain version for CPU tensors and
 launches the kernel for CUDA tensors (or raises: there is no fallback).
 Both take the key-padding bias (BERT), the per-head bias (the T5
-relative-position bias, bf16 or fp32) and the causal mask (OPT); the kernel
-takes head_dim 64 and 80.
+relative-position bias, bf16 or fp32) and the causal mask (OPT); the kernels
+take every head_dim in ``KERNEL_HEAD_DIMS`` (the multiples of 16 up to 128).
+
+:func:`head_pack_feasible` is the gate every fused-attention call site asks
+(BERT, the T5 encoder, OPT), on the card as off it, so that a geometry the
+JAX package runs unfused runs unfused here.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from . import _build
 from ._grad import refuse_grad
 
 NEG_INF = -1e9
-KERNEL_HEAD_DIMS = (64, 80)
+# the widths of every library K2 is built into (ops/_build.py::K2_GROUPS)
+KERNEL_HEAD_DIMS = tuple(sorted(hd for first, last in _build.K2_GROUPS.values()
+                                for hd in range(first, last + 1, 16)))
 
 # the kernel's return codes from this value up: a tensor map it could not
 # build (csrc/attention.cu::attention_bf16)
@@ -35,15 +41,24 @@ def head_pack_feasible(num_heads: int, head_dim: int) -> bool:
     """The JAX package's gate for its fused attention kernel
     (``ops/platform.py::head_pack_feasible``): whether a group of heads
     whose packed width is a multiple of 128 lanes divides ``num_heads``
-    (hd 64 -> 2 heads, hd 80 -> 8). T5 keeps this gate off the card, to
-    fuse where the JAX package does; K2 packs no heads, so on the card it
-    is not asked, and the kernel raises for a head_dim it does not take."""
+    (hd 64 -> 2 heads, hd 80 -> 8, hd 16 -> 8, hd 32 -> 4). K2 packs no
+    heads; BERT, the T5 encoder and OPT ask this gate so that the port fuses
+    exactly where the JAX package does (an admitted head_dim outside
+    ``KERNEL_HEAD_DIMS`` then raises on the card)."""
     hpb = max(1, -(-128 // head_dim))
     while (hpb * head_dim) % 128 != 0 or num_heads % hpb != 0:
         hpb += 1
         if hpb > num_heads:
             return False
     return True
+
+
+def _check_kernel_head_dim(HD: int, num_heads: int) -> int:
+    if HD % num_heads or HD // num_heads not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the CUDA attention kernels take head_dim {KERNEL_HEAD_DIMS}; got {HD} channels "
+            f"over {num_heads} heads (head_dim {HD / num_heads:g})")
+    return HD // num_heads
 
 
 def causal_bias(L: int, device=None) -> torch.Tensor:
@@ -112,7 +127,7 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
     Returns [B, L, num_heads * head_dim] in q's dtype.
 
     On CUDA, fp32 q/k/v go to :func:`fused_self_attention_f32` with every
-    option; otherwise q/k/v are bf16 with head_dim 64 or 80, unit stride in
+    option; otherwise q/k/v are bf16 with a head_dim in ``KERNEL_HEAD_DIMS``, unit stride in
     the last dim and row/batch strides that are multiples of 8 elements (the
     kernel reads them by TMA through tensor maps built per call); head_bias
     is a contiguous bf16 or fp32 tensor on the same device, passed to the
@@ -136,11 +151,7 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
         return fused_self_attention_reference(
             q, k, v, mask_bias, head_bias, num_heads=num_heads, sm_scale=sm_scale,
             causal=causal)
-    if HD % num_heads or HD // num_heads not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the CUDA attention kernel takes head_dim {KERNEL_HEAD_DIMS}; got "
-            f"{HD} channels over {num_heads} heads")
-    hd = HD // num_heads
+    hd = _check_kernel_head_dim(HD, num_heads)
     if q.dtype == k.dtype == v.dtype == torch.float32:
         return _launch_f32(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal)
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -159,7 +170,7 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
         return out
     # the kernel launches on the current device: make it the tensors' own
     with torch.cuda.device(q.device):
-        err = _lib().attention_bf16(
+        err = _lib(hd).attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if head_bias is None else head_bias.data_ptr(),
@@ -183,7 +194,7 @@ def fused_self_attention_f32(q, k, v, mask_bias=None, head_bias=None, *, num_hea
                              sm_scale: float, causal: bool = False) -> torch.Tensor:
     """K2's fp32 path on CUDA (``csrc/attention_f32.cu``): softmax(Q K^T *
     sm_scale + key bias [+ head bias] [+ causal]) V for fp32 q/k/v
-    ``[B, L, num_heads * head_dim]`` with head_dim 64 or 80, an optional
+    ``[B, L, num_heads * head_dim]`` with a head_dim in ``KERNEL_HEAD_DIMS``, an optional
     [B, L] key bias, an optional contiguous bf16 or fp32 [num_heads, L, L]
     head bias and the causal mask; returns fp32 ``[B, L, num_heads *
     head_dim]``. The kernel copies q/k/v in 16-byte pieces, so each needs
@@ -201,10 +212,7 @@ def fused_self_attention_f32(q, k, v, mask_bias=None, head_bias=None, *, num_hea
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must be equal [B, L, heads*hd]: {q.shape}, {k.shape}, {v.shape}")
     B, L, HD = q.shape
-    if HD % num_heads or HD // num_heads not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the CUDA attention kernel takes head_dim {KERNEL_HEAD_DIMS}; got "
-            f"{HD} channels over {num_heads} heads")
+    _check_kernel_head_dim(HD, num_heads)
     if head_bias is not None:
         _check_head_bias(head_bias, num_heads, L, q.device)
     return _launch_f32(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal)
@@ -231,7 +239,7 @@ def _launch_f32(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal):
         return out
     # the kernel launches on the current device: make it the tensors' own
     with torch.cuda.device(q.device):
-        err = _lib_f32().attention_f32(
+        err = _lib_f32(HD // num_heads).attention_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if head_bias is None else head_bias.data_ptr(),
@@ -246,8 +254,16 @@ def _launch_f32(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal):
     return out
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("attention")
+def _library(kernel: str, head_dim: int) -> str:
+    """The library (``ops/_build.py::SOURCES``) that holds ``kernel``'s
+    (``"attention"`` or ``"attention_f32"``) instance at ``head_dim``."""
+    return next(kernel + group for group, (first, last) in _build.K2_GROUPS.items()
+                if first <= head_dim <= last)
+
+
+def _lib(head_dim: int) -> ctypes.CDLL:
+    """The bf16 kernel's library for ``head_dim``."""
+    lib = _build.load(_library("attention", head_dim))
     if lib.attention_bf16.argtypes is None:
         lib.attention_bf16.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
@@ -256,8 +272,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _lib_f32() -> ctypes.CDLL:
-    lib = _build.load("attention_f32")
+def _lib_f32(head_dim: int) -> ctypes.CDLL:
+    """The fp32 kernel's library for ``head_dim``."""
+    lib = _build.load(_library("attention_f32", head_dim))
     if lib.attention_f32.argtypes is None:
         lib.attention_f32.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4

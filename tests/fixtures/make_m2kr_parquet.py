@@ -14,8 +14,22 @@ It writes, under ``tests/fixtures/``:
   2,048 valid, 2,048 test), written by pyarrow with its defaults (snappy,
   dictionary pages, data page v1);
 - ``parquet_variants/``: one small table of every column type the reader
-  takes, once per codec (none, snappy, gzip), dictionary on and off, data
-  page version 1.0 and 2.0, in row groups of 50 rows and 1 KB pages;
+  takes, once per codec (none, snappy, gzip, zstd, lz4 = LZ4_RAW),
+  dictionary on and off, data page version 1.0 and 2.0, in row groups of
+  50 rows and 1 KB pages; the same table in two sets of the delta and
+  byte-stream-split encodings (``ENCODING_SETS``) and a FIXED_LEN_BYTE_ARRAY
+  table by DELTA_BYTE_ARRAY and BYTE_STREAM_SPLIT, on pages v1 and v2;
+  hand-made files in parquet's LZ4 codec (Hadoop's framing, and one raw
+  block) and the refused BROTLI, LZO and INT96 files (``refused_*``, no
+  digest);
+- ``m2kr_snapshot_v2/``: the snapshot's rows re-encoded (the passages in
+  ZSTD, the questions in LZ4_RAW, DELTA_BYTE_ARRAY and
+  DELTA_LENGTH_BYTE_ARRAY, data pages v2);
+- ``webp_images/``: WebP files (:func:`webp_cases`: lossy at several
+  qualities and methods and with the simple or normal loop filter at
+  several sharpnesses, lossless with every transform, alpha, animations)
+  and ``m2kr_images_webp/``: each M2KR image re-encoded as WebP under its
+  own name;
 - ``m2kr_images/``: the images the questions name, in the formats the port
   decodes without PIL: progressive JPEGs (4:4:4, 4:2:2, 4:2:0, grey,
   optimised Huffman tables, restart markers, odd sizes), progressive files
@@ -39,8 +53,9 @@ It writes, under ``tests/fixtures/``:
   (:func:`rows_digest`), of each image's pixels as PIL's
   ``Image.open(path).convert("RGB")`` gives them (:func:`pixels_digest`),
   of the image column as ``datasets.Image().decode_example`` gives it
-  (:func:`images_digest`), and of the ``tokenizers`` library's ids and
-  decoded strings of :data:`TOKENIZER_TEXTS`.
+  (:func:`images_digest`), of the ``tokenizers`` library's ids and
+  decoded strings of :data:`TOKENIZER_TEXTS`, and of the WebP files'
+  pixels as PIL decodes them.
 
 The digest functions import neither pyarrow nor PIL, so that a reader can
 be held against them where those are absent.
@@ -65,6 +80,9 @@ DIGESTS = os.path.join(HERE, "digests.json")
 CODECS = os.path.join(HERE, "codec_images")
 IMAGE_COLUMN = os.path.join(HERE, "image_column", "images.parquet")
 TOKENIZER = os.path.join(HERE, "unigram_tokenizer")
+WEBP = os.path.join(HERE, "webp_images")
+SNAPSHOT_V2 = os.path.join(HERE, "m2kr_snapshot_v2")
+IMAGES_WEBP = os.path.join(HERE, "m2kr_images_webp")
 TOKENIZER_TEXTS = ["a photo of", "a photo of the cat on the mat", "ａ ｐｈｏｔｏ  of\tthe　sun",
                    "café é ñ", "東京 가각 xyz", "<extra_id_0> kato lomi </s> cat",
                    "the cat on the mat " * 5, "", "zz ẞ ◆"]
@@ -912,6 +930,501 @@ def write_variants():
                                row_group_size=50, data_page_size=1024, write_batch_size=16)
 
 
+# ------------------------------------------- other codecs and encodings
+# leaf path -> encoding, two sets that between them put every encoding the
+# reader takes on every physical type that has it, in flat, list and struct
+# columns (use_dictionary off)
+ENCODING_SETS = {
+    "delta": {"s": "DELTA_BYTE_ARRAY", "raw": "DELTA_LENGTH_BYTE_ARRAY",
+              "i32": "DELTA_BINARY_PACKED", "i64": "DELTA_BINARY_PACKED",
+              "u8": "DELTA_BINARY_PACKED", "f32": "BYTE_STREAM_SPLIT",
+              "f64": "BYTE_STREAM_SPLIT", "tags.list.element": "DELTA_LENGTH_BYTE_ARRAY",
+              "box.x": "DELTA_BINARY_PACKED", "box.label": "DELTA_BYTE_ARRAY",
+              "objects.list.element.cls": "DELTA_LENGTH_BYTE_ARRAY",
+              "objects.list.element.score": "BYTE_STREAM_SPLIT"},
+    "split": {"s": "DELTA_LENGTH_BYTE_ARRAY", "raw": "DELTA_BYTE_ARRAY",
+              "i32": "BYTE_STREAM_SPLIT", "i64": "BYTE_STREAM_SPLIT", "u8": "BYTE_STREAM_SPLIT",
+              "f32": "BYTE_STREAM_SPLIT", "f64": "BYTE_STREAM_SPLIT",
+              "tags.list.element": "DELTA_BYTE_ARRAY", "box.x": "BYTE_STREAM_SPLIT",
+              "box.label": "DELTA_LENGTH_BYTE_ARRAY",
+              "objects.list.element.cls": "DELTA_BYTE_ARRAY",
+              "objects.list.element.score": "BYTE_STREAM_SPLIT"},
+}
+
+
+def fixed_table():
+    """FIXED_LEN_BYTE_ARRAY columns, with nulls, flat and in a list."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(SEED + 2)
+    n = 150
+    return pa.table({
+        "fixed": pa.array([None if i % 7 == 3 else bytes(rng.integers(0, 4, 6).astype(np.uint8))
+                           for i in range(n)], pa.binary(6)),
+        "fixed_list": pa.array([[bytes(rng.integers(0, 256, 3).astype(np.uint8))
+                                 for _ in range(i % 3)] for i in range(n)],
+                               pa.list_(pa.binary(3))),
+    })
+
+
+def write_codec_variants():
+    """The variant table in ZSTD and LZ4_RAW, and in each encoding set, and
+    the FIXED_LEN_BYTE_ARRAY table by DELTA_BYTE_ARRAY and
+    BYTE_STREAM_SPLIT, on data pages v1 and v2."""
+    import pyarrow.parquet as pq
+
+    table = variant_table()
+    out = {}
+    for codec, tag in (("zstd", "zstd"), ("lz4", "lz4raw")):
+        for version in ("1.0", "2.0"):
+            for dictionary in (True, False):
+                name = f"{tag}_v{version[0]}_{'dict' if dictionary else 'plain'}.parquet"
+                out[name] = dict(table=table, compression=codec, use_dictionary=dictionary,
+                                 data_page_version=version)
+    for set_name, encodings in ENCODING_SETS.items():
+        for version, codec in (("1.0", "none"), ("2.0", "zstd")):
+            out[f"enc_{set_name}_v{version[0]}.parquet"] = dict(
+                table=table, compression=codec, use_dictionary=False, data_page_version=version,
+                column_encoding=encodings)
+    for version, codec in (("1.0", "lz4"), ("2.0", "zstd")):
+        for enc in ("DELTA_BYTE_ARRAY", "BYTE_STREAM_SPLIT"):
+            tag = "split" if enc == "BYTE_STREAM_SPLIT" else "delta"
+            out[f"enc_fixed_{tag}_v{version[0]}.parquet"] = dict(
+                table=fixed_table(), compression=codec, use_dictionary=False,
+                data_page_version=version,
+                column_encoding={"fixed": enc, "fixed_list.list.element": enc})
+    for name, kw in out.items():
+        t = kw.pop("table")
+        pq.write_table(t, os.path.join(VARIANTS, name), row_group_size=50, data_page_size=1024,
+                       write_batch_size=16, **kw)
+    return sorted(out)
+
+
+class _Thrift:
+    """A writer of Thrift's compact protocol for the hand-made files: a
+    struct is a list of ``(field id, type, value)`` with type ``"i32"``,
+    ``"i64"``, ``"bin"``, ``"struct"`` or ``("list", element type)``."""
+
+    CODES = {"i32": 5, "i64": 6, "bin": 8, "struct": 12}
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def varint(self, n):
+        while n >= 0x80:
+            self.out.append((n & 0x7F) | 0x80)
+            n >>= 7
+        self.out.append(n)
+
+    def value(self, kind, v):
+        if kind in ("i32", "i64"):
+            self.varint((v << 1) ^ (v >> 63))
+        elif kind == "bin":
+            self.varint(len(v))
+            self.out += v
+        elif kind == "struct":
+            self.struct(v)
+        else:
+            elem = kind[1]
+            code = self.CODES[elem]
+            if len(v) < 15:
+                self.out.append((len(v) << 4) | code)
+            else:
+                self.out.append(0xF0 | code)
+                self.varint(len(v))
+            for x in v:
+                self.value(elem, x)
+
+    def struct(self, fields):
+        last = 0
+        for fid, kind, v in fields:
+            code = self.CODES[kind] if isinstance(kind, str) else 9
+            self.out.append(((fid - last) << 4) | code)
+            last = fid
+            self.value(kind, v)
+        self.out.append(0)
+
+
+def _thrift(fields) -> bytes:
+    w = _Thrift()
+    w.struct(fields)
+    return bytes(w.out)
+
+
+def lz4_compress(data: bytes) -> bytes:
+    """A greedy LZ4 block compressor (4-byte hash matches, offsets below
+    65,536, the format's end rules: the last 5 bytes literals, no match
+    starting in the last 12)."""
+    out, n, i, anchor, seen = bytearray(), len(data), 0, 0, {}
+
+    def length(v):
+        while v >= 255:
+            out.append(255)
+            v -= 255
+        out.append(v)
+
+    def sequence(lit, match=None):
+        ln = len(lit)
+        ml = None if match is None else match[1] - 4
+        out.append((min(ln, 15) << 4) | (0 if ml is None else min(ml, 15)))
+        if ln >= 15:
+            length(ln - 15)
+        out.extend(lit)
+        if match is not None:
+            out.extend(struct.pack("<H", match[0]))
+            if ml >= 15:
+                length(ml - 15)
+
+    while i + 12 <= n:
+        key = data[i:i + 4]
+        j = seen.get(key)
+        seen[key] = i
+        if j is not None and i - j < 65536:
+            m = 4
+            while i + m < n - 5 and data[j + m] == data[i + m]:
+                m += 1
+            sequence(data[anchor:i], (i - j, m))
+            i += m
+            anchor = i
+        else:
+            i += 1
+    sequence(data[anchor:])
+    return bytes(out)
+
+
+def handmade_parquet(codec: int, hadoop: bool) -> bytes:
+    """A file pyarrow does not write: two required columns (INT64, UTF8)
+    in one row group of data pages v1, compressed by ``codec`` (LZ4 = 5 in
+    Hadoop's framing, two blocks a page, or as one raw block; LZO = 3 is
+    written with LZ4 blocks and only has to be refused)."""
+    rng = np.random.default_rng(SEED + 3)
+    n = 300
+    ids = np.cumsum(rng.integers(0, 5, n)).astype("<i8")
+    names = [f"name {int(x) % 17} {'x' * int(x % 5)}".encode() for x in ids]
+    columns = [(2, [(1, "i32", 2), (3, "i32", 0), (4, "bin", b"id")], ids.tobytes()),
+               (6, [(1, "i32", 6), (3, "i32", 0), (4, "bin", b"name"), (6, "i32", 0)],
+                b"".join(struct.pack("<I", len(x)) + x for x in names))]
+    body, chunks = bytearray(PAR1 := b"PAR1"), []
+    for ptype, element, raw in columns:
+        if hadoop:
+            half = len(raw) // 2
+            comp = b"".join(struct.pack(">II", len(part), len(c)) + c for part in
+                            (raw[:half], raw[half:]) for c in [lz4_compress(part)])
+        else:
+            comp = lz4_compress(raw)
+        header = _thrift([(1, "i32", 0), (2, "i32", len(raw)), (3, "i32", len(comp)),
+                          (5, "struct", [(1, "i32", n), (2, "i32", 0), (3, "i32", 3),
+                                         (4, "i32", 3)])])
+        offset = len(body)
+        body += header + comp
+        meta = [(1, "i32", ptype), (2, ("list", "i32"), [0, 3]),
+                (3, ("list", "bin"), [element[2][2]]), (4, "i32", codec), (5, "i64", n),
+                (6, "i64", len(header) + len(raw)), (7, "i64", len(header) + len(comp)),
+                (9, "i64", offset)]
+        chunks.append([(2, "i64", offset), (3, "struct", meta)])
+    schema = [[(4, "bin", b"schema"), (5, "i32", len(columns))]] + [c[1] for c in columns]
+    footer = _thrift([(1, "i32", 1), (2, ("list", "struct"), schema), (3, "i64", n),
+                      (4, ("list", "struct"), [[(1, ("list", "struct"), chunks),
+                                               (2, "i64", len(body)), (3, "i64", n)]])])
+    return bytes(body + footer + struct.pack("<I", len(footer)) + PAR1)
+
+
+def write_refused_and_handmade():
+    """The hand-made LZ4 files (read) and the files whose codec or type the
+    reader refuses: BROTLI, LZO and INT96. Returns the names pyarrow reads."""
+    import datetime
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    for name, codec, hadoop in (("lz4_hadoop.parquet", 5, True),
+                                ("lz4_hadoop_fallback.parquet", 5, False),
+                                ("refused_lzo.parquet", 3, True)):
+        with open(os.path.join(VARIANTS, name), "wb") as f:
+            f.write(handmade_parquet(codec, hadoop))
+    small = pa.table({"a": pa.array(range(40), pa.int64()), "s": [f"v{i}" for i in range(40)]})
+    pq.write_table(small, os.path.join(VARIANTS, "refused_brotli.parquet"), compression="brotli")
+    stamps = pa.table({"t": pa.array([datetime.datetime(2020, 1, 1 + i % 28) for i in range(40)],
+                                     pa.timestamp("ns"))})
+    pq.write_table(stamps, os.path.join(VARIANTS, "refused_int96.parquet"),
+                   use_deprecated_int96_timestamps=True)
+    return ["lz4_hadoop.parquet", "lz4_hadoop_fallback.parquet", "refused_brotli.parquet",
+            "refused_int96.parquet"]
+
+
+# -------------------------------------------------------------------- WebP
+def _webp(arr, mode="RGB", **kw) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr, mode).save(buf, "WEBP", **kw)
+    return buf.getvalue()
+
+
+def _riff_webp(chunks) -> bytes:
+    """A RIFF WEBP file of ``(fourcc, payload)`` chunks (odd ones padded)."""
+    body = b"".join(tag + struct.pack("<I", len(data)) + data + b"\0" * (len(data) & 1)
+                    for tag, data in chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def _webp_chunk(data: bytes, tag: bytes) -> bytes:
+    """The payload of the first ``tag`` chunk of a simple or VP8X file."""
+    pos = 12
+    while pos < len(data):
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        if data[pos:pos + 4] == tag:
+            return data[pos + 8:pos + 8 + size]
+        pos += 8 + size + (size & 1)
+    raise ValueError(tag)
+
+
+def _u24(v: int) -> bytes:
+    return struct.pack("<I", v)[:3]
+
+
+def _raw_alpha(alpha: np.ndarray, method: int) -> bytes:
+    """An ALPH payload: raw (compression 0) alpha under filter ``method``
+    (0 none, 1 horizontal, 2 vertical, 3 gradient), as libwebp's filters
+    predict (the first row from the left, the first column from above)."""
+    a = alpha.astype(np.int64)
+    h, w = a.shape
+    pred = np.zeros_like(a)
+    if method:
+        pred[0, 1:] = a[0, :-1]
+        pred[1:, 0] = a[:-1, 0]
+        if method == 1:
+            pred[1:, 1:] = a[1:, :-1]
+        elif method == 2:
+            pred[1:, 1:] = a[:-1, 1:]
+        else:
+            pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    return bytes([method << 2]) + ((a - pred) & 255).astype(np.uint8).tobytes()
+
+
+def _vp8x(flags: int, w: int, h: int) -> bytes:
+    return bytes([flags, 0, 0, 0]) + _u24(w - 1) + _u24(h - 1)
+
+
+class _BoolEncoder:
+    """VP8's boolean encoder (RFC 6386, 7.3)."""
+
+    def __init__(self):
+        self.out, self.range, self.bottom, self.count = bytearray(), 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while i >= 0 and self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, prob, bit):
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.count -= 1
+            if not self.count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.count = 8
+
+    def flush(self) -> bytes:
+        c, v = self.count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def vp8_with_filter(data: bytes, simple: int, sharpness: int) -> bytes:
+    """A lossy WebP with its VP8 frame header's loop filter type and
+    sharpness rewritten: the first partition's reads are replayed through
+    a boolean encoder with those bits changed (PIL's encoder always writes
+    the normal filter at sharpness 0). Every other read keeps its bit."""
+    from reranking_multimodal_retrievers_tpu_torch.data import webp
+
+    vp8 = _webp_chunk(data, b"VP8 ")
+    part0 = (vp8[0] | vp8[1] << 8 | vp8[2] << 16) >> 5
+    reads = []
+    original = webp._Bool.get
+
+    def logged(self, prob):
+        bit = original(self, prob)
+        if self.data is vp8 and self.end == 10 + part0:
+            reads.append([prob, bit])
+        return bit
+
+    webp._Bool.get = logged
+    try:
+        webp._vp8(vp8)
+    finally:
+        webp._Bool.get = original
+    bits = [b for _, b in reads]
+    at = 3  # colour space, clamping, segmentation
+    if bits[2]:
+        update_map, update_data = bits[3], bits[4]
+        at = 5
+        if update_data:
+            at += 1
+            for width in (7, 7, 7, 7, 6, 6, 6, 6):
+                at += 1 + (width + 1) * bits[at]
+        if update_map:
+            for _ in range(3):
+                at += 1 + 8 * bits[at]
+    reads[at][1] = simple
+    for k in range(3):  # the sharpness, 3 bits after the 6-bit level
+        reads[at + 7 + k][1] = (sharpness >> (2 - k)) & 1
+    enc = _BoolEncoder()
+    for prob, bit in reads:
+        enc.put(prob, bit)
+    first = enc.flush()
+    tag = (vp8[0] | vp8[1] << 8 | vp8[2] << 16) & 0x1F | (len(first) << 5)
+    new = struct.pack("<I", tag)[:3] + vp8[3:10] + first + vp8[10 + part0:]
+    return _riff_webp([(b"VP8 ", new)])
+
+
+def webp_cases():
+    """(name, bytes) of WebP files: lossy at qualities 0, 75 and 100 and
+    methods 0 and 6; lossless with every transform (a photo: predictor,
+    cross colour and subtract green; 200, 12, 3 and 2 colours: colour
+    indexing without and with pixel bundling); alpha (VP8L-compressed with
+    libwebp's own filter choice, and raw under each of the four filters);
+    animations (PIL's, and a first frame smaller than its canvas at an
+    offset); sizes 1x1, odd and 300x200."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 4)
+    photo = _photo(rng, 200, 300)
+    small = photo[:37, :53]
+    for q in (0, 75, 100):
+        for m in (0, 6):
+            yield f"lossy_q{q}_m{m}.webp", _webp(small, quality=q, method=m)
+    yield "lossy_300x200.webp", _webp(photo, quality=75, method=4)
+    for simple, sharpness in ((1, 0), (0, 3), (1, 6)):
+        yield (f"lossy_{'simple' if simple else 'normal'}_filter_sharpness{sharpness}.webp",
+               vp8_with_filter(_webp(small, quality=60), simple, sharpness))
+    yield "lossy_1x1.webp", _webp(photo[:1, :1], quality=75)
+    # smooth images: method 0 takes the predictor and subtract green, method
+    # 6 the predictor and cross colour (noisy ones take no transform)
+    yy, xx = np.mgrid[0:61, 0:77]
+    smooth = np.stack([128 + 100 * np.sin(xx / 9 + yy / 17), 128 + 80 * np.cos(yy / 7 - xx / 23),
+                       100 + xx + yy], -1) + rng.normal(0, 1, (61, 77, 3))
+    smooth = np.clip(smooth, 0, 255).astype(np.uint8)
+    yield "lossless_photo.webp", _webp(smooth[:37, :53], lossless=True, method=0)
+    yield "lossless_photo_m6.webp", _webp(smooth, lossless=True, method=6, quality=100)
+    yield "lossless_noise.webp", _webp(small, lossless=True)
+    yield "lossless_1x1.webp", _webp(photo[:1, :1], lossless=True)
+    for n in (200, 12, 3, 2):
+        palette = rng.integers(0, 256, (n, 3)).astype(np.uint8)
+        idx = rng.integers(0, n, (29, 45))
+        yield f"lossless_{n}colors.webp", _webp(palette[idx], lossless=True)
+    ramp = np.add.outer(np.arange(37) * 5, np.arange(53) * 3)
+    alpha = np.clip(ramp + rng.integers(0, 9, (37, 53)), 0, 255).astype(np.uint8)
+    rgba = np.concatenate([small, alpha[..., None]], -1)
+    yield "alpha_lossy.webp", _webp(rgba, "RGBA", quality=70, method=4)
+    yield "alpha_lossy_m0.webp", _webp(rgba, "RGBA", quality=70, method=0)
+    yield "alpha_quality50.webp", _webp(rgba, "RGBA", quality=70, alpha_quality=50)
+    yield "alpha_lossless.webp", _webp(rgba, "RGBA", lossless=True, exact=True)
+    vp8 = _webp_chunk(_webp(small, quality=75), b"VP8 ")
+    for method in range(4):
+        yield f"alpha_raw_filter{method}.webp", _riff_webp(
+            [(b"VP8X", _vp8x(0x10, 53, 37)), (b"ALPH", _raw_alpha(alpha, method)), (b"VP8 ", vp8)])
+    frames = [Image.fromarray(np.roll(small, 7 * k, axis=1)) for k in range(3)]
+    for lossless in (False, True):
+        buf = io.BytesIO()
+        frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:], duration=40,
+                       lossless=lossless, quality=75)
+        yield f"animated_{'lossless' if lossless else 'lossy'}.webp", buf.getvalue()
+    # a first frame of 21x15 at (6, 4) on a 53x37 canvas, VP8L with alpha
+    part = np.concatenate([small[:15, :21], alpha[:15, :21, None]], -1)
+    vp8l = _webp_chunk(_webp(part, "RGBA", lossless=True, exact=True), b"VP8L")
+    anmf = _u24(3) + _u24(2) + _u24(20) + _u24(14) + _u24(40) + b"\0" + b"VP8L" + \
+        struct.pack("<I", len(vp8l)) + vp8l + b"\0" * (len(vp8l) & 1)
+    yield "animated_offset.webp", _riff_webp(
+        [(b"VP8X", _vp8x(0x12, 53, 37)), (b"ANIM", b"\0\0\0\0\0\0"), (b"ANMF", anmf)])
+
+
+def write_webp(images):
+    """``webp_images/`` and ``m2kr_images_webp/`` (each M2KR image
+    re-encoded as WebP under its own name: lossy, lossless and lossy with
+    alpha in turn); returns their pixel digests as PIL decodes them."""
+    from PIL import Image
+
+    os.makedirs(WEBP, exist_ok=True)
+    os.makedirs(IMAGES_WEBP, exist_ok=True)
+    digests = {"webp_images": {}, "m2kr_images_webp": {}}
+    for name, data in webp_cases():
+        with open(os.path.join(WEBP, name), "wb") as f:
+            f.write(data)
+        with Image.open(os.path.join(WEBP, name)) as img:
+            digests["webp_images"][name] = pixels_digest(np.asarray(img.convert("RGB")))
+    for k, name in enumerate(sorted(images)):
+        with Image.open(os.path.join(IMAGES, name)) as img:
+            rgb = np.asarray(img.convert("RGB"))
+        kind = k % 3
+        if kind == 0:
+            data = _webp(rgb, quality=80)
+        elif kind == 1:
+            data = _webp(rgb, lossless=True)
+        else:
+            ramp = (np.arange(rgb.shape[1]) * 7 % 256).astype(np.uint8)
+            alpha = np.broadcast_to(ramp, rgb.shape[:2])[..., None]
+            data = _webp(np.concatenate([rgb, alpha], -1), "RGBA", quality=80)
+        with open(os.path.join(IMAGES_WEBP, name), "wb") as f:
+            f.write(data)
+        with Image.open(os.path.join(IMAGES_WEBP, name)) as img:
+            digests["m2kr_images_webp"][name] = pixels_digest(np.asarray(img.convert("RGB")))
+    return digests
+
+
+def write_snapshot_v2():
+    """``m2kr_snapshot_v2/``: the snapshot's files re-encoded on data pages
+    v2 without dictionaries: the passages in ZSTD (level 19), the questions
+    in LZ4_RAW, strings by DELTA_BYTE_ARRAY, lists of strings by
+    DELTA_LENGTH_BYTE_ARRAY (the snapshot has no numeric column for
+    BYTE_STREAM_SPLIT), its README as it is. The rows are the same."""
+    import shutil
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    for dirpath, _, files in sorted(os.walk(SNAPSHOT)):
+        out_dir = os.path.join(SNAPSHOT_V2, os.path.relpath(dirpath, SNAPSHOT))
+        os.makedirs(out_dir, exist_ok=True)
+        for f in sorted(files):
+            src = os.path.join(dirpath, f)
+            if not f.endswith(".parquet"):
+                shutil.copyfile(src, os.path.join(out_dir, f))
+                continue
+            table = pq.read_table(src)
+            encodings = {}
+            for field in table.schema:
+                if pa.types.is_list(field.type):
+                    encodings[f"{field.name}.list.element"] = "DELTA_LENGTH_BYTE_ARRAY"
+                else:
+                    encodings[field.name] = "DELTA_BYTE_ARRAY"
+            passages = "passages" in f
+            pq.write_table(table, os.path.join(out_dir, f),
+                           compression="zstd" if passages else "lz4",
+                           compression_level=19 if passages else None,
+                           use_dictionary=False, data_page_version="2.0",
+                           column_encoding=encodings)
+
+
 def main():
     import pyarrow.parquet as pq
     from PIL import Image
@@ -924,11 +1437,14 @@ def main():
         images.append(name)
     write_snapshot(images)
     write_variants()
+    write_codec_variants()
+    write_refused_and_handmade()
+    write_snapshot_v2()
     digests = {"tables": {}, "images": {}}
-    for root in (SNAPSHOT, VARIANTS):
+    for root in (SNAPSHOT, SNAPSHOT_V2, VARIANTS):
         for dirpath, _, files in sorted(os.walk(root)):
             for f in sorted(files):
-                if f.endswith(".parquet"):
+                if f.endswith(".parquet") and not f.startswith("refused_"):
                     p = os.path.join(dirpath, f)
                     digests["tables"][os.path.relpath(p, HERE)] = rows_digest(
                         pq.read_table(p).to_pylist())
@@ -945,6 +1461,7 @@ def main():
     digests["image_columns"] = {
         os.path.relpath(IMAGE_COLUMN, HERE): write_image_column(sorted(digests["codec_images"]))}
     digests["tokenizer"] = write_tokenizer()
+    digests.update(write_webp(images))
     with open(DIGESTS, "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -50,8 +50,24 @@ def test_new_header_rebuilds(csrc):
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))
 def test_source_change_rebuilds_only_its_library(csrc, name):
+    """A change to a source rebuilds the libraries built from it: its own,
+    and for K2 those of its other head-width groups, and no other."""
     before = {n: _build._target(n) for n in _build.SOURCES}
     with open(csrc / _build.SOURCES[name], "a") as f:
         f.write("\n// changed\n")
     after = {n: _build._target(n) for n in _build.SOURCES}
-    assert {n for n in _build.SOURCES if after[n] != before[n]} == {name}
+    same_source = {n for n, src in _build.SOURCES.items() if src == _build.SOURCES[name]}
+    assert name in same_source
+    assert {n for n in _build.SOURCES if after[n] != before[n]} == same_source
+
+
+def test_k2_groups_are_built_apart():
+    """One source, one library a group of head widths: the groups' flags,
+    and so their libraries, differ, and every width of 16 to 128 in steps of
+    16 lies in exactly one group."""
+    for src in _build.K2_SOURCES:
+        names = [src + group for group in _build.K2_GROUPS]
+        assert len({_build._target(n) for n in names}) == len(names)
+        assert {_build.SOURCES[n] for n in names} == {f"{src}.cu"}
+    widths = [hd for first, last in _build.K2_GROUPS.values() for hd in range(first, last + 1, 16)]
+    assert sorted(widths) == list(range(16, 129, 16))

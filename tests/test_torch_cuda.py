@@ -123,9 +123,12 @@ def test_k2_matches_plain(gen, B, L, H, masked, strided):
 
 
 def test_k2_rejects_other_head_dims_and_dtypes(gen):
-    x = torch.randn(1, 8, 192, device="cuda", generator=gen).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        fused_self_attention(x, x, x, num_heads=2, sm_scale=0.1)  # head_dim 96
+    # head_dim 104 over 16 heads (ViT-G's) and 256: geometries the JAX gate
+    # admits but no instance of the kernels takes
+    for heads, hd in ((16, 104), (2, 256)):
+        x = torch.randn(1, 8, heads * hd, device="cuda", generator=gen).to(torch.bfloat16)
+        with pytest.raises(NotImplementedError, match=f"head_dim {hd}"):
+            fused_self_attention(x, x, x, num_heads=heads, sm_scale=0.1)
     y = torch.randn(1, 8, 128, device="cuda", generator=gen)
     with pytest.raises(TypeError):
         fused_self_attention(*(y.half(),) * 3, num_heads=2, sm_scale=0.125)  # fp16
@@ -172,6 +175,127 @@ def test_k2_variants_match_plain(gen, B, L, H, HD, bias_dtype, causal, padded):
     # bf16 outputs of order 1: the kernel rounds unnormalised probabilities
     # to bf16 and sums in another order (a few bf16 spacings)
     torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+NEW_HEAD_DIMS = (16, 32, 48, 96, 112, 128)
+# (B, L, heads, head-bias dtype, causal, key padding, strided q/k/v)
+WIDTH_CASES = [
+    (2, 200, 8, None, False, True, False),            # key bias, two key tiles
+    (2, 136, 4, torch.bfloat16, False, True, False),  # bf16 head bias at L % 8 == 0
+    (2, 70, 4, torch.bfloat16, True, True, False),    # bf16 head bias read directly, causal
+    (2, 130, 2, torch.float32, False, True, True),    # fp32 head bias, strided, ragged tiles
+    (3, 257, 2, None, True, False, True),             # causal over three blocks, strided
+    (2, 1, 3, None, True, True, False),               # L = 1
+]
+
+
+@pytest.mark.parametrize("HD", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("B,L,H,bias_dtype,causal,padded,strided", WIDTH_CASES)
+def test_k2_head_widths_match_plain(gen, HD, B, L, H, bias_dtype, causal, padded, strided):
+    """K2 bf16 at every head_dim it takes beyond 64 and 80 (the column boxes
+    of 64, 32 and 16, and the head bias by TMA up to hd 96 and read
+    directly beyond) against its plain version."""
+    width = H * HD
+    if strided:  # views of one [B, L, 3 * width] projection
+        qkv = torch.randn(B, L, 3 * width, device="cuda", generator=gen).to(torch.bfloat16)
+        q, k, v = qkv.split(width, dim=-1)
+    else:
+        q, k, v = (torch.randn(B, L, width, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+    bias = None
+    if padded:
+        lens = torch.randint(max(1, L // 2), L + 1, (B,), device="cuda", generator=gen)
+        bias = torch.where(torch.arange(L, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
+    hb = None
+    if bias_dtype is not None:
+        hb = torch.randn(H, L, L, device="cuda", generator=gen).to(bias_dtype)
+    kw = dict(num_heads=H, sm_scale=HD ** -0.5, causal=causal)
+    launches = fused_self_attention.launches
+    got = fused_self_attention(q, k, v, bias, hb, **kw)
+    torch.cuda.synchronize()
+    assert fused_self_attention.launches == launches + 1
+    ref = fused_self_attention_reference(q, k, v, bias, hb, **kw)
+    # bf16 outputs of order 1, as in test_k2_matches_plain
+    torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("HD", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("B,L,H,bias_dtype,causal,padded,strided", WIDTH_CASES + [
+    (3, 24, 12, None, False, True, False),            # 2 heads an item
+    (3, 16, 5, torch.float32, True, True, False),     # 4 heads an item, a partial group
+])
+def test_k2_f32_head_widths_match_plain(gen, HD, B, L, H, bias_dtype, causal, padded, strided):
+    """K2's fp32 path at every head_dim it takes beyond 64 and 80 (copy
+    passes of 16, 8 and 4 chunks; Q read from two alternating buffers from
+    hd 96) against its plain version, within the fp32 path's tolerance."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_f32)
+
+    width = H * HD
+    if strided:
+        qkv = torch.randn(B, L, 3 * width, device="cuda", generator=gen)
+        q, k, v = qkv[..., :width], qkv[..., width:2 * width], qkv[..., 2 * width:]
+    else:
+        q, k, v = (torch.randn(B, L, width, device="cuda", generator=gen) for _ in range(3))
+    bias = None
+    if padded:
+        keep = torch.rand(B, L, device="cuda", generator=gen) > 0.3
+        keep[:, 0] = True
+        bias = torch.where(keep, 0.0, -1e9)
+    hb = None
+    if bias_dtype is not None:
+        hb = torch.randn(H, L, L, device="cuda", generator=gen).to(bias_dtype)
+    kw = dict(num_heads=H, sm_scale=HD ** -0.5, causal=causal)
+    launches = fused_self_attention_f32.launches
+    got = fused_self_attention(q, k, v, bias, hb, **kw)
+    ref = fused_self_attention_reference(q, k, v, bias, hb, **kw)
+    torch.cuda.synchronize()
+    assert fused_self_attention_f32.launches == launches + 1
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_unpackable_head_geometry_takes_the_unfused_path(gen, dtype):
+    """BERT, the T5 encoder and OPT at 4 heads x 16 (evqa_flmr.json's
+    geometry) with use_pallas_attention on the card: the JAX gate refuses
+    it, so neither K2 kernel launches, and the output matches the CPU's on
+    the same weights."""
+    from reranking_multimodal_retrievers_tpu_torch.models.bert import BertConfig, BertModel
+    from reranking_multimodal_retrievers_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
+    from reranking_multimodal_retrievers_tpu_torch.models.t5 import (
+        T5Config, T5ForConditionalGeneration)
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_f32)
+
+    models = [
+        (BertModel(BertConfig.tiny(use_pallas_attention=True, hidden_size=64,
+                                   num_attention_heads=4, intermediate_size=128),
+                   dtype=dtype, generator=gen),
+         lambda m, ids, am: m(ids, am)["last_hidden_state"]),
+        (T5ForConditionalGeneration(
+            T5Config(use_pallas_attention=True, vocab_size=96, d_model=64, d_kv=16, d_ff=128,
+                     num_layers=2, num_decoder_layers=1, num_heads=4),
+            dtype=dtype, generator=gen),
+         lambda m, ids, am: m.encode(ids, am)),
+        (OPTForCausalLM(OPTConfig.tiny(use_pallas_attention=True, hidden_size=64,
+                                       num_attention_heads=4, ffn_dim=128),
+                        dtype=dtype, generator=gen),
+         lambda m, ids, am: m.hidden_states(ids, am)),
+    ]
+    ids = torch.randint(2, 64, (3, 40), device="cuda", generator=gen)
+    am = torch.ones_like(ids)
+    am[1, 25:] = 0
+    for model, run in models:
+        launches = (fused_self_attention.launches, fused_self_attention_f32.launches)
+        with torch.inference_mode():
+            got = run(model, ids, am).float()
+        assert (fused_self_attention.launches, fused_self_attention_f32.launches) == launches
+        with torch.inference_mode():
+            want = run(model.cpu(), ids.cpu(), am.cpu()).float()
+        # bf16: two layers of activations of order 1 on two devices; fp32:
+        # the same sums in another order
+        tol = dict(atol=6e-2, rtol=0) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=1e-4)
+        torch.testing.assert_close(got.cpu(), want, **tol)
 
 
 @pytest.mark.parametrize("L,causal", [(45, False), (200, True)])
@@ -234,11 +358,15 @@ def test_k2_head_bias_at_large_scores(gen):
     torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=2 ** -8)
 
 
-@pytest.mark.parametrize("L,heads,hd", [(45, 2, 80), (37, 3, 64)])
-def test_opt_kernel_path_at_any_length_and_head_grouping(gen, L, heads, hd):
-    """OPT on the card fuses every masked self-attention, also at an L that
-    is not a multiple of 8 and at head counts the TPU kernel cannot pack
-    into 128 lanes; the same weights without use_pallas_attention take the
+@pytest.mark.parametrize("L,heads,hd,fuses", [(45, 8, 80, True), (37, 2, 64, True),
+                                              (45, 2, 80, False), (37, 3, 64, False),
+                                              (37, 4, 16, False)])
+def test_opt_kernel_path_at_any_length_and_head_grouping(gen, L, heads, hd, fuses):
+    """OPT on the card fuses a masked self-attention at any L, also one that
+    is not a multiple of 8, where the JAX gate admits the head grouping
+    (8 x 80, 2 x 64); at a grouping the TPU kernel cannot pack into 128
+    lanes (2 x 80, 3 x 64, 4 x 16) it takes the unfused path, as the JAX
+    package does. The same weights without use_pallas_attention take the
     plain path."""
     from reranking_multimodal_retrievers_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
 
@@ -254,14 +382,15 @@ def test_opt_kernel_path_at_any_length_and_head_grouping(gen, L, heads, hd):
     with torch.inference_mode():
         a = fused.hidden_states(ids, am).float()
         b = plain.hidden_states(ids, am).float()
-    assert fused_self_attention.launches == launches + 2  # one per layer
+    assert fused_self_attention.launches == launches + (2 if fuses else 0)  # one per layer
     # two bf16 pre-LN layers and the final LayerNorm: activations of order 1
     torch.testing.assert_close(a, b, atol=6e-2, rtol=0)
 
 
 def test_t5_kernel_path_at_odd_head_count(gen):
-    """T5's encoder on the card fuses at 3 heads x 64, which the TPU kernel
-    cannot pack; the plain path on the same weights agrees."""
+    """T5's encoder on the card does not fuse at 3 heads x 64, which the TPU
+    kernel cannot pack: it takes the unfused path, as the JAX package does,
+    and agrees with the plain path on the same weights."""
     from reranking_multimodal_retrievers_tpu_torch.models.t5 import (
         T5Config, T5ForConditionalGeneration)
 
@@ -279,7 +408,7 @@ def test_t5_kernel_path_at_odd_head_count(gen):
     with torch.inference_mode():
         a = fused.encode(ids, am).float()
         b = plain.encode(ids, am).float()
-    assert fused_self_attention.launches == launches + 2  # one per encoder layer
+    assert fused_self_attention.launches == launches
     # two bf16 blocks and the final RMS norm (the bias in bf16 on one side)
     torch.testing.assert_close(a, b, atol=6e-2, rtol=0)
 
@@ -360,7 +489,7 @@ def test_t5_fp32_kernel_path_matches_plain_path(gen):
     torch.testing.assert_close(a, b, rtol=1e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("L,heads,hd", [(45, 2, 80), (37, 3, 64)])
+@pytest.mark.parametrize("L,heads,hd", [(45, 8, 80), (37, 2, 64), (37, 4, 32)])
 def test_opt_fp32_kernel_path_matches_plain_path(gen, L, heads, hd):
     """An fp32 OPT under use_pallas_attention fuses each masked
     self-attention into K2's fp32 path with the causal mask (before, the
@@ -455,9 +584,11 @@ def test_k2_f32_refuses_layouts_its_copies_cannot_read(gen):
             fused_self_attention(bad, x, x, num_heads=2, sm_scale=0.125)
     with pytest.raises(TypeError):
         fused_self_attention_f32(*(x.to(torch.bfloat16),) * 3, num_heads=2, sm_scale=0.125)
-    with pytest.raises(NotImplementedError):
-        fused_self_attention(*(torch.randn(1, 8, 192, device="cuda", generator=gen),) * 3,
-                             num_heads=2, sm_scale=0.1)  # head_dim 96
+    for heads, hd in ((16, 104), (2, 256)):  # admitted by the JAX gate, no instance
+        with pytest.raises(NotImplementedError, match=f"head_dim {hd}"):
+            fused_self_attention(
+                *(torch.randn(1, 8, heads * hd, device="cuda", generator=gen),) * 3,
+                num_heads=heads, sm_scale=0.1)
     launches = fused_self_attention_f32.launches
     fused_self_attention(x, x, x, num_heads=2, sm_scale=0.125)
     assert fused_self_attention_f32.launches == launches + 1
@@ -994,11 +1125,13 @@ def test_compress_keeps_a_card_tensor_on_the_card(gen, monkeypatch):
 
 
 @pytest.mark.parametrize("config,text_opts,variant", [
-    # d_kv 64 (the config's 32 is not a head_dim K2 takes): the head bias
-    ("synth_rerank_decoder_blip2_t5.json", ("d_kv=64",), (True, False)),
-    # 2 heads x 80: the causal mask at OPT-2.7b's head_dim
-    ("synth_rerank_decoder_blip2_opt.json", ("hidden_size=160", "num_attention_heads=2"),
+    # the config's own 4 heads x 32: the head bias
+    ("synth_rerank_decoder_blip2_t5.json", (), (True, False)),
+    # 8 heads x 80: the causal mask at OPT-2.7b's head_dim (2 x 80 does not pack)
+    ("synth_rerank_decoder_blip2_opt.json", ("hidden_size=640", "num_attention_heads=8"),
      (False, True)),
+    # the config's own 4 heads x 32
+    ("synth_rerank_decoder_blip2_opt.json", (), (False, True)),
 ])
 def test_decoder_executor_kernel_path_matches_plain_path(gen, tmp_path, monkeypatch, config,
                                                          text_opts, variant):

@@ -222,10 +222,18 @@ def test_committed_codec_images_equal_their_digests_and_pil(name):
 
 def test_decoders_run_without_pil_and_left_formats_raise_naming_them(tmp_path):
     """With PIL blocked: the committed GIF, BMP and TIFF files equal their
-    digests and a WebP raises naming the format."""
+    digests, a WebP decodes to PIL's pixels, and an arithmetic-coded JPEG
+    (a format still left to PIL) raises naming it."""
+    rng = np.random.default_rng(5)
+    pixels = rng.integers(0, 256, (13, 17, 3)).astype(np.uint8)
     webp = io.BytesIO()
-    PIL_Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(webp, "WEBP")
+    PIL_Image.fromarray(pixels).save(webp, "WEBP", quality=80)
     (tmp_path / "x.webp").write_bytes(webp.getvalue())
+    with PIL_Image.open(tmp_path / "x.webp") as img:
+        want = fx.pixels_digest(np.asarray(img.convert("RGB")))
+    jpeg = io.BytesIO()
+    PIL_Image.fromarray(pixels).save(jpeg, "JPEG")
+    (tmp_path / "x.jpg").write_bytes(jpeg.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1))
     code = (
         "import sys, json, os\nsys.modules['PIL'] = None\n"
         f"sys.path.insert(0, {str(ROOT / 'tests' / 'fixtures')!r})\n"
@@ -235,11 +243,13 @@ def test_decoders_run_without_pil_and_left_formats_raise_naming_them(tmp_path):
         "for n, h in d.items():\n"
         "    assert fx.pixels_digest(image_io.read_image(os.path.join(fx.CODECS, n))) == h, n\n"
         "print('decoded', len(d))\n"
-        f"image_io.read_image({str(tmp_path / 'x.webp')!r})\n")
+        f"print(fx.pixels_digest(image_io.read_image({str(tmp_path / 'x.webp')!r})))\n"
+        f"image_io.read_image({str(tmp_path / 'x.jpg')!r})\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
-    assert out.stdout.strip() == f"decoded {len(DIGESTS['codec_images'])}", out.stderr[-2000:]
-    assert "NotImplementedError" in out.stderr and "a WebP" in out.stderr
+    assert out.stdout.split("\n")[:2] == [f"decoded {len(DIGESTS['codec_images'])}", want], \
+        out.stderr[-2000:]
+    assert "NotImplementedError" in out.stderr and "an arithmetic-coded JPEG" in out.stderr
 
 
 # --------------------------------------------------- datasets Image columns

@@ -33,9 +33,10 @@ PORT = ROOT / "reranking_multimodal_retrievers_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "transformers", "tests",
              "reranking_multimodal_retrievers_tpu", "datasets", "pyarrow", "pandas", "PIL",
-             "safetensors", "tokenizers", "regex"}
+             "safetensors", "tokenizers", "regex", "zstandard", "lz4"}
 BLOCKED = ("jax", "flax", "optax", "orbax", "transformers", "datasets", "pyarrow", "pandas",
-           "PIL", "safetensors", "reranking_multimodal_retrievers_tpu", "tokenizers", "regex")
+           "PIL", "safetensors", "reranking_multimodal_retrievers_tpu", "tokenizers", "regex",
+           "zstandard", "lz4")
 # imports allowed inside a function body (not at module level) of a file
 LAZY_ALLOWED = {PORT / "models" / "tokenization.py": {"transformers"},
                 PORT / "data" / "image_io.py": {"PIL"},

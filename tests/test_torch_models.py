@@ -196,16 +196,23 @@ def test_attention_route_matches_jax():
         want = next((b for b in (512, 256, 128) if L_pad % b == 0), None)
         assert tbert.flash_block_q(L) == want
     cfg = tbert.BertConfig.tiny(use_flash_attention=True)
-    route = tbert.attention_route
+
+    def route(c, L, can_flash, cross, heads=12, hd=64):
+        return tbert.attention_route(c, L, can_flash, cross, heads, hd)
+
     assert [route(cfg, L, True, False) for L in (128, 255, 256, 384)] == [
         "unfused", "unfused", "flash", "flash"]
     assert route(cfg, 384, False, False) == "unfused"  # attention fusion: no flash
     assert route(cfg, 384, True, True) == "unfused"  # cross-attention
     both = tbert.BertConfig.tiny(use_flash_attention=True, use_pallas_attention=True)
     assert route(both, 384, True, False) == "k2"  # K2 takes precedence
+    # a geometry the JAX gate refuses: JAX's use_flash (``not use_pallas``
+    # counts only an admitted kernel) then takes it
+    assert route(both, 384, True, False, heads=4, hd=16) == "flash"
     k2 = tbert.BertConfig.tiny(use_pallas_attention=True)
     assert [route(k2, L, True, False) for L in (8, 369, 640)] == ["k2"] * 3  # any L
     assert route(k2, 384, True, True) == route(k2, 384, False, False) == "unfused"
+    assert route(k2, 384, True, False, heads=4, hd=16) == "unfused"
     assert route(tbert.BertConfig.tiny(), 384, True, False) == "unfused"
 
 
@@ -221,6 +228,8 @@ def test_bert_flash_attention(L, case):
     then matches JAX's; so does K2's path, which takes precedence. At
     L >= 256 the pad rows differ from the unfused path's."""
     kw = dict(max_position_embeddings=512)
+    if case == "pallas_precedence":  # a head geometry both gates admit: 2 x 64
+        kw.update(hidden_size=128, num_attention_heads=2)
     jcfg = jbert.BertConfig.tiny(**kw)
     rng = np.random.default_rng(L)
     ids, am = _ids(rng, 2, L, pad_from=[L - 37, L // 2])

@@ -108,7 +108,8 @@ def _typed_table(n=120, seed=0):
 
 
 @pytest.mark.parametrize("codec,dictionary,version,groups", list(itertools.product(
-    ["none", "snappy", "gzip"], [True, False], ["1.0", "2.0"], ["one", "several"])))
+    ["none", "snappy", "gzip", "zstd", "lz4"], [True, False], ["1.0", "2.0"],
+    ["one", "several"])))
 def test_reader_equals_pyarrow(tmp_path, codec, dictionary, version, groups):
     table = _typed_table()
     path = str(tmp_path / "t.parquet")
@@ -182,24 +183,94 @@ def test_snappy_overlapping_copies_and_long_literals():
     assert parquet_io.snappy_decompress(pa.compress(raw, "snappy", asbytes=True)) == raw
 
 
-# ------------------------------------------------------------------ errors
-def test_zstd_raises_naming_the_codec(tmp_path):
+@pytest.mark.parametrize("codec,level", [("zstd", 1), ("zstd", 19), ("lz4", None)])
+def test_zstd_and_lz4_files_equal_pyarrow(tmp_path, codec, level):
+    """A ZSTD file (pyarrow's default level and level 19) and an LZ4_RAW one
+    (pyarrow's ``lz4``) of the typed table, one page a column chunk."""
+    table = _typed_table(n=400, seed=5)
     path = str(tmp_path / "z.parquet")
-    pq.write_table(pa.table({"x": [1, 2, 3]}), path, compression="zstd")
-    with pytest.raises(NotImplementedError, match="ZSTD") as e:
-        parquet_io.read_parquet(path)
-    assert "z.parquet" in str(e.value)
+    pq.write_table(table, path, compression=codec, compression_level=level)
+    assert _rows(parquet_io.read_parquet(path)) == table.to_pylist()
 
 
-@pytest.mark.parametrize("encoding", ["DELTA_BINARY_PACKED", "BYTE_STREAM_SPLIT"])
-def test_other_encodings_raise_naming_the_column(tmp_path, encoding):
+_ENCODED = {"DELTA_BINARY_PACKED": ["i8", "i16", "i32", "i64", "u8", "u32", "u64"],
+            "DELTA_LENGTH_BYTE_ARRAY": ["s", "s_required", "binary"],
+            "DELTA_BYTE_ARRAY": ["s", "s_required", "binary"],
+            "BYTE_STREAM_SPLIT": ["i32", "i64", "u32", "u64", "f32", "f64"]}
+
+
+@pytest.mark.parametrize("version", ["1.0", "2.0"])
+@pytest.mark.parametrize("encoding", sorted(_ENCODED))
+def test_other_encodings_equal_pyarrow(tmp_path, encoding, version):
+    """Each delta encoding and BYTE_STREAM_SPLIT on every type pyarrow writes
+    it for, with nulls, in the typed table's flat columns and inside its
+    list and struct columns, on data pages v1 and v2 (several pages and row
+    groups)."""
+    table = _typed_table(n=300, seed=6)
+    leaves = {"DELTA_BINARY_PACKED": ["struct.a", "list_struct.list.element.x",
+                                      "list_list.list.element.list.element"],
+              "BYTE_STREAM_SPLIT": ["struct.a", "list_struct.list.element.x",
+                                    "list_list.list.element.list.element"]}.get(
+        encoding, ["list_str.list.element", "struct.b", "list_struct.list.element.y"])
+    columns = {c: encoding for c in _ENCODED[encoding] + leaves}
     path = str(tmp_path / "e.parquet")
-    column = pa.array([1.5, 2.5, None], pa.float64()) if encoding == "BYTE_STREAM_SPLIT" \
-        else pa.array([1, 2, 3], pa.int64())
-    pq.write_table(pa.table({"ok": ["a", "b", "c"], "odd": column}), path, use_dictionary=False,
-                   column_encoding={"odd": encoding})
-    with pytest.raises(NotImplementedError, match=f"'odd'.*{encoding}"):
+    pq.write_table(table, path, use_dictionary=False, column_encoding=columns,
+                   data_page_version=version, row_group_size=120, data_page_size=512)
+    meta = pq.ParquetFile(path).metadata
+    written = {meta.row_group(0).column(i).path_in_schema: meta.row_group(0).column(i).encodings
+               for i in range(meta.num_columns)}
+    assert all(encoding in written[c] for c in columns)
+    assert _rows(parquet_io.read_parquet(path)) == table.to_pylist()
+
+
+def test_fixed_len_byte_arrays_by_delta_and_split_equal_pyarrow(tmp_path):
+    table = fixtures.fixed_table()
+    for enc in ("DELTA_BYTE_ARRAY", "BYTE_STREAM_SPLIT", "PLAIN"):
+        path = str(tmp_path / f"{enc}.parquet")
+        pq.write_table(table, path, use_dictionary=False, data_page_version="2.0",
+                       column_encoding={"fixed": enc, "fixed_list.list.element": enc})
+        assert _rows(parquet_io.read_parquet(path)) == table.to_pylist()
+
+
+def test_delta_binary_packed_extremes(tmp_path):
+    """Deltas of 64 bits (the int64 range end to end), a single value, an
+    empty page and runs of equal values (bit width 0)."""
+    values = [-2**63, 2**63 - 1, -2**63, 0, 0, 0, 5, 2**62, -1] * 40
+    table = pa.table({"x": pa.array(values, pa.int64()),
+                      "y": pa.array([2**31 - 1, -2**31] * 180, pa.int32()),
+                      "one": pa.array([7] + [None] * 359, pa.int64())})
+    path = str(tmp_path / "d.parquet")
+    pq.write_table(table, path, use_dictionary=False, column_encoding="DELTA_BINARY_PACKED")
+    assert _rows(parquet_io.read_parquet(path)) == table.to_pylist()
+
+
+def test_lz4_block_equals_pyarrow_and_hadoop_framing():
+    """The LZ4 block decoder against pyarrow's ``lz4_raw`` compressor
+    (overlapping matches, long literals, long matches), and parquet's LZ4
+    codec in Hadoop's framing and as its raw fallback."""
+    rng = np.random.default_rng(4)
+    raw = (b"ab" * 40 + bytes(rng.integers(0, 256, 70000, dtype=np.uint8)) + b"xyz" * 3000
+           + bytes(300))
+    block = pa.compress(raw, "lz4_raw", asbytes=True)
+    assert parquet_io.lz4_block(block) == raw
+    assert parquet_io.lz4_block(fixtures.lz4_compress(raw)) == raw
+    half = len(raw) // 2
+    framed = b"".join(__import__("struct").pack(">II", len(p), len(c)) + c
+                      for p in (raw[:half], raw[half:]) for c in [fixtures.lz4_compress(p)])
+    assert parquet_io.lz4_hadoop(framed, len(raw)) == raw
+    assert parquet_io.lz4_hadoop(block, len(raw)) == raw
+
+
+@pytest.mark.parametrize("name,what", [("refused_brotli.parquet", "BROTLI"),
+                                       ("refused_lzo.parquet", "LZO"),
+                                       ("refused_int96.parquet", "INT96")])
+def test_refused_codecs_and_types_raise_naming_them(name, what):
+    """BROTLI and LZO (codecs) and INT96 (a physical type) raise
+    ``NotImplementedError`` naming what they are and the file."""
+    path = os.path.join(FIXTURES, "parquet_variants", name)
+    with pytest.raises(NotImplementedError, match=what) as e:
         parquet_io.read_parquet(path)
+    assert name in str(e.value)
 
 
 def test_an_image_feature_raises_as_arrow_io_does(tmp_path):
@@ -368,12 +439,13 @@ def test_prepare_cc_images_reads_parquet_as_datasets(offline_datasets, monkeypat
 
 
 def test_fixtures_read_with_pyarrow_datasets_yaml_and_pil_blocked():
-    """Every committed table and image read to its committed digest, and
-    the snapshot's configs loaded, in a process that cannot import
-    pyarrow, ``datasets``, PyYAML or PIL."""
+    """Every committed table (the ZSTD, LZ4 and delta/BSS ones too) and
+    image (the WebPs too) read to its committed digest, and the snapshot's
+    configs loaded (also from its re-encoded copy), in a process that
+    cannot import pyarrow, ``datasets``, PyYAML, PIL or ``zstandard``."""
     code = (
         "import json, os, sys\n"
-        "for m in ('pyarrow', 'datasets', 'yaml', 'PIL'):\n"
+        "for m in ('pyarrow', 'datasets', 'yaml', 'PIL', 'zstandard'):\n"
         "    sys.modules[m] = None\n"
         f"sys.path.insert(0, {FIXTURES!r})\n"
         "import make_m2kr_parquet as fx\n"
@@ -386,6 +458,11 @@ def test_fixtures_read_with_pyarrow_datasets_yaml_and_pil_blocked():
         "for name, want in d['images'].items():\n"
         "    got = image_io.read_image(os.path.join(fx.IMAGES, name))\n"
         "    assert fx.pixels_digest(got) == want, name\n"
+        "for key, root in (('webp_images', fx.WEBP), ('m2kr_images_webp', fx.IMAGES_WEBP)):\n"
+        "    for name, want in d[key].items():\n"
+        "        got = image_io.read_image(os.path.join(root, name))\n"
+        "        assert fx.pixels_digest(got) == want, name\n"
+        "assert _load_hf(fx.SNAPSHOT_V2 + '///EVQA_data') == _load_hf(fx.SNAPSHOT + '///EVQA_data')\n"
         "q = _load_hf(fx.SNAPSHOT + '///EVQA_data')\n"
         "p = _load_hf(fx.SNAPSHOT + '///EVQA_passages')\n"
         "print(json.dumps({k: len(v) for k, v in {**q, **p}.items()}))\n")
