@@ -545,12 +545,12 @@ def unit(gen, *shape):
 
 def _counters():
     from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
-        fused_self_attention, fused_self_attention_f32)
+        fused_self_attention, fused_self_attention_any, fused_self_attention_f32)
     from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import maxsim_scores
     from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_int8_cuda import maxsim_scores_int8
 
     return {"K1": maxsim_scores, "K2": fused_self_attention, "K3": maxsim_scores_int8,
-            "K2f32": fused_self_attention_f32}
+            "K2f32": fused_self_attention_f32, "K2any": fused_self_attention_any}
 
 
 def reset_counts():
@@ -1593,7 +1593,7 @@ def interaction_rerank(name, model, cfg, q, qm, d, dm, want_k2, smi):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
     launches = read_counts()
-    check(launches == {"K1": 0, "K2": want_k2, "K3": 0, "K2f32": 0},
+    check(launches == {"K1": 0, "K2": want_k2, "K3": 0, "K2f32": 0, "K2any": 0},
           f"{name} launches {launches}, want K2 = {want_k2} and no other")
     check(tuple(logits.shape) == (B, K) and bool(torch.isfinite(logits.float()).all()),
           f"{name} logits {tuple(logits.shape)}")
@@ -1893,7 +1893,7 @@ def compressed_retrieval(index, Qm, smi):
     vals_m, ids_m = searcher.search(Qm)
     torch.cuda.synchronize()
     launches = read_counts()
-    check(launches == {"K1": 4 * slabs, "K2": 0, "K3": 0, "K2f32": 0},
+    check(launches == {"K1": 4 * slabs, "K2": 0, "K3": 0, "K2f32": 0, "K2any": 0},
           f"compressed retrieval launches {launches}, want K1 = {4 * slabs} and no other")
     exact_ids, exact_ids_m = exact_ids.cpu().numpy(), exact_ids_m.cpu().numpy()
     check(ids.shape == (PLAID_B, PLAID_K) and bool(np.isfinite(vals).all())
@@ -1994,7 +1994,7 @@ def pooled_retrieval(index, Qb, exact_ids, smi):
     torch.cuda.synchronize()
     launches = read_counts()
     slabs = -(-N // SLAB_DOCS)
-    check(launches == {"K1": slabs, "K2": 0, "K3": 0, "K2f32": 0},
+    check(launches == {"K1": slabs, "K2": 0, "K3": 0, "K2f32": 0, "K2any": 0},
           f"pooled retrieval launches {launches}, want K1 = {slabs} and no other")
     check(len(ids) == PLAID_B and all(len(r) == PLAID_K for r in ids)
           and bool(np.isfinite(vals).all()), "pooled top-k")
@@ -2113,7 +2113,7 @@ def baleen(smi):
     # per question and hop: one search (one slab) and two reader forwards
     # (stage 1, stage 2) of 24 layers each
     want = {"K1": 2 * BALEEN_QUERIES, "K2": 2 * 2 * cfg.num_hidden_layers * BALEEN_QUERIES,
-            "K3": 0, "K2f32": 0}
+            "K3": 0, "K2f32": 0, "K2any": 0}
     check(launches == want, f"Baleen launches {launches}, want {want}")
     for r in results:
         check(r["pids"] and all(p in condenser.collectionX for p in r["pids"])
@@ -2215,7 +2215,7 @@ def triples_training(smi):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t1
         launches = read_counts()
-        check(launches == {"K1": 0, "K2": 0, "K3": 0, "K2f32": 0},
+        check(launches == {"K1": 0, "K2": 0, "K3": 0, "K2f32": 0, "K2any": 0},
               f"triples launches {launches}")
         check(sorted(seen.steps) == [1, TRIPLES_STEPS] and np.isfinite(ema),
               f"triples steps logged {sorted(seen.steps)}, ema {ema}")
@@ -2362,7 +2362,7 @@ def k2f32_bound(flops, nbytes):
 
 
 def k2f32_check(name, q, k, v, bias, head_bias=None, *, heads, scale, causal=False,
-                sdpa_mask=None, flops=None):
+                sdpa_mask=None, flops=None, profile=True):
     """K2's fp32 path against its plain version on the card, timed beside
     the plain version and ``scaled_dot_product_attention`` in fp32 with
     ``sdpa_mask`` (in turns). ``flops``: the work the inputs need (4 B H L^2
@@ -2390,7 +2390,8 @@ def k2f32_check(name, q, k, v, bias, head_bias=None, *, heads, scale, causal=Fal
     kernel = lambda: fused_self_attention(q, k, v, bias, head_bias, **kw)  # noqa: E731
     library = lambda: sdpa(qh, kh, vh, attn_mask=sdpa_mask, scale=scale)  # noqa: E731
     times = k2_timed(kernel, library, flops, b_ms)
-    times.update(device_ms=device_ms(kernel), library_device_ms=device_ms(library))
+    if profile:  # the device's own times, beside the events' (costly: a trace each)
+        times.update(device_ms=device_ms(kernel), library_device_ms=device_ms(library))
     return dict(variant=name, shape=[B, L, HD], heads=heads, head_dim=HD // heads,
                 dtype=_k2_dtype(q), mask=_k2_mask(bias, head_bias, causal),
                 max_abs_err=err, tol=[K2F32_RTOL, K2F32_ATOL],
@@ -2495,11 +2496,11 @@ K2_WIDTHS_F32 = [
 
 
 def k2_library(hd, fp32):
-    """The library (``ops/_build.py::SOURCES``) of K2's instance at head
-    width ``hd``."""
+    """The library (``ops/_build.py::SOURCES``) of K2's kernel at head
+    width ``hd``: a per-width instance, or the generic kernel."""
     from reranking_multimodal_retrievers_tpu_torch.ops import attention_cuda
 
-    return attention_cuda._library("attention_f32" if fp32 else "attention", hd)
+    return attention_cuda.kernel_library(hd, fp32)
 
 
 def k2_source(hd, fp32):
@@ -2536,18 +2537,33 @@ def k2_width_launches(widths, path_rows):
                                           if instance(w) == instance(where))
 
 
-def k2_width_rows(gen, smi):
+# Phase 2's K2 rows at the head geometries the JAX gate admits outside the
+# per-width kernels (C9 in ROADMAP.md), all on csrc/attention_any.cu, in bf16 and
+# fp32: (heads, head_dim, batch, L, variant). No configuration of the repo
+# reaches them (ViT-G's 16 x 104 is in the ViT, which fuses in neither
+# package), so their main-path launches are 0.
+K2_C9 = [
+    (16, 8, 100, 512, "key"), (16, 24, 100, 512, "key"), (16, 40, 100, 512, "key"),
+    (16, 104, 100, 512, "key"), (32, 12, 100, 512, "key"), (2, 256, 16, 512, "key"),
+    (2, 192, 16, 512, "key"), (1, 384, 8, 512, "key"),
+    (16, 24, 10, 512, "head"), (16, 24, 5, 512, "causal"),
+    (2, 256, 16, 512, "head"), (2, 256, 16, 512, "causal")]
+
+
+def k2_width_rows(gen, smi, tables=None, kernel_name="K2 fused_self_attention, head widths",
+                  profile=True):
     """K2 bf16 and fp32 at the head widths the port took on beside 64 and
-    80, each against its plain version (bf16 within K2_TOL, fp32 within
-    K2F32_RTOL/K2F32_ATOL), timed beside its plain version and
-    ``scaled_dot_product_attention`` on the same mask, with its bound; key
-    bias (right-padded keys), bf16 or fp32 head bias with the key bias, and
-    the causal mask with the key bias. Their launches on the main path are
-    filled in after it ran (:func:`k2_width_launches`)."""
+    80 (or at ``tables``' (bf16 rows, fp32 rows)), each against its plain
+    version (bf16 within K2_TOL, fp32 within K2F32_RTOL/K2F32_ATOL), timed
+    beside its plain version and ``scaled_dot_product_attention`` on the
+    same mask, with its bound; key bias (right-padded keys), bf16 or fp32
+    head bias with the key bias, and the causal mask with the key bias.
+    Their launches on the main path are filled in after it ran
+    (:func:`k2_width_launches`)."""
     from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import causal_bias
 
     rows = []
-    for fp32, table in ((False, K2_WIDTHS_BF16), (True, K2_WIDTHS_F32)):
+    for fp32, table in zip((False, True), tables or (K2_WIDTHS_BF16, K2_WIDTHS_F32)):
         dtype = torch.float32 if fp32 else torch.bfloat16
         for heads, hd, B, L, variant in table:
             q, k, v = (torch.randn(B, L, heads * hd, device="cuda", generator=gen).to(dtype)
@@ -2571,13 +2587,12 @@ def k2_width_rows(gen, smi):
             flops = 4 * B * heads * pairs * hd
             if fp32:
                 row = k2f32_check(name, q, k, v, bias, hb, heads=heads, scale=hd ** -0.5,
-                                  causal=causal, sdpa_mask=mask, flops=flops)
+                                  causal=causal, sdpa_mask=mask, flops=flops, profile=profile)
             else:
                 row = k2_variant(name, q, k, v, bias, hb, heads=heads, scale=hd ** -0.5,
                                  causal=causal, sdpa_mask=mask, flops=flops)
             row.update(head_dim=hd, library=k2_library(hd, fp32), source=k2_source(hd, fp32))
-            emit({"phase": "kernel_check", "kernel": "K2 fused_self_attention, head widths",
-                  "card": smi, **row})
+            emit({"phase": "kernel_check", "kernel": kernel_name, "card": smi, **row})
             rows.append(row)
             del q, k, v, hb, mask
     return rows
@@ -3552,6 +3567,45 @@ def _p13_tokenizer_rates(path, words):
             "note": "host clock, one pass each from a fresh load (its word cache cold)"}
 
 
+def _p13_spiece_route(words):
+    """The captioner's tokenizer built from a directory holding only the
+    ``spiece.model`` written from the committed Unigram fixture
+    (``models/spiece.py``), against the ``tokenizer.json`` route on the
+    same fixture: equal ids and masks on 13b's texts (13a's words, some
+    full-width or combining), padded to 32; its encodes/s."""
+    from reranking_multimodal_retrievers_tpu_torch.data.ops.infoseek_ops import (
+        load_caption_tokenizer)
+    from reranking_multimodal_retrievers_tpu_torch.models.spiece import (
+        spiece_from_tokenizer_json)
+
+    rng = np.random.default_rng(SEED + 15)
+    texts = []
+    for i in range(P13_TOK_TEXTS):
+        t = " ".join(words[j] for j in rng.integers(0, len(words), int(rng.integers(6, 16))))
+        texts.append(t.replace("a", "ａ", 1) if i % 4 == 1 else
+                     t.replace("e", "é", 1) if i % 4 == 2 else t)
+    only = P13_DIR / "spiece_only"
+    only.mkdir(parents=True, exist_ok=True)
+    with open(P13D_TOKENIZER / "tokenizer.json", encoding="utf-8") as f:
+        spiece_from_tokenizer_json(json.load(f), str(only / "spiece.model"))
+    check(sorted(p.name for p in only.iterdir()) == ["spiece.model"], "13b: the spiece directory")
+    t0 = time.perf_counter()
+    tok = load_caption_tokenizer(str(only))
+    load_s = time.perf_counter() - t0
+    want = load_caption_tokenizer(str(P13D_TOKENIZER))
+    t0 = time.perf_counter()
+    got = tok(texts, padding="max_length", truncation=True, max_length=32, return_tensors="np")
+    enc_s = time.perf_counter() - t0
+    ref = want(texts, padding="max_length", truncation=True, max_length=32, return_tensors="np")
+    check(np.array_equal(got["input_ids"], ref["input_ids"])
+          and np.array_equal(got["attention_mask"], ref["attention_mask"]),
+          "13b: the spiece.model tokenizer's ids or masks differ from tokenizer.json's")
+    return {"texts": len(texts), "pieces": len(tok), "load_seconds": load_s,
+            "encode_seconds": enc_s, "encodes_per_s": len(texts) / enc_s,
+            "ids_and_masks_equal_tokenizer_json": True,
+            "note": "host clock, one pass from a fresh load"}
+
+
 def _p13_image(rng, h, w):
     """A photograph-like RGB image: smooth colour fields in 8 x 8 blocks."""
     small = rng.integers(0, 256, (h // 8 + 1, w // 8 + 1, 3), dtype=np.uint8)
@@ -3748,6 +3802,7 @@ def p13_prepare(smi, words, base):
     write_test_vocab(str(P13_DIR / "vocab" / "vocab.txt"), words)
     tok_path, tok_pieces = _p13_tokenizer(words)
     tok_rates = _p13_tokenizer_rates(tok_path, words)
+    tok_rates["spiece_model_route"] = _p13_spiece_route(words)
     # the captioner's HF-named checkpoint: random weights from the seed
     # (T5's relative-position tables at std REL_BIAS_STD, as phase 5 draws
     # them, so that the head bias moves attention), fp32 as HF stores them
@@ -4071,9 +4126,14 @@ P13D_IMAGES_WEBP = FIXTURES / "m2kr_images_webp"
 P13D_WEBP = FIXTURES / "webp_images"
 P13E_STEPS = 8  # three past TIMED_FROM, for a steps/s
 P13E_TEST_BATCHES = 16  # 64 of the 256 test queries (each query's WebP image decoded on the host)
+# 13d's loader depth (its rows' WebP images decode on the host): 10 train
+# steps and 128 of the 256 test queries, cut to keep the script's time
+P13D_STEPS = 10
+P13D_TEST_BATCHES = 8
 P13E_CONFIGS = ("evqa_flmr.json", "synth_flmr.json")
 P13D_CODECS = FIXTURES / "codec_images"
 P13D_TOKENIZER = FIXTURES / "unigram_tokenizer"
+P13D_JPEG_CODING = FIXTURES / "jpeg_coding"
 P13D_PASSES = 3  # passes over the tables and the images; the best is kept
 
 
@@ -4082,9 +4142,15 @@ def _rows_digest(rows):
     hex), as ``make_m2kr_parquet.py`` digests pyarrow's rows."""
     import hashlib
 
-    def hexed(obj):
+    import datetime
+
+    def hexed(obj):  # dates, times and timestamps as ISO text and nanoseconds
         if isinstance(obj, bytes):
             return {"bytes": obj.hex()}
+        if isinstance(obj, (datetime.date, datetime.time)):
+            return {"iso": datetime.datetime.isoformat(obj)
+                    if isinstance(obj, datetime.datetime) else obj.isoformat(),
+                    "ns": getattr(obj, "nanosecond", None)}
         raise TypeError(type(obj).__name__)
 
     text = json.dumps(rows, sort_keys=True, ensure_ascii=False, default=hexed)
@@ -4117,6 +4183,12 @@ def _image_format(name, data=None):
         return "progressive JPEG, block smoothing"
     if name.startswith(("cmyk_", "ycck_")):
         return "CMYK/YCCK JPEG"
+    if name.startswith("arith_seq_"):
+        return "arithmetic-coded JPEG"
+    if name.startswith("arith_prog_"):
+        return "arithmetic-coded progressive JPEG"
+    if name.startswith("lossless_"):
+        return "lossless JPEG"
     return "PNG, Adam7" if "adam7" in name else "PNG"
 
 
@@ -4198,9 +4270,20 @@ def p13d_read(smi):
                                       for rel in rels])
         codec_rates[codec] = {"files": len(rels), "bytes": n, "seconds": secs,
                               "mb_per_s": n / secs / 1e6}
+    # the variants this slice reads: BROTLI by level, INT96, dates/times/timestamps
+    variant_rates = {}
+    for kind in ("brotli_1_", "brotli_11_", "int96_", "temporal_"):
+        rels = [rel for rel in tables if Path(rel).name.startswith(kind)]
+        check(len(rels) > 0, f"13d: no committed {kind}* table")
+        n = sum((FIXTURES / rel).stat().st_size for rel in rels)
+        secs, _ = _best_pass(lambda: [parquet_io.read_parquet(str(FIXTURES / rel))
+                                      for rel in rels])
+        variant_rates[kind.rstrip("_")] = {"files": len(rels), "bytes": n, "seconds": secs,
+                                           "mb_per_s": n / secs / 1e6}
     formats = {}
     for key, folder in (("images", P13D_IMAGES), ("codec_images", P13D_CODECS),
-                        ("webp_images", P13D_WEBP), ("m2kr_images_webp", P13D_IMAGES_WEBP)):
+                        ("webp_images", P13D_WEBP), ("m2kr_images_webp", P13D_IMAGES_WEBP),
+                        ("jpeg_coding", P13D_JPEG_CODING)):
         for name in sorted(digests[key]):
             fmt = _image_format(name, (folder / name).read_bytes())
             formats.setdefault(fmt, []).append((name, folder / name, digests[key][name]))
@@ -4242,6 +4325,7 @@ def p13d_read(smi):
             "snapshot_mb_per_s": snap_bytes / load_s / 1e6, "splits": sizes,
             "snapshot_v2_bytes": v2_bytes, "snapshot_v2_load_seconds": v2_s,
             "snapshot_v2_mb_per_s": v2_bytes / v2_s / 1e6, "parquet_by_codec": codec_rates,
+            "parquet_by_variant": variant_rates,
             "images": per_format, "image_columns": columns,
             "tokenizer_texts_equal_digests": len(tok_d["texts"]),
             "progressive_vs_baseline_320x240": {
@@ -4288,9 +4372,11 @@ def p13d_phase(smi, base):
     line, sizes, words = p13d_read(smi)
     emit(line)
     write_test_vocab(str(P13_DIR / "vocab_13d" / "vocab.txt"), words)
+    cfg = _p13_full_width(_p13d_config(base))
     lines, k1_row, k3_row, rows, parts = p13_train_test(
-        smi, _p13_full_width(_p13d_config(base)), "13d", sizes["train"], sizes["test"],
-        "the parquet snapshot's 8,192 passages")
+        smi, cfg, "13d", sizes["train"], P13D_TEST_BATCHES * cfg["test"]["batch_size"],
+        "the parquet snapshot's 8,192 passages", steps=P13D_STEPS,
+        test_opts=(f"test.trainer_paras.limit_test_batches={P13D_TEST_BATCHES}",))
     for line in lines:
         emit(line)
     emit({"phase": "p13d", "seconds": time.perf_counter() - t0})
@@ -6134,6 +6220,7 @@ def main() -> int:
     for hd in attention_cuda.KERNEL_HEAD_DIMS:
         attention_cuda._lib(hd)
         attention_cuda._lib_f32(hd)
+    attention_cuda._lib_any()
     maxsim_int8_cuda._lib()
     sass = sass_counts("attention_f32")
     check(sass["HMMA_TF32"] > 0 and sass["LDGSTS"] > 0,
@@ -6224,6 +6311,13 @@ def main() -> int:
         del q, k, v, got, ref
     k2f32_extra = k2f32_variants(gen, smi)
     k2_widths = k2_width_rows(gen, smi)
+    # the admitted geometries outside the per-width kernels: the generic kernel
+    launches_any = attention_cuda.fused_self_attention_any.launches
+    k2_c9 = k2_width_rows(gen, smi, (K2_C9, K2_C9), "K2 generic kernel (attention_any.cu)",
+                          profile=False)
+    check(attention_cuda.fused_self_attention_any.launches > launches_any
+          and all(r["library"] == "attention_any" for r in k2_c9),
+          "phase 2: the C9 geometries did not run the generic kernel")
     # what the fp32 yardstick runs at the cross-encoder's launch shape (11d)
     q, k, v = (torch.randn(50, 12, 161, 64, device="cuda", generator=gen) for _ in range(3))
     amask = (torch.rand(50, 161, device="cuda", generator=gen) > 0.2)[:, None, None, :]
@@ -6557,7 +6651,7 @@ def main() -> int:
 
     attention = "reranking_multimodal_retrievers_tpu/ops/attention_pallas.py:95"
     widths = [dict(name=f"fused_self_attention {row['variant']}", route="cuda",
-                   replaces=attention, **row) for row in k2_widths]
+                   replaces=attention, **row) for row in k2_widths + k2_c9]
     kernels = [
         dict(name="maxsim_scores", route="cuda",
              source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
@@ -6611,6 +6705,10 @@ def main() -> int:
           for row in k2f32_rows + k2f32_p12 + k2f32_p13 + k2f32_p14 + k2f32_extra),
         *p15_kernel_rows(p15_rows, p15_parts)[1]]
     k2_width_launches(widths, kernels)
+    for row in widths[len(k2_widths):]:  # the generic kernel's launches in the whole main path
+        row["launches_generic_kernel_main_path"] = sum(p.get("K2any", 0) for p in phases)
+        row["main_path_note"] = ("no configuration reaches this geometry; ViT-G's 16 x 104 is "
+                                 "in the ViT, which fuses in neither package")
     emit({"kernels": kernels + widths, "not_ported": []})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

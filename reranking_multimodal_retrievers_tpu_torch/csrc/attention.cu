@@ -1,5 +1,6 @@
 // K2: fused multi-head self-attention on Hopper (sm_90a), bf16, at every
-// head_dim that is a multiple of 16 from 16 to 128.
+// head_dim that is a multiple of 16 from 16 to 128 (every other head_dim
+// runs csrc/attention_any.cu).
 //
 // ops/_build.py builds this file into one library a group of head widths
 // (K2_GROUPS), compiled in parallel: each exports attention_bf16 for every

@@ -1,6 +1,6 @@
 // K2, fp32 path: fused multi-head self-attention over fp32 q/k/v for Hopper
 // (sm_90a), at every head_dim that is a multiple of 16 from 16 to 128, on the
-// tensor cores in 3xTF32.
+// tensor cores in 3xTF32 (every other head_dim runs csrc/attention_any.cu).
 //
 // ops/_build.py builds this file into one library a group of head widths
 // (K2_GROUPS), compiled in parallel: each exports attention_f32 for every

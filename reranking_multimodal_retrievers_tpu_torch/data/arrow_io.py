@@ -11,20 +11,23 @@ IPC *stream*: encapsulated messages (the continuation marker
 the message body), first a ``Schema``, then ``RecordBatch``es, then an
 end-of-stream marker (``0xFFFFFFFF 0x00000000``).
 
-:func:`load_from_disk` parses the flatbuffers itself and returns a dict of
-:class:`~.table.Table` per split (or one table), with values as
+:func:`load_from_disk` parses the flatbuffers itself and returns a dict
+of :class:`~.table.Table` per split (or one table), with values as
 ``datasets`` gives them: Python ints, floats (a float32 column gives the
-Python floats of its float32 values), bools, strings, bytes, lists, dicts
-(structs) and ``None`` for a null. It takes null, bool, int8-64, uint8-64,
-float16/32/64, string, large_string, binary, large_binary, list and
-large_list (nested), struct and fixed_size_list columns, several record
-batches and several shards. A column whose feature is an ``Image`` (a
-``{bytes, path}`` struct) gives RGB ``uint8 [H, W, 3]`` arrays, decoded by
-``data/image_io.py`` from the bytes or, where they are null, the path:
-what the JAX package gets from ``datasets`` after ``convert("RGB")``. It
-raises, naming the column, on a compressed body, a dictionary-encoded
-column, any other Arrow type, and a column whose feature is an ``Audio``,
-``Video`` or ``Pdf``.
+Python floats of its float32 values), bools, strings, bytes, lists,
+dicts (structs) and ``None`` for a null. It takes null, bool, int8-64,
+uint8-64, float16/32/64, string, large_string, binary, large_binary,
+list and large_list (nested), struct and fixed_size_list columns,
+date32/date64, time32/time64 and timestamp columns (as
+``data/temporal.py`` gives them: ``pyarrow``'s values, a ``datetime``
+carrying the nanoseconds where it gives a ``pandas.Timestamp``), several
+record batches and several shards. A column whose feature is an
+``Image`` (a ``{bytes, path}`` struct) gives RGB ``uint8 [H, W, 3]``
+arrays, decoded by ``data/image_io.py`` from the bytes or, where they
+are null, the path: what the JAX package gets from ``datasets`` after
+``convert("RGB")``. It raises, naming the column, on a compressed body,
+a dictionary-encoded column, any other Arrow type, and a column whose
+feature is an ``Audio``, ``Video`` or ``Pdf``.
 
 :func:`save_to_disk` writes tables in the same layout, with the Arrow types
 ``datasets.Dataset.from_dict`` infers for Python values (int64, double,
@@ -42,6 +45,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from . import temporal
 from .table import Table
 
 CONTINUATION = b"\xff\xff\xff\xff"
@@ -49,12 +53,12 @@ METADATA_V5 = 4
 SCHEMA, RECORD_BATCH = 1, 3  # MessageHeader union tags
 # Type union tags of Schema.fbs
 T_NULL, T_INT, T_FLOAT, T_BINARY, T_UTF8, T_BOOL = 1, 2, 3, 4, 5, 6
+T_DATE, T_TIME, T_TIMESTAMP = 8, 9, 10
 T_LIST, T_STRUCT, T_FIXED_SIZE_LIST = 12, 13, 16
 T_LARGE_BINARY, T_LARGE_UTF8, T_LARGE_LIST = 19, 20, 21
-_TYPE_NAMES = {7: "decimal", 8: "date", 9: "time", 10: "timestamp", 11: "interval",
-               14: "union", 15: "fixed_size_binary", 17: "map", 18: "duration",
-               22: "run_end_encoded", 23: "binary_view", 24: "utf8_view", 25: "list_view",
-               26: "large_list_view"}
+_TYPE_NAMES = {7: "decimal", 11: "interval", 14: "union", 15: "fixed_size_binary", 17: "map",
+               18: "duration", 22: "run_end_encoded", 23: "binary_view", 24: "utf8_view",
+               25: "list_view", 26: "large_list_view"}
 _FLOATS = {0: np.float16, 1: np.float32, 2: np.float64}
 _UNREADABLE_FEATURES = ("Audio", "Video", "Pdf")
 BATCH_ROWS = 1000  # rows a record batch, as datasets writes them
@@ -211,12 +215,14 @@ class _Builder:
 class Field:
     """An Arrow field: ``kind`` is one of null, bool, int, uint, float,
     utf8, large_utf8, binary, large_binary, list, large_list, struct,
-    fixed_size_list; ``width`` the bits of an int/float, or a fixed list's
-    size."""
+    fixed_size_list, date, time, timestamp; ``width`` the bits of an
+    int/float/date/time, or a fixed list's size; ``unit`` a time or
+    timestamp's unit (s, ms, us, ns) and ``tz`` a timestamp's zone."""
 
     def __init__(self, name: str, kind: str, width: int = 0,
-                 children: Sequence["Field"] = ()):
+                 children: Sequence["Field"] = (), unit: str = "", tz: Optional[str] = None):
         self.name, self.kind, self.width, self.children = name, kind, width, list(children)
+        self.unit, self.tz = unit, tz
 
 
 def _parse_field(t: _Table, where: str) -> Field:
@@ -238,8 +244,41 @@ def _parse_field(t: _Table, where: str) -> Field:
         return Field(name, "float", {0: 16, 1: 32, 2: 64}[ty.scalar(0, "h")])
     if tag == T_FIXED_SIZE_LIST:
         return Field(name, "fixed_size_list", ty.scalar(0, "i"), children)
+    if tag == T_DATE:  # DateUnit: DAY (date32) = 0, MILLISECOND (date64) = 1
+        return Field(name, "date", 64 if ty.scalar(0, "h", 1) else 32)
+    if tag == T_TIME:
+        return Field(name, "time", ty.scalar(1, "i", 32),
+                     unit=temporal.UNITS[ty.scalar(0, "h", 1)])
+    if tag == T_TIMESTAMP:
+        return Field(name, "timestamp", 64, unit=temporal.UNITS[ty.scalar(0, "h")],
+                     tz=ty.string(1))
     raise NotImplementedError(f"column {path!r} has Arrow type "
                               f"{_TYPE_NAMES.get(tag, tag)!r}, which this reader does not take")
+
+
+def arrow_schema_zones(encoded: str) -> Dict[Tuple[str, ...], str]:
+    """The time zone of each zoned timestamp field of an ``ARROW:schema``
+    (the base64 IPC schema message ``pyarrow`` writes into a parquet
+    footer), by its path of field names (a list's element adds none)."""
+    import base64
+
+    raw = base64.b64decode(encoded)
+    if raw[:4] == CONTINUATION:
+        raw = raw[8:]
+    msg = _root(raw)
+    zones: Dict[Tuple[str, ...], str] = {}
+
+    def walk(fields, key, named=True):
+        for f in fields or []:
+            tag = f.scalar(2, "B")
+            here = key + (f.string(0) or "",) if named else key
+            if tag == T_TIMESTAMP and f.table(3).string(1):
+                zones[here] = f.table(3).string(1)
+            walk(f.tables(5), here, tag not in (T_LIST, T_LARGE_LIST, T_FIXED_SIZE_LIST))
+
+    if msg.scalar(1, "B") == SCHEMA:
+        walk(msg.table(2).tables(1), ())
+    return zones
 
 
 def _parse_schema(t: _Table) -> Tuple[List[Field], Dict[str, str]]:
@@ -311,6 +350,16 @@ def _read_array(f: Field, batch: _Batch) -> List[Any]:
             values = [data[a:b] for a, b in zip(offsets[:-1], offsets[1:])]
             if f.kind.endswith("utf8"):
                 values = [v.decode("utf-8") for v in values]
+        return _with_nulls(values, valid)
+    if f.kind in ("date", "time", "timestamp"):
+        raw = np.frombuffer(batch.buffer(), f"<i{f.width // 8}", length)
+        raw = (raw if valid is None else np.where(valid, raw, 0)).tolist()  # nulls hold anything
+        if f.kind == "date":
+            values = temporal.dates(raw) if f.width == 32 else temporal.dates_ms(raw)
+        elif f.kind == "time":
+            values = temporal.times(raw, f.unit)
+        else:
+            values = temporal.timestamps(raw, f.unit, f.tz)
         return _with_nulls(values, valid)
     if f.kind == "fixed_size_list":
         child, n = _read_array(f.children[0], batch), f.width

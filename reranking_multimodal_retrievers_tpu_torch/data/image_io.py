@@ -8,17 +8,21 @@ none).
   five scanline filters) and returns an RGB ``uint8 [H, W, 3]`` array as
   PIL's ``convert("RGB")`` gives it: alpha and ``tRNS`` dropped, grey
   below 8 bits scaled, 16-bit grey clipped at 255 (PIL's mode ``I;16``),
-  other 16-bit samples' high byte. It also decodes every Huffman-coded
-  8-bit JPEG itself: :func:`decode_jpeg`, GIFs, BMPs and TIFFs through
+  other 16-bit samples' high byte. It also decodes every 8-bit JPEG PIL
+  reads itself (Huffman- or arithmetic-coded DCT, sequential or
+  progressive, and lossless): :func:`decode_jpeg`, GIFs, BMPs and TIFFs through
   ``data/image_codecs.py`` and WebPs (lossy, lossless, with alpha, the
   first frame of an animation) through ``data/webp.py`` (a variant either
-  does not take raises, naming it). Any other format (an arithmetic-coded,
-  12-bit or lossless JPEG) is read by PIL, imported inside that branch, and raises
-  naming the format where PIL is absent: the choice is made on the file's
-  header, before any decoding, and a file this module takes is never
-  retried with PIL.
+  does not take raises, naming it). Any other format (an arithmetic-coded
+  lossless JPEG, a lossless one with subsampled or 2 components) is read by PIL, imported
+  inside that branch, and raises naming the format where PIL is absent: the
+  choice is made on the file's header, before any decoding, and a file this
+  module takes is never retried with PIL. A 12-bit (or any other than
+  8-bit) JPEG raises naming its precision, with or without PIL: PIL 12.1
+  refuses it too ("cannot identify image file").
 - :func:`decode_jpeg` takes sequential (baseline or extended) and
-  progressive files of 1, 3 or 4 components, any integer sampling
+  progressive files, Huffman- or arithmetic-coded (``data/jpeg_coding.py``,
+  with the DAC marker's conditioning), of 1, 3 or 4 components, any integer sampling
   factors and restart markers, and gives the pixels PIL's
   ``Image.open(...).convert("RGB")`` gives through libjpeg-turbo's
   defaults, bit for bit: ``jdphuff.c``'s four progressive decoders (EOB
@@ -30,7 +34,10 @@ none).
   chroma planes of at most two columns) with the edge rows replicated, the
   fixed-point YCbCr -> RGB and YCCK -> CMYK tables of ``jdcolor.c``, and
   PIL's inversion of Adobe CMYK and its CMYK -> RGB. Its Huffman decoding
-  is pure Python, the rest numpy over all blocks at once.
+  is pure Python, the rest numpy over all blocks at once. It also takes
+  Huffman-coded lossless files (SOF3) of 1, 3 or 4 components without
+  subsampling: predictors 1-7, the point transform and restart intervals
+  of whole rows (``data/jpeg_coding.py``), then the same colour path.
 - :class:`CLIPImageProcessor` turns images into CLIP pixel values
   ``[N, 3, s, s]`` fp32: shortest side resized to ``s`` (bicubic with
   antialiasing), centre crop, ``/255``, CLIP's mean and std. An image
@@ -56,6 +63,7 @@ import numpy as np
 import torch
 
 from .image_codecs import codec_format, decode_codec
+from .jpeg_coding import arith_interval, lossless_interval
 from .webp import decode_webp, webp_variant
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -231,6 +239,8 @@ _ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 _SOF_SEQUENTIAL = (0xC0, 0xC1)  # baseline, extended sequential (Huffman)
 _SOF_PROGRESSIVE = 0xC2
+_SOF_LOSSLESS = 0xC3
+_SOF_ARITH, _SOF_ARITH_PROGRESSIVE = 0xC9, 0xCA
 _SOF_NAMES = {0xC3: "a lossless JPEG", 0xC5: "a differential JPEG", 0xC6: "a differential JPEG",
               0xC7: "a differential lossless JPEG", 0xC9: "an arithmetic-coded JPEG",
               0xCA: "an arithmetic-coded progressive JPEG",
@@ -273,21 +283,27 @@ def _sof(data: bytes):
 
 
 def _jpeg_frame(data: bytes):
-    """(width, height, [(id, h, v, tq)], progressive) of a JPEG this module
-    decodes, else None: a Huffman-coded sequential (SOF0/SOF1) or
-    progressive (SOF2) frame at 8 bits with 1, 3 or 4 components whose
-    sampling factors divide the largest."""
+    """(width, height, [(id, h, v, tq)], progressive, coding) of a JPEG this
+    module decodes, else None: a sequential (SOF0/SOF1/SOF9) or progressive
+    (SOF2/SOF10) frame, ``coding`` "huffman" or "arithmetic", at 8 bits
+    with 1, 3 or 4 components whose sampling factors divide the largest; or
+    a Huffman-coded lossless frame (SOF3, ``coding`` "lossless") at 8 bits
+    with 1, 3 or 4 components, none subsampled."""
     sof = _sof(data)
     if sof is None:
         return None
     marker, precision, w, h, comps = sof
-    if marker not in _SOF_SEQUENTIAL and marker != _SOF_PROGRESSIVE:
+    coding = {0xC0: "huffman", 0xC1: "huffman", 0xC2: "huffman", _SOF_ARITH: "arithmetic",
+              _SOF_ARITH_PROGRESSIVE: "arithmetic", _SOF_LOSSLESS: "lossless"}.get(marker)
+    if coding is None:
         return None
     hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
     if (precision != 8 or len(comps) not in (1, 3, 4) or h == 0
             or any(hmax % c[1] or vmax % c[2] for c in comps)):
         return None
-    return w, h, comps, marker == _SOF_PROGRESSIVE
+    if coding == "lossless" and (hmax, vmax) != (1, 1):
+        return None
+    return w, h, comps, marker in (_SOF_PROGRESSIVE, _SOF_ARITH_PROGRESSIVE), coding
 
 
 def image_format(data: bytes) -> str:
@@ -734,22 +750,27 @@ def _cmyk_to_rgb(c, m, y, k, ycck: bool) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """A Huffman-coded 8-bit JPEG (see :func:`_jpeg_frame`), sequential or
-    progressive, of 1, 3 or 4 components, as RGB ``uint8 [H, W, 3]``,
-    bitwise as PIL decodes it through libjpeg-turbo (block smoothing of a
-    progressive file whose scans leave low coefficients unrefined
-    included)."""
+    """An 8-bit JPEG (see :func:`_jpeg_frame`): Huffman- or arithmetic-coded
+    DCT, sequential or progressive, or Huffman-coded lossless, of 1, 3 or 4
+    components, as RGB ``uint8 [H, W, 3]``, bitwise as PIL decodes it
+    through libjpeg-turbo (block smoothing of a progressive file whose scans
+    leave low coefficients unrefined included)."""
     frame = _jpeg_frame(data)
     if frame is None:
-        raise ValueError(f"not a Huffman-coded 8-bit JPEG of 1, 3 or 4 components: "
+        raise ValueError(f"not an 8-bit JPEG of 1, 3 or 4 components this module decodes: "
                          f"{image_format(data)}")
-    width, height, comps, progressive = frame
+    width, height, comps, progressive, coding = frame
+    arithmetic = coding == "arithmetic"
+    dc_lu: Dict[int, Tuple[int, int]] = {}  # the DAC marker's conditioning
+    ac_k: Dict[int, int] = {}
     hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
     mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
     qt: Dict[int, np.ndarray] = {}
     latched: Dict[int, np.ndarray] = {}  # each component's table, fixed at its first scan
     huff: Dict[Tuple[int, int], List[int]] = {}
     flats = [[0] * (mcuy * c[2] * mcux * c[1] * 64) for c in comps]
+    if coding == "lossless":
+        flats = [np.zeros((height, width), np.int64) for _ in comps]
     coef_bits = [[-1] * 64 for _ in comps]
     index = {c[0]: i for i, c in enumerate(comps)}
     restart, adobe, jfif = 0, None, False
@@ -780,6 +801,13 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 a += 17 + total
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", data[a:a + 2])
+        elif marker == 0xCC:  # arithmetic conditioning
+            for i in range(a, b - 1, 2):
+                tc, tb, cs = data[i] >> 4, data[i] & 15, data[i + 1]
+                if tc == 0:
+                    dc_lu[tb] = (cs & 15, cs >> 4)
+                else:
+                    ac_k[tb] = cs
         elif marker == 0xE0 and data[a:a + 5] == b"JFIF\0":
             jfif = True
         elif marker == 0xEE and data[a:a + 5] == b"Adobe" and b - a >= 12:
@@ -790,6 +818,13 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                      data[a + 2 + 2 * i] & 15) for i in range(ns)]
             ss, se, ahl = data[a + 1 + 2 * ns:a + 4 + 2 * ns]
             ah, al = ahl >> 4, ahl & 15
+            if coding == "lossless":
+                if _jpeg_colour(comps, adobe, jfif) in ("ycbcr", "ycck"):
+                    raise NotImplementedError(
+                        "a lossless JPEG in YCbCr or YCCK, which libjpeg-turbo (and so PIL "
+                        "12.1) does not convert to RGB either")
+                pos = _lossless_scan(data, b, scan, huff, flats, width, height, restart, ss, al)
+                continue
             if not progressive:
                 ss, se, ah, al = 0, 63, 0, 0
             for c, _, _ in scan:
@@ -798,6 +833,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                     coef_bits[c][k] = al
 
             def unit(c, td, ta, offset):
+                if arithmetic:
+                    return (c, td, ta, offset)
                 if not progressive:
                     return (c, huff[(0, td)], huff[(1, ta)], offset)
                 return (c, huff.get((0, td) if ss == 0 else (1, ta)), offset)
@@ -830,12 +867,17 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 group = [u for mcu in units[s * per:(s + 1) * per] for u in mcu]
                 if not group:
                     break
-                if progressive:
+                if arithmetic:
+                    arith_interval(seg, group, flats, _ZIGZAG.tolist(), ss=ss, se=se, ah=ah,
+                                   al=al, progressive=progressive, dc_lu=dc_lu, ac_k=ac_k)
+                elif progressive:
                     _progressive_interval(seg, group, flats, ss, se, ah, al)
                 else:
                     _decode_units(seg, group, flats, [0] * len(comps))
             continue
         pos = b
+    if coding == "lossless":
+        return _jpeg_rgb([f.astype(np.uint8) for f in flats], comps, adobe, jfif)
     tables = [latched.get(i, qt.get(c[3])) for i, c in enumerate(comps)]
     smooth = progressive and _smoothing_ok(coef_bits, tables)
     planes = []
@@ -848,25 +890,68 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         px = _idct_islow(coef.reshape(-1, 64) * tables[i]).reshape(nby, nbx, 8, 8)
         px = px.transpose(0, 2, 1, 3).reshape(nby * 8, nbx * 8)
         planes.append(_upsample(px[:ch, :cw], hmax // h, vmax // v)[:height, :width])
+    return _jpeg_rgb(planes, comps, adobe, jfif)
+
+
+def _jpeg_colour(comps, adobe, jfif) -> str:
+    """The colour space libjpeg-turbo gives a frame: "grey", "cmyk" or
+    "ycck" (by the Adobe transform: 0 is CMYK, any other YCCK; no marker,
+    CMYK), "rgb" or "ycbcr" (by the JFIF and Adobe markers and the ids)."""
     if len(comps) == 1:
-        return np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=2)
+        return "grey"
     if len(comps) == 4:
-        # libjpeg: an Adobe transform of 0 is CMYK, any other YCCK; no marker, CMYK
-        return _cmyk_to_rgb(*planes, ycck=adobe is not None and adobe != 0)
+        return "ycck" if adobe is not None and adobe != 0 else "cmyk"
     ids = tuple(c[0] for c in comps)
     rgb = (not jfif) and (adobe == 0 if adobe is not None else ids == (82, 71, 66))
-    if rgb:
+    return "rgb" if rgb else "ycbcr"
+
+
+def _jpeg_rgb(planes, comps, adobe, jfif) -> np.ndarray:
+    """Full-size component planes to RGB as libjpeg-turbo and PIL convert
+    them (:func:`_jpeg_colour`): grey repeated, CMYK/YCCK, RGB or YCbCr."""
+    colour = _jpeg_colour(comps, adobe, jfif)
+    if colour == "grey":
+        return np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=2)
+    if colour in ("cmyk", "ycck"):
+        return _cmyk_to_rgb(*planes, ycck=colour == "ycck")
+    if colour == "rgb":
         return np.stack(planes, -1).astype(np.uint8)
     return _ycc_to_rgb(*planes)
 
 
+def _lossless_scan(data: bytes, start: int, scan, huff, samples, width: int, height: int,
+                   restart: int, predictor: int, pt: int) -> int:
+    """One Huffman-coded lossless scan from its entropy-coded data at
+    ``start`` into ``samples``; returns the position after it. A restart
+    interval that is not a whole number of rows raises."""
+    segs, end = _entropy_segments(data, start)
+    units_per_row = width
+    per = restart or units_per_row * height
+    if per % units_per_row:
+        raise NotImplementedError("a lossless JPEG whose restart interval is not a whole "
+                                  "number of rows")
+    rows_per = per // units_per_row
+    comps = [(c, huff[(0, td)]) for c, td, _ in scan]
+    for i, seg in enumerate(segs):
+        rows = range(i * rows_per, min(height, (i + 1) * rows_per))
+        if not rows:
+            break
+        lossless_interval(seg, comps, samples, rows, width, predictor, pt, 8)
+    return end
+
+
 def _decode_own(data: bytes, name: str):
     """The pixels of a file this module decodes itself (PNG, the JPEGs of
-    :func:`_jpeg_frame`, GIF, BMP, TIFF, WebP), else None."""
+    :func:`_jpeg_frame`, GIF, BMP, TIFF, WebP), else None. A JPEG of
+    another precision than 8 bits raises: PIL refuses it too."""
     if _is_own_png(data):
         return _read_png(data)
     if _jpeg_frame(data) is not None:
         return decode_jpeg(data)
+    sof = _sof(data)
+    if sof is not None and sof[1] != 8:
+        raise NotImplementedError(f"{name}: {image_format(data)}, which neither this module "
+                                  "nor PIL reads")
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         try:
             return decode_webp(data)

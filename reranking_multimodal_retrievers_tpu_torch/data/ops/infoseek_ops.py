@@ -132,12 +132,15 @@ def build_captioner(blip2_config, checkpoint_dir=None):
 def load_caption_tokenizer(path):
     """The captioner's tokenizer, where the JAX package calls
     ``AutoTokenizer``: a directory whose ``tokenizer.json`` holds a
-    ``Unigram`` model (Flan-T5's), read by ``UnigramTokenizer``, else a
-    WordPiece vocabulary directory (``vocab.txt``). Anything else raises,
-    naming it; a SentencePiece ``spiece.model`` without ``tokenizer.json``
-    is not read."""
+    ``Unigram`` model (Flan-T5's), read by ``UnigramTokenizer``; else one
+    holding SentencePiece's ``spiece.model`` (T5's tokenizer built from it
+    as ``transformers``' converter builds it, ``models/spiece.py``); else a
+    WordPiece vocabulary directory (``vocab.txt``). A ``tokenizer.json``
+    wins over ``spiece.model``, as it does for ``AutoTokenizer``. Anything
+    else raises, naming it."""
     import json
 
+    from ...models.spiece import tokenizer_from_spiece
     from ...models.tokenization import UnigramTokenizer, WordPieceTokenizer
 
     spec_path = os.path.join(path, "tokenizer.json") if path else ""
@@ -147,18 +150,16 @@ def load_caption_tokenizer(path):
             model = (json.load(f).get("model") or {}).get("type")
         if model == "Unigram":
             return UnigramTokenizer.from_pretrained(path)
+    if model is None and path and os.path.exists(os.path.join(path, "spiece.model")):
+        return tokenizer_from_spiece(path)
     if path and os.path.exists(os.path.join(path, "vocab.txt")):
         return WordPieceTokenizer.from_pretrained(path)
     if model is not None:
         raise NotImplementedError(f"tokenizer {path!r}: its tokenizer.json holds a {model!r} "
                                   "model; the port reads Unigram models")
-    if path and os.path.exists(os.path.join(path, "spiece.model")):
-        raise NotImplementedError(f"tokenizer {path!r}: a SentencePiece spiece.model without "
-                                  "tokenizer.json is not read")
     raise NotImplementedError(
-        f"tokenizer {path!r}: the port reads a tokenizer.json with a Unigram model or a "
-        "WordPiece vocab.txt, and the directory holds neither (a SentencePiece spiece.model "
-        "alone is not read)")
+        f"tokenizer {path!r}: the port reads a tokenizer.json with a Unigram model, a "
+        "SentencePiece spiece.model or a WordPiece vocab.txt, and the directory holds none")
 
 
 @register_transform_functor

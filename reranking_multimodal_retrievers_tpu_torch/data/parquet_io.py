@@ -9,18 +9,27 @@ bools, strings, bytes, lists, dicts (structs) and ``None`` for a null.
 - The footer (``FileMetaData``) and the page headers are Thrift
   compact-protocol structs, parsed generically into ``{field id: value}``.
 - Codecs: UNCOMPRESSED, SNAPPY (the raw block format, decoded here), GZIP
-  (``zlib``), ZSTD (``zstd.py``), LZ4_RAW (the LZ4 block format, decoded
-  here) and LZ4 (read as parquet-cpp reads it: Hadoop's framing of LZ4
-  blocks, else one raw block). BROTLI and LZO raise ``NotImplementedError``
-  naming the codec and the file.
+  (``zlib``), ZSTD (``zstd.py``), BROTLI (``brotli.py``), LZ4_RAW (the LZ4
+  block format, decoded here) and LZ4 (read as parquet-cpp reads it:
+  Hadoop's framing of LZ4 blocks, else one raw block). LZO, which
+  ``pyarrow`` cannot read either, raises ``NotImplementedError`` naming the
+  codec and the file.
 - Pages: data page v1 (levels inside the compressed body, each behind a
   4-byte length), data page v2 (levels before the compressed part;
   ``is_compressed`` honoured) and dictionary pages.
-- Encodings: PLAIN (every physical type but INT96), PLAIN_DICTIONARY and
+- Encodings: PLAIN (every physical type), PLAIN_DICTIONARY and
   RLE_DICTIONARY, RLE for levels and booleans, DELTA_BINARY_PACKED (INT32,
   INT64), DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY (BYTE_ARRAY and
   FIXED_LEN_BYTE_ARRAY) and BYTE_STREAM_SPLIT (FLOAT, DOUBLE, INT32, INT64,
-  FIXED_LEN_BYTE_ARRAY). INT96 raises, naming the column.
+  FIXED_LEN_BYTE_ARRAY).
+- Dates, times and timestamps (the DATE, TIME and TIMESTAMP logical types,
+  their legacy converted types, and INT96, read as ``pyarrow`` reads it:
+  naive ``timestamp[ns]``) become the values of ``temporal.py``: ``date``,
+  ``time``, ``datetime`` in the time zone the footer's ``ARROW:schema``
+  names (UTC where it names none and the column is adjusted to UTC), and
+  for nanoseconds a ``datetime`` carrying them (``temporal.Timestamp``)
+  where ``pyarrow`` gives a ``pandas.Timestamp``. DECIMAL, INTERVAL,
+  FLOAT16 and the geometry types raise, naming the column.
 - Records are assembled from the definition and repetition levels
   (Dremel): optional values, the 3-level ``LIST`` form and the legacy
   2-level forms, structs, lists of structs. Levels, dictionary gathers and
@@ -50,8 +59,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import zstd
-from .arrow_io import _unreadable, decode_columns
+from . import brotli, temporal, zstd
+from .arrow_io import _unreadable, arrow_schema_zones, decode_columns
 from .table import Table, concatenate_tables
 
 PAR1 = b"PAR1"
@@ -66,11 +75,16 @@ DATA_PAGE, DICTIONARY_PAGE, DATA_PAGE_V2 = 0, 2, 3
 # ConvertedType values
 _UTF8, _MAP, _MAP_KEY_VALUE, _LIST, _ENUM, _JSON = 0, 1, 2, 3, 4, 19
 _UNSIGNED = {11: 8, 12: 16, 13: 32, 14: 64}  # UINT_8..UINT_64
-_TEMPORAL = {5: "DECIMAL", 6: "DATE", 7: "TIME_MILLIS", 8: "TIME_MICROS",
-             9: "TIMESTAMP_MILLIS", 10: "TIMESTAMP_MICROS", 21: "INTERVAL"}
-# LogicalType union members that change a value's Python type
-_LOGICAL_OTHER = {5: "DECIMAL", 6: "DATE", 7: "TIME", 8: "TIMESTAMP", 15: "FLOAT16",
-                  16: "VARIANT", 17: "GEOMETRY", 18: "GEOGRAPHY"}
+_UNREAD_CONVERTED = {5: "DECIMAL", 21: "INTERVAL"}
+# legacy converted types of dates, times and timestamps: (kind, unit); a
+# converted timestamp is adjusted to UTC
+_CONVERTED_TEMPORAL = {6: ("date", None), 7: ("time", "ms"), 8: ("time", "us"),
+                       9: ("timestamp", "ms"), 10: ("timestamp", "us")}
+# LogicalType union members that change a value's Python type and are not read
+_LOGICAL_OTHER = {5: "DECIMAL", 15: "FLOAT16", 16: "VARIANT", 17: "GEOMETRY",
+                  18: "GEOGRAPHY"}
+_LOGICAL_DATE, _LOGICAL_TIME, _LOGICAL_TIMESTAMP = 6, 7, 8
+_TIME_UNITS = {1: "ms", 2: "us", 3: "ns"}  # TimeUnit union members
 
 
 # ------------------------------------------------------------------ thrift
@@ -259,7 +273,7 @@ def lz4_hadoop(data: bytes, size: int) -> bytes:
     return lz4_block(data)
 
 
-_READ_CODECS = (0, 1, 2, 5, 6, 7)
+_READ_CODECS = (0, 1, 2, 4, 5, 6, 7)
 
 
 def _check_codec(codec: int, path: str) -> None:
@@ -279,6 +293,8 @@ def _decompress(codec: int, data: bytes, size: int) -> bytes:
         return zlib.decompress(data, 47)
     if codec == 6:
         return zstd.decompress(data)
+    if codec == 4:
+        return brotli.decompress(data)
     if codec == 7:
         return lz4_block(data)
     return lz4_hadoop(data, size)
@@ -299,6 +315,12 @@ class _Node:
         self.max_def = parent.max_def + (self.repetition != REQUIRED) if parent is not None else 0
         self.max_rep = parent.max_rep + (self.repetition == REPEATED) if parent is not None else 0
         self.leaves: List[int] = []  # indices of the leaf columns under this node
+        # the field's path in the Arrow schema, which names no list level
+        self.in_list_group = parent is not None and parent.is_list
+        skip = parent is not None and (parent.is_list or parent.in_list_group)
+        self.arrow_key = (parent.arrow_key + (() if skip else (self.name,))
+                          if parent is not None else ())
+        self.tz: Optional[str] = None  # a timestamp's zone, from the ARROW:schema
 
     @property
     def is_list(self) -> bool:
@@ -392,17 +414,46 @@ def _plain(leaf: _Node, buf: bytes, pos: int, n: int, where: str):
     if t == FIXED_LEN_BYTE_ARRAY:
         w = leaf.type_length
         return [buf[pos + i * w:pos + (i + 1) * w] for i in range(n)]
-    raise NotImplementedError(f"{where}: physical type INT96, which this reader does not take")
+    return temporal.int96_nanoseconds(np.frombuffer(buf, np.uint8, 12 * n, pos))
+
+
+def _temporal_kind(leaf: _Node) -> Optional[Tuple[str, Optional[str], Optional[str]]]:
+    """(kind, unit, time zone) of a date, time or timestamp column, else None."""
+    logical = leaf.logical
+    if leaf.ptype == INT96:
+        return "timestamp", "ns", None
+    if _LOGICAL_DATE in logical:
+        return "date", None, None
+    for k, kind in ((_LOGICAL_TIME, "time"), (_LOGICAL_TIMESTAMP, "timestamp")):
+        if k in logical:
+            spec = logical[k]
+            unit = _TIME_UNITS[next(iter(spec.get(2) or {1: {}}))]
+            utc = kind == "timestamp" and spec.get(1, False)
+            return kind, unit, (leaf.tz or "UTC") if utc else None
+    if leaf.converted in _CONVERTED_TEMPORAL:
+        kind, unit = _CONVERTED_TEMPORAL[leaf.converted]
+        return kind, unit, (leaf.tz or "UTC") if kind == "timestamp" else None
+    return None
 
 
 def _python_values(leaf: _Node, vals, where: str) -> List[Any]:
     """PLAIN values as the Python values ``to_pylist`` gives for the
-    column's logical type."""
+    column's logical type (dates, times and timestamps by the rule of
+    ``temporal.py``)."""
     logical, conv = leaf.logical, leaf.converted
     other = [name for k, name in _LOGICAL_OTHER.items() if k in logical]
-    if other or conv in _TEMPORAL:
-        raise NotImplementedError(f"{where}: logical type {(other or [_TEMPORAL.get(conv)])[0]},"
-                                  " which this reader does not take")
+    if other or conv in _UNREAD_CONVERTED:
+        raise NotImplementedError(f"{where}: logical type "
+                                  f"{(other or [_UNREAD_CONVERTED.get(conv)])[0]}, which this "
+                                  "reader does not take")
+    kind = _temporal_kind(leaf)
+    if kind is not None:
+        what, unit, tz = kind
+        if what == "date":
+            return temporal.dates(vals.tolist())
+        if what == "time":
+            return temporal.times(vals.tolist(), unit)
+        return temporal.timestamps(vals.tolist(), unit, tz)
     if leaf.ptype in (INT32, INT64):
         bits = _UNSIGNED.get(conv)
         if 10 in logical and logical[10].get(2) is False:
@@ -688,6 +739,10 @@ def read_parquet(path: str) -> Table:
         for name, feat in feats.items():
             _unreadable(feat, name)
     root, leaves = _schema(meta[2])
+    if "ARROW:schema" in kv:
+        zones = arrow_schema_zones(kv["ARROW:schema"])
+        for leaf in leaves:
+            leaf.tz = zones.get(leaf.arrow_key)
     groups = []
     for rg in meta.get(4) or []:
         cols = []

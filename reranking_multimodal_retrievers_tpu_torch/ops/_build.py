@@ -2,8 +2,10 @@
 
 Each ``csrc/*.cu`` file has a plain C interface (no PyTorch headers), so it
 compiles in seconds into a shared library under ``build/torch_kernels/``
-at the repository root (listed in ``.gitignore``). K2's two sources are each
-built into one library a group of head widths (``K2_GROUPS``). All libraries
+at the repository root (listed in ``.gitignore``). K2's two per-width
+sources are each built into one library a group of head widths
+(``K2_GROUPS``); its generic kernel (``attention_any.cu``, every other
+head width) into one more. All libraries
 are compiled in parallel, one ``nvcc`` each. A library is rebuilt only when
 the hash of its source, the shared headers (every ``csrc/*.cuh``) and its
 flags changes. A failed build raises.
@@ -32,6 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 K2_GROUPS = {"": (64, 80), "_narrow": (16, 48), "_wide": (96, 128)}
 K2_SOURCES = ("attention", "attention_f32")  # bf16 and fp32
 SOURCES = {"maxsim": "maxsim.cu", "maxsim_int8": "maxsim_int8.cu",
+           "attention_any": "attention_any.cu",
            **{src + group: f"{src}.cu" for src in K2_SOURCES for group in K2_GROUPS}}
 DEFINES = {src + group: (f"-DK2_HD_FIRST={first}", f"-DK2_HD_LAST={last}")
            for src in K2_SOURCES for group, (first, last) in K2_GROUPS.items()}

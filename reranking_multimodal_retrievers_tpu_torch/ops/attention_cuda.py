@@ -2,14 +2,17 @@
 
 Replaces ``reranking_multimodal_retrievers_tpu/ops/attention_pallas.py::
 fused_self_attention``. The CUDA kernels are ``csrc/attention.cu`` (bf16)
-and ``csrc/attention_f32.cu`` (fp32, 3xTF32 on the tensor cores); their
-headers say what bounds them on an H100 and how their designs answer that.
+and ``csrc/attention_f32.cu`` (fp32, 3xTF32 on the tensor cores), built for
+every head_dim in ``KERNEL_HEAD_DIMS`` (the multiples of 16 up to 128), and
+``csrc/attention_any.cu`` (bf16 and fp32, fp32 arithmetic) for every other
+head_dim; their headers say what bounds them on an H100 and how their
+designs answer that.
 
 :func:`fused_self_attention` takes the plain version for CPU tensors and
 launches the kernel for CUDA tensors (or raises: there is no fallback).
 Both take the key-padding bias (BERT), the per-head bias (the T5
-relative-position bias, bf16 or fp32) and the causal mask (OPT); the kernels
-take every head_dim in ``KERNEL_HEAD_DIMS`` (the multiples of 16 up to 128).
+relative-position bias, bf16 or fp32) and the causal mask (OPT), at every
+head geometry (:func:`kernel_library` names the kernel each one runs).
 
 :func:`head_pack_feasible` is the gate every fused-attention call site asks
 (BERT, the T5 encoder, OPT), on the card as off it, so that a geometry the
@@ -26,7 +29,8 @@ from . import _build
 from ._grad import refuse_grad
 
 NEG_INF = -1e9
-# the widths of every library K2 is built into (ops/_build.py::K2_GROUPS)
+# the widths of the per-width libraries (ops/_build.py::K2_GROUPS); every
+# other head_dim runs csrc/attention_any.cu
 KERNEL_HEAD_DIMS = tuple(sorted(hd for first, last in _build.K2_GROUPS.values()
                                 for hd in range(first, last + 1, 16)))
 
@@ -43,8 +47,8 @@ def head_pack_feasible(num_heads: int, head_dim: int) -> bool:
     whose packed width is a multiple of 128 lanes divides ``num_heads``
     (hd 64 -> 2 heads, hd 80 -> 8, hd 16 -> 8, hd 32 -> 4). K2 packs no
     heads; BERT, the T5 encoder and OPT ask this gate so that the port fuses
-    exactly where the JAX package does (an admitted head_dim outside
-    ``KERNEL_HEAD_DIMS`` then raises on the card)."""
+    exactly where the JAX package does; on the card every admitted geometry
+    launches a kernel (:func:`kernel_library`)."""
     hpb = max(1, -(-128 // head_dim))
     while (hpb * head_dim) % 128 != 0 or num_heads % hpb != 0:
         hpb += 1
@@ -53,12 +57,20 @@ def head_pack_feasible(num_heads: int, head_dim: int) -> bool:
     return True
 
 
-def _check_kernel_head_dim(HD: int, num_heads: int) -> int:
-    if HD % num_heads or HD // num_heads not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the CUDA attention kernels take head_dim {KERNEL_HEAD_DIMS}; got {HD} channels "
-            f"over {num_heads} heads (head_dim {HD / num_heads:g})")
+def _head_dim(HD: int, num_heads: int) -> int:
+    if num_heads <= 0 or HD % num_heads:
+        raise ValueError(f"{HD} channels do not split into {num_heads} heads")
     return HD // num_heads
+
+
+def kernel_library(head_dim: int, fp32: bool) -> str:
+    """The library (``ops/_build.py::SOURCES``) whose kernel K2 launches on
+    the card at ``head_dim`` in fp32 (else bf16): the per-width instance of
+    ``csrc/attention_f32.cu`` or ``csrc/attention.cu`` for a head_dim in
+    ``KERNEL_HEAD_DIMS``, ``csrc/attention_any.cu`` for any other."""
+    if head_dim in KERNEL_HEAD_DIMS:
+        return _library("attention_f32" if fp32 else "attention", head_dim)
+    return "attention_any"
 
 
 def causal_bias(L: int, device=None) -> torch.Tensor:
@@ -126,10 +138,12 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
     [num_heads, L, L] additive bias; causal: -1e9 where key > query.
     Returns [B, L, num_heads * head_dim] in q's dtype.
 
-    On CUDA, fp32 q/k/v go to :func:`fused_self_attention_f32` with every
-    option; otherwise q/k/v are bf16 with a head_dim in ``KERNEL_HEAD_DIMS``, unit stride in
-    the last dim and row/batch strides that are multiples of 8 elements (the
-    kernel reads them by TMA through tensor maps built per call); head_bias
+    On CUDA, a head_dim outside ``KERNEL_HEAD_DIMS`` goes to
+    :func:`fused_self_attention_any` in either dtype, fp32 q/k/v go to
+    :func:`fused_self_attention_f32` with every option; otherwise q/k/v are
+    bf16 with unit stride in the last dim and row/batch strides that are
+    multiples of 8 elements (the kernel reads them by TMA through tensor
+    maps built per call); head_bias
     is a contiguous bf16 or fp32 tensor on the same device, passed to the
     kernel in its own dtype (a bf16 one at L % 8 == 0 also by TMA, any other
     read directly); any L is taken.
@@ -151,7 +165,9 @@ def fused_self_attention(q, k, v, mask_bias=None, head_bias=None, *,
         return fused_self_attention_reference(
             q, k, v, mask_bias, head_bias, num_heads=num_heads, sm_scale=sm_scale,
             causal=causal)
-    hd = _check_kernel_head_dim(HD, num_heads)
+    hd = _head_dim(HD, num_heads)
+    if hd not in KERNEL_HEAD_DIMS:
+        return _launch_any(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal)
     if q.dtype == k.dtype == v.dtype == torch.float32:
         return _launch_f32(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal)
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -194,7 +210,8 @@ def fused_self_attention_f32(q, k, v, mask_bias=None, head_bias=None, *, num_hea
                              sm_scale: float, causal: bool = False) -> torch.Tensor:
     """K2's fp32 path on CUDA (``csrc/attention_f32.cu``): softmax(Q K^T *
     sm_scale + key bias [+ head bias] [+ causal]) V for fp32 q/k/v
-    ``[B, L, num_heads * head_dim]`` with a head_dim in ``KERNEL_HEAD_DIMS``, an optional
+    ``[B, L, num_heads * head_dim]`` with a head_dim in ``KERNEL_HEAD_DIMS``
+    (any other goes to :func:`fused_self_attention_any`), an optional
     [B, L] key bias, an optional contiguous bf16 or fp32 [num_heads, L, L]
     head bias and the causal mask; returns fp32 ``[B, L, num_heads *
     head_dim]``. The kernel copies q/k/v in 16-byte pieces, so each needs
@@ -212,13 +229,76 @@ def fused_self_attention_f32(q, k, v, mask_bias=None, head_bias=None, *, num_hea
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must be equal [B, L, heads*hd]: {q.shape}, {k.shape}, {v.shape}")
     B, L, HD = q.shape
-    _check_kernel_head_dim(HD, num_heads)
     if head_bias is not None:
         _check_head_bias(head_bias, num_heads, L, q.device)
+    if _head_dim(HD, num_heads) not in KERNEL_HEAD_DIMS:
+        return _launch_any(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal)
     return _launch_f32(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal)
 
 
 fused_self_attention_f32.launches = 0
+
+
+def fused_self_attention_any(q, k, v, mask_bias=None, head_bias=None, *, num_heads: int,
+                             sm_scale: float, causal: bool = False) -> torch.Tensor:
+    """K2's generic kernel on CUDA (``csrc/attention_any.cu``): the same
+    function as :func:`fused_self_attention` for bf16 or fp32 q/k/v at any
+    head_dim, in fp32 arithmetic on the CUDA cores, reading q/k/v through
+    any batch and row strides (unit stride in the last dim). Called by
+    :func:`fused_self_attention` and :func:`fused_self_attention_f32` for
+    a head_dim outside ``KERNEL_HEAD_DIMS``; it takes CUDA tensors only, at
+    any head_dim (so the card's tests can also hold it at the per-width
+    kernels' widths)."""
+    refuse_grad("fused_self_attention_any", q, k, v, mask_bias, head_bias,
+                hint="or train with use_pallas_attention=False, as the JAX package does")
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k, v must share one CUDA device: {q.device}, {k.device}, "
+                         f"{v.device}")
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must be equal [B, L, heads*hd]: {q.shape}, {k.shape}, {v.shape}")
+    _head_dim(q.shape[2], num_heads)
+    if head_bias is not None:
+        _check_head_bias(head_bias, num_heads, q.shape[1], q.device)
+    return _launch_any(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal)
+
+
+fused_self_attention_any.launches = 0
+
+
+def _launch_any(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal):
+    """The generic kernel's launch, on inputs checked by its callers but for
+    dtype and layout."""
+    if q.dtype not in (torch.bfloat16, torch.float32) or not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"the CUDA attention kernels take bf16 or fp32, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    for x in (q, k, v):
+        if x.stride(2) != 1:
+            raise ValueError(f"unsupported q/k/v layout: strides {x.stride()}")
+    B, L, HD = q.shape
+    bias = None
+    if mask_bias is not None:
+        if mask_bias.shape != (B, L):
+            raise ValueError(f"mask_bias must be [B, L], got {tuple(mask_bias.shape)}")
+        bias = mask_bias.to(device=q.device, dtype=torch.float32).contiguous()
+    out = torch.empty(B, L, HD, dtype=q.dtype, device=q.device)
+    if B == 0 or L == 0:
+        return out
+    lib = _lib_any()
+    fn = lib.attention_any_f32 if q.dtype == torch.float32 else lib.attention_any_bf16
+    # the kernel launches on the current device: make it the tensors' own
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if bias is None else bias.data_ptr(),
+                 None if head_bias is None else head_bias.data_ptr(),
+                 int(head_bias is not None and head_bias.dtype == torch.bfloat16),
+                 out.data_ptr(), B, L, num_heads, HD // num_heads, q.stride(0), q.stride(1),
+                 k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(sm_scale),
+                 int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+    if err < 0:
+        raise ValueError(f"fused_self_attention_any: shape refused by the kernel ({err})")
+    _build.check(err, "fused_self_attention_any")
+    fused_self_attention_any.launches += 1
+    return out
 
 
 def _launch_f32(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal):
@@ -261,14 +341,26 @@ def _library(kernel: str, head_dim: int) -> str:
                 if first <= head_dim <= last)
 
 
+_K2_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+                + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
 def _lib(head_dim: int) -> ctypes.CDLL:
     """The bf16 kernel's library for ``head_dim``."""
     lib = _build.load(_library("attention", head_dim))
     if lib.attention_bf16.argtypes is None:
-        lib.attention_bf16.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
-            + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.attention_bf16.argtypes = _K2_ARGTYPES
         lib.attention_bf16.restype = ctypes.c_int
+    return lib
+
+
+def _lib_any() -> ctypes.CDLL:
+    """The generic kernel's library (bf16 and fp32 entry points)."""
+    lib = _build.load("attention_any")
+    for fn in (lib.attention_any_bf16, lib.attention_any_f32):
+        if fn.argtypes is None:
+            fn.argtypes = _K2_ARGTYPES
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -276,8 +368,6 @@ def _lib_f32(head_dim: int) -> ctypes.CDLL:
     """The fp32 kernel's library for ``head_dim``."""
     lib = _build.load(_library("attention_f32", head_dim))
     if lib.attention_f32.argtypes is None:
-        lib.attention_f32.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
-            + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.attention_f32.argtypes = _K2_ARGTYPES
         lib.attention_f32.restype = ctypes.c_int
     return lib

@@ -96,14 +96,27 @@ INSTRUCTIONS = ["Answer the following question with the image:",
 
 
 def _bytes_as_hex(obj):
+    """JSON for what json cannot write: bytes as hex; a date, time or
+    datetime as its ISO text, with the nanoseconds beyond its microseconds
+    where it carries them (a ``pandas.Timestamp``, or the port's
+    ``data/temporal.py::Timestamp``)."""
+    import datetime
+
     if isinstance(obj, bytes):
         return {"bytes": obj.hex()}
+    if isinstance(obj, (datetime.date, datetime.time)):
+        ns = getattr(obj, "nanosecond", None)
+        if hasattr(obj, "to_pydatetime"):  # pandas
+            obj = obj.to_pydatetime(warn=False)
+        return {"iso": datetime.datetime.isoformat(obj) if isinstance(obj, datetime.datetime)
+                else obj.isoformat(), "ns": ns}
     raise TypeError(type(obj).__name__)
 
 
 def rows_digest(rows) -> str:
     """SHA-256 of a table's rows (a list of dicts) as canonical JSON: keys
-    sorted, floats in their shortest round-trip form, bytes as hex."""
+    sorted, floats in their shortest round-trip form, bytes as hex, dates,
+    times and timestamps as ISO text with their nanoseconds."""
     text = json.dumps(rows, sort_keys=True, ensure_ascii=False, default=_bytes_as_hex)
     return hashlib.sha256(text.encode("utf-8")).hexdigest()
 
@@ -1130,26 +1143,101 @@ def handmade_parquet(codec: int, hadoop: bool) -> bytes:
 
 
 def write_refused_and_handmade():
-    """The hand-made LZ4 files (read) and the files whose codec or type the
-    reader refuses: BROTLI, LZO and INT96. Returns the names pyarrow reads."""
-    import datetime
-
-    import pyarrow as pa
-    import pyarrow.parquet as pq
-
+    """The hand-made LZ4 files (read) and the file whose codec the reader
+    refuses, as pyarrow does: LZO. Returns the names pyarrow reads."""
     for name, codec, hadoop in (("lz4_hadoop.parquet", 5, True),
                                 ("lz4_hadoop_fallback.parquet", 5, False),
                                 ("refused_lzo.parquet", 3, True)):
         with open(os.path.join(VARIANTS, name), "wb") as f:
             f.write(handmade_parquet(codec, hadoop))
-    small = pa.table({"a": pa.array(range(40), pa.int64()), "s": [f"v{i}" for i in range(40)]})
-    pq.write_table(small, os.path.join(VARIANTS, "refused_brotli.parquet"), compression="brotli")
-    stamps = pa.table({"t": pa.array([datetime.datetime(2020, 1, 1 + i % 28) for i in range(40)],
-                                     pa.timestamp("ns"))})
-    pq.write_table(stamps, os.path.join(VARIANTS, "refused_int96.parquet"),
-                   use_deprecated_int96_timestamps=True)
-    return ["lz4_hadoop.parquet", "lz4_hadoop_fallback.parquet", "refused_brotli.parquet",
-            "refused_int96.parquet"]
+    return ["lz4_hadoop.parquet", "lz4_hadoop_fallback.parquet"]
+
+
+# English words the Brotli dictionary holds, for a table whose pages use
+# its static references
+_ENGLISH = ("the of and to in is that for it as was with be by on not he this are or his "
+            "from at which but have an they you were her she there been one all we their has "
+            "would when if so what out up more about into them can only other time new some "
+            "could these two may first then do any like my now over such our man me even most "
+            "made after also did many before must through back years where much your way well "
+            "down should because each just those people how too little state good very make "
+            "world still own see men work long get here between both life being under never "
+            "day same another know while last might us great old year off come since against "
+            "go came right used take three").split()
+
+
+def temporal_table():
+    """Dates, times and timestamps of every unit, naive and zoned, with
+    nulls, in a list and in a struct."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(SEED + 11)
+    n = 120
+
+    def maybe(v, p=0.15):
+        return None if rng.random() < p else v
+
+    ns = [maybe(int(x)) for x in rng.integers(-2 ** 61, 2 ** 61, n)]
+    us = [maybe(int(x)) for x in rng.integers(-2 ** 52, 2 ** 52, n)]
+    return pa.table({
+        "date": pa.array([maybe(int(x)) for x in rng.integers(-700000, 2900000, n)], pa.date32()),
+        "time_ms": pa.array([maybe(int(x)) for x in rng.integers(0, 86400000, n)],
+                            pa.time32("ms")),
+        "time_us": pa.array([maybe(int(x)) for x in rng.integers(0, 86400 * 10 ** 6, n)],
+                            pa.time64("us")),
+        "time_ns": pa.array([maybe(int(x)) for x in rng.integers(0, 86400 * 10 ** 9, n)],
+                            pa.time64("ns")),
+        "ts_s": pa.array([maybe(int(x)) for x in rng.integers(-2 ** 34, 2 ** 35, n)],
+                         pa.timestamp("s")),
+        "ts_ms_utc": pa.array([maybe(int(x)) for x in rng.integers(-2 ** 44, 2 ** 45, n)],
+                              pa.timestamp("ms", "UTC")),
+        "ts_us_paris": pa.array(us, pa.timestamp("us", "Europe/Paris")),
+        "ts_ns": pa.array(ns, pa.timestamp("ns")),
+        "ts_ns_offset": pa.array(ns[::-1], pa.timestamp("ns", "+05:30")),
+        "stamps": pa.array([maybe([maybe(u, 0.1) for u in us[i:i + i % 4]]) for i in range(n)],
+                           pa.list_(pa.timestamp("us", "Asia/Tokyo"))),
+        "event": pa.array([maybe({"at": maybe(ns[i]), "day": maybe(i * 37)}) for i in range(n)],
+                          pa.struct([("at", pa.timestamp("ns", "UTC")), ("day", pa.date32())])),
+    })
+
+
+def write_temporal_and_brotli():
+    """The variants the reader took on with BROTLI, INT96 and the temporal
+    types: ``brotli_{1,11}_*`` (the variant table at levels 1 and 11, and
+    English text at level 11, whose pages use the static dictionary),
+    ``temporal_v{1,2}_*`` and ``int96_*`` (timestamps written as INT96).
+    Returns their names."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    table = variant_table()
+    names = []
+    for level, version, dictionary in ((1, "1.0", True), (11, "2.0", False)):
+        name = f"brotli_{level}_v{version[0]}_{'dict' if dictionary else 'plain'}.parquet"
+        pq.write_table(table, os.path.join(VARIANTS, name), compression="brotli",
+                       compression_level=level, use_dictionary=dictionary,
+                       data_page_version=version, row_group_size=50, data_page_size=1024,
+                       write_batch_size=16)
+        names.append(name)
+    rng = np.random.default_rng(SEED + 12)
+    text = pa.table({"text": [" ".join(rng.choice(_ENGLISH, 40)) + "." for _ in range(300)],
+                     "title": [f"The {w.title()} of the World" for w in rng.choice(_ENGLISH, 300)]})
+    pq.write_table(text, os.path.join(VARIANTS, "brotli_11_text.parquet"), compression="brotli",
+                   compression_level=11, use_dictionary=False)
+    names.append("brotli_11_text.parquet")
+    temporal = temporal_table()
+    for version, dictionary in (("1.0", True), ("2.0", False)):
+        name = f"temporal_v{version[0]}_{'dict' if dictionary else 'plain'}.parquet"
+        pq.write_table(temporal, os.path.join(VARIANTS, name), use_dictionary=dictionary,
+                       data_page_version=version, row_group_size=60)
+        names.append(name)
+    for dictionary in (True, False):
+        name = f"int96_{'dict' if dictionary else 'plain'}.parquet"
+        pq.write_table(temporal.select(["ts_s", "ts_ns", "ts_us_paris", "stamps", "event"]),
+                       os.path.join(VARIANTS, name), use_dictionary=dictionary,
+                       use_deprecated_int96_timestamps=True)
+        names.append(name)
+    return names
 
 
 # -------------------------------------------------------------------- WebP
@@ -1425,6 +1513,491 @@ def write_snapshot_v2():
                            column_encoding=encodings)
 
 
+# --------------------------------------------- arithmetic-coded and lossless JPEGs
+# Encoders for the JPEG codings PIL reads but does not write: arithmetic-coded
+# DCT, sequential (SOF9) and progressive (SOF10), after libjpeg's jcarith.c,
+# and Huffman-coded lossless (SOF3). PIL's decoding of what they write is the
+# fixture's digest.
+JPEG_CODING = os.path.join(HERE, "jpeg_coding")
+_ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41,
+           34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30,
+           37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
+_LUMA_Q = [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40,
+           57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35,
+           55, 64, 81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112,
+           100, 103, 99]
+
+
+def _qm_table():
+    sys_path = os.path.dirname(os.path.dirname(HERE))
+    import sys
+
+    sys.path.insert(0, sys_path)
+    from reranking_multimodal_retrievers_tpu_torch.data.jpeg_coding import QE
+
+    return QE
+
+
+class QMEncoder:
+    """T.81 Annex D's arithmetic encoder as libjpeg's ``jcarith.c`` runs it
+    (``arith_encode``, ``finish_pass``), byte stuffing included."""
+
+    def __init__(self):
+        self.qe = _qm_table()
+        self.out = bytearray()
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _zeros(self):
+        self.out += bytes(self.zc)
+        self.zc = 0
+
+    def encode(self, stats, i, val):
+        sv = stats[i]
+        qe, nl, nm, sw = self.qe[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            stats[i] = (sv & 0x80) ^ (nl | (sw << 7))
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            stats[i] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._zeros()
+                        self.out.append(self.buffer + 1)
+                        if self.buffer + 1 == 0xFF:
+                            self.out.append(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buffer == 0:
+                        self.zc += 1
+                    elif self.buffer >= 0:
+                        self._zeros()
+                        self.out.append(self.buffer)
+                    if self.sc:
+                        self._zeros()
+                        self.out += b"\xff\x00" * self.sc
+                        self.sc = 0
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._zeros()
+                self.out.append(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self.out.append(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._zeros()
+                self.out.append(self.buffer)
+            if self.sc:
+                self._zeros()
+                self.out += b"\xff\x00" * self.sc
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._zeros()
+            b1 = (self.c >> 19) & 0xFF
+            self.out.append(b1)
+            if b1 == 0xFF:
+                self.out.append(0)
+            if self.c & 0x7F800:
+                b2 = (self.c >> 11) & 0xFF
+                self.out.append(b2)
+                if b2 == 0xFF:
+                    self.out.append(0)
+        return bytes(self.out)
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def _dct_coefficients(plane: np.ndarray, by: int, bx: int, qt) -> np.ndarray:
+    """[by, bx, 64] quantized DCT coefficients (natural order) of ``plane``
+    padded by edge replication to by x bx blocks."""
+    h, w = plane.shape
+    p = np.pad(plane.astype(np.float64) - 128, ((0, by * 8 - h), (0, bx * 8 - w)), mode="edge")
+    n = np.arange(8)
+    basis = np.cos((2 * n[None, :] + 1) * n[:, None] * np.pi / 16) * np.sqrt(2 / 8)
+    basis[0] /= np.sqrt(2)
+    blocks = p.reshape(by, 8, bx, 8).transpose(0, 2, 1, 3)
+    coef = np.einsum("ux,abxy,vy->abuv", basis, blocks, basis).reshape(by, bx, 64)
+    return np.round(coef / np.asarray(qt, np.float64)).astype(np.int64)
+
+
+def _ycbcr(img: np.ndarray):
+    r, g, b = (img[..., i].astype(np.float64) for i in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+    return [np.clip(np.round(x), 0, 255) for x in (y, cb, cr)]
+
+
+def _ac_first(enc, st, fixed, blk, ss, se, al, kx):
+    """jcarith.c's ``encode_mcu_AC_first`` (and the sequential AC, at Al 0)."""
+    def pt(v):
+        return v >> al if v >= 0 else -((-v) >> al)
+    ke = se
+    while ke > 0 and pt(blk[_ZIGZAG[ke]]) == 0:
+        ke -= 1
+    k = ss
+    while k <= ke:
+        s = 3 * (k - 1)
+        enc.encode(st, s, 0)
+        while True:
+            v = pt(blk[_ZIGZAG[k]])
+            if v:
+                enc.encode(st, s + 1, 1)
+                enc.encode(fixed, 0, 1 if v < 0 else 0)
+                v = abs(v)
+                break
+            enc.encode(st, s + 1, 0)
+            s += 3
+            k += 1
+        s += 2
+        m = 0
+        v -= 1
+        if v:
+            enc.encode(st, s, 1)
+            m = 1
+            v2 = v >> 1
+            if v2:
+                enc.encode(st, s, 1)
+                m <<= 1
+                s = 189 if k <= kx else 217
+                v2 >>= 1
+                while v2:
+                    enc.encode(st, s, 1)
+                    m <<= 1
+                    s += 1
+                    v2 >>= 1
+        enc.encode(st, s, 0)
+        s += 14
+        m >>= 1
+        while m:
+            enc.encode(st, s, 1 if m & v else 0)
+            m >>= 1
+        k += 1
+    if k <= se:
+        enc.encode(st, 3 * (k - 1), 1)
+
+
+def _ac_refine(enc, st, fixed, blk, ss, se, ah, al):
+    """jcarith.c's ``encode_mcu_AC_refine``."""
+    absl = [abs(blk[_ZIGZAG[k]]) >> al for k in range(64)]
+    k = se
+    while k > 0 and not absl[k]:
+        k -= 1
+    eob = k
+    while k > 0 and not (abs(blk[_ZIGZAG[k]]) >> ah):
+        k -= 1
+    eobx = k
+    k = ss
+    while k <= eob:
+        s = 3 * (k - 1)
+        if k > eobx:
+            enc.encode(st, s, 0)
+        while True:
+            t = absl[k]
+            if t:
+                if t >> 1:
+                    enc.encode(st, s + 2, t & 1)
+                else:
+                    enc.encode(st, s + 1, 1)
+                    enc.encode(fixed, 0, 1 if blk[_ZIGZAG[k]] < 0 else 0)
+                break
+            enc.encode(st, s + 1, 0)
+            s += 3
+            k += 1
+        k += 1
+    if k <= se:
+        enc.encode(st, 3 * (k - 1), 1)
+
+
+def _dc_encode(enc, st, ctx, v, lu):
+    """jcarith.c's DC difference coding; returns the next context."""
+    if v == 0:
+        enc.encode(st, ctx, 0)
+        return 0
+    enc.encode(st, ctx, 1)
+    if v > 0:
+        enc.encode(st, ctx + 1, 0)
+        s, nctx = ctx + 2, 4
+    else:
+        v = -v
+        enc.encode(st, ctx + 1, 1)
+        s, nctx = ctx + 3, 8
+    m = 0
+    v -= 1
+    if v:
+        enc.encode(st, s, 1)
+        m = 1
+        v2 = v
+        s = 20
+        v2 >>= 1
+        while v2:
+            enc.encode(st, s, 1)
+            m <<= 1
+            s += 1
+            v2 >>= 1
+    enc.encode(st, s, 0)
+    if m < (1 << lu[0]) >> 1:
+        nctx = 0
+    elif m > (1 << lu[1]) >> 1:
+        nctx += 8
+    s += 14
+    m >>= 1
+    while m:
+        enc.encode(st, s, 1 if m & v else 0)
+        m >>= 1
+    return nctx
+
+
+def arith_jpeg_bytes(img: np.ndarray, progressive: bool, sampling=(1, 1), restart: int = 0,
+                     dac=None) -> bytes:
+    """An arithmetic-coded JPEG (SOF9, or SOF10 with libjpeg's default
+    progressive script) of a grey [H, W] or RGB [H, W, 3] image: YCbCr with
+    the chroma sampled by ``sampling`` (h, v of luma), ``restart`` MCUs a
+    restart interval, ``dac``: ((L, U), K) conditioning in a DAC marker."""
+    grey = img.ndim == 2
+    planes = [img.astype(np.float64)] if grey else _ycbcr(img)
+    h, w = img.shape[:2]
+    hs, vs = (1, 1) if grey else sampling
+    comps = [(1, hs, vs, 0)] + ([] if grey else [(2, 1, 1, 1), (3, 1, 1, 1)])
+    mcux, mcuy = -(-w // (8 * hs)), -(-h // (8 * vs))
+    qts = [_LUMA_Q, [min(255, q * 2) for q in _LUMA_Q]]
+    coefs = []
+    for (cid, ch, cv, tq), plane in zip(comps, planes):
+        if (ch, cv) != (hs, vs):  # box-filtered chroma
+            ph, pw = -(-h // vs) * vs, -(-w // hs) * hs
+            p = np.pad(plane, ((0, ph - h), (0, pw - w)), mode="edge")
+            plane = p.reshape(ph // vs, vs, pw // hs, hs).mean((1, 3))
+        coefs.append(_dct_coefficients(plane, mcuy * cv, mcux * ch, [qts[tq][k] for k in
+                                                                      range(64)]))
+    lu, kx = dac if dac else ((0, 1), 5)
+    head = b"\xff\xd8"
+    if not grey:
+        head += _segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    for t in range(1 if grey else 2):
+        zz = [qts[t][n] for n in _ZIGZAG]
+        head += _segment(0xDB, bytes([t]) + bytes(zz))
+    head += _segment(0xCA if progressive else 0xC9, struct.pack(">BHHB", 8, h, w, len(comps))
+                     + b"".join(bytes([cid, (ch << 4) | cv, tq]) for cid, ch, cv, tq in comps))
+    if dac:
+        head += _segment(0xCC, b"".join(bytes([(tc << 4) | t, cs]) for t in range(2)
+                                        for tc, cs in ((0, (lu[1] << 4) | lu[0]), (1, kx))))
+    if restart:
+        head += _segment(0xDD, struct.pack(">H", restart))
+    if grey:
+        script = [((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2),
+                  ((0,), 1, 63, 2, 1), ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0)]
+    else:
+        script = [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                  ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                  ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                  ((0,), 1, 63, 1, 0)]
+    if not progressive:
+        script = [(tuple(range(len(comps))), 0, 63, 0, 0)]
+    out = bytearray(head)
+    for cs, ss, se, ah, al in script:
+        selectors = b"".join(bytes([comps[c][0], (c > 0) * 0x11]) for c in cs)
+        out += _segment(0xDA, bytes([len(cs)]) + selectors + bytes([ss, se, ah << 4 | al]))
+        units = []  # (component, block row, block column) in coding order
+        if len(cs) == 1:
+            c = cs[0]
+            bx = -(-(-(-w * comps[c][1] // hs)) // 8)
+            by = -(-(-(-h * comps[c][2] // vs)) // 8)
+            units = [[(c, r, col)] for r in range(by) for col in range(bx)]
+        else:
+            for my in range(mcuy):
+                for mx in range(mcux):
+                    units.append([(c, my * comps[c][2] + yy, mx * comps[c][1] + xx)
+                                  for c in cs for yy in range(comps[c][2])
+                                  for xx in range(comps[c][1])])
+        per = restart or len(units)
+        for i in range(0, len(units), per):
+            if i:
+                out += bytes([0xFF, 0xD0 + (i // per - 1) % 8])
+            enc = QMEncoder()
+            fixed = [113]
+            dc_st = {t: [0] * 64 for t in range(2)}
+            ac_st = {t: [0] * 256 for t in range(2)}
+            last, ctx = {}, {}
+            for mcu in units[i:i + per]:
+                for c, r, col in mcu:
+                    blk = coefs[c][r, col].tolist()
+                    t = int(c > 0)
+                    if ss == 0 and ah == 0:
+                        dc = blk[0] >> al
+                        ctx[c] = _dc_encode(enc, dc_st[t], ctx.get(c, 0), dc - last.get(c, 0), lu)
+                        last[c] = dc
+                        if not progressive:
+                            _ac_first(enc, ac_st[t], fixed, blk, 1, 63, 0, kx)
+                    elif ss == 0:
+                        enc.encode(fixed, 0, (blk[0] >> al) & 1)
+                    elif ah == 0:
+                        _ac_first(enc, ac_st[t], fixed, blk, ss, se, al, kx)
+                    else:
+                        _ac_refine(enc, ac_st[t], fixed, blk, ss, se, ah, al)
+            out += enc.finish()
+    return bytes(out + b"\xff\xd9")
+
+
+# a Huffman code for lossless differences of categories 0..16 (lengths 2..14)
+_LOSSLESS_COUNTS = [0, 1, 5, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0]
+_LOSSLESS_SYMBOLS = list(range(17))
+
+
+def lossless_jpeg_bytes(img: np.ndarray, predictor: int, pt: int = 0, restart_rows: int = 0,
+                        colour: str = "rgb", interleaved: bool = True) -> bytes:
+    """A Huffman-coded lossless JPEG (SOF3) of a grey [H, W] or RGB [H, W, 3]
+    image: predictor 1-7, point transform ``pt``, a restart every
+    ``restart_rows`` rows; three components as ``colour`` "rgb" (an Adobe
+    marker with transform 0) or "ycbcr" (JFIF), in one interleaved scan or
+    one scan each."""
+    grey = img.ndim == 2
+    h, w = img.shape[:2]
+    if grey:
+        planes = [img.astype(np.int64)]
+    elif colour == "rgb":
+        planes = [img[..., i].astype(np.int64) for i in range(3)]
+    else:
+        planes = [p.astype(np.int64) for p in _ycbcr(img)]
+    codes, code, k = {}, 0, 0
+    for length, n in enumerate(_LOSSLESS_COUNTS, 1):
+        for _ in range(n):
+            codes[_LOSSLESS_SYMBOLS[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    out = bytearray(b"\xff\xd8")
+    if not grey:
+        out += (_segment(0xEE, b"Adobe\0\x64\0\0\0\0\0") if colour == "rgb"
+                else _segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0"))
+    out += _segment(0xC3, struct.pack(">BHHB", 8, h, w, len(planes))
+                    + b"".join(bytes([i + 1, 0x11, 0]) for i in range(len(planes))))
+    out += _segment(0xC4, b"\x00" + bytes(_LOSSLESS_COUNTS) + bytes(_LOSSLESS_SYMBOLS))
+    if restart_rows:
+        out += _segment(0xDD, struct.pack(">H", restart_rows * w))
+    scans = [list(range(len(planes)))] if interleaved else [[c] for c in range(len(planes))]
+    for cs in scans:
+        out += _segment(0xDA, bytes([len(cs)]) + b"".join(bytes([c + 1, 0]) for c in cs)
+                        + bytes([predictor, 0, pt]))
+        x = [p >> pt for p in planes]
+        rows_per = restart_rows or h
+        for r0 in range(0, h, rows_per):
+            if r0:
+                out += bytes([0xFF, 0xD0 + (r0 // rows_per - 1) % 8])
+            acc, nacc, seg = 0, 0, bytearray()
+            for y in range(r0, min(h, r0 + rows_per)):
+                for xx in range(w):
+                    for c in cs:
+                        p = x[c]
+                        if y == r0:
+                            pred = p[y, xx - 1] if xx else 1 << (8 - pt - 1)
+                        elif xx == 0:
+                            pred = p[y - 1, 0]
+                        else:
+                            ra, rb, rc = int(p[y, xx - 1]), int(p[y - 1, xx]), int(p[y - 1, xx - 1])
+                            pred = [ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+                                    rb + ((ra - rc) >> 1), (ra + rb) >> 1][predictor - 1]
+                        d = (int(p[y, xx]) - int(pred)) & 0xFFFF
+                        d = d - 0x10000 if d > 0x8000 else d
+                        s = abs(d).bit_length()
+                        cw, cl = codes[s]
+                        acc, nacc = (acc << cl) | cw, nacc + cl
+                        if 0 < s < 16:
+                            acc, nacc = (acc << s) | ((d if d > 0 else d + (1 << s) - 1)
+                                                      & ((1 << s) - 1)), nacc + s
+                        while nacc >= 8:
+                            byte = (acc >> (nacc - 8)) & 0xFF
+                            seg.append(byte)
+                            if byte == 0xFF:
+                                seg.append(0)
+                            nacc -= 8
+            if nacc:
+                byte = ((acc << (8 - nacc)) | ((1 << (8 - nacc)) - 1)) & 0xFF
+                seg.append(byte)
+                if byte == 0xFF:
+                    seg.append(0)
+            out += seg
+    return bytes(out + b"\xff\xd9")
+
+
+def jpeg_coding_cases():
+    """(name, bytes) of the arithmetic-coded and lossless JPEG fixtures."""
+    rng = np.random.default_rng(SEED + 9)
+    cases = []
+    for i, (h, w) in enumerate([(37, 53), (16, 16), (9, 70)]):
+        rgb = _photo(rng, h, w)
+        grey = rgb[..., 1].copy()
+        cases += [
+            (f"arith_seq_444_{i}.jpg", arith_jpeg_bytes(rgb, False)),
+            (f"arith_seq_420_rst_{i}.jpg", arith_jpeg_bytes(rgb, False, (2, 2), restart=2)),
+            (f"arith_seq_grey_dac_{i}.jpg", arith_jpeg_bytes(grey, False, dac=((1, 3), 3))),
+            (f"arith_prog_422_{i}.jpg", arith_jpeg_bytes(rgb, True, (2, 1))),
+            (f"arith_prog_444_rst_dac_{i}.jpg", arith_jpeg_bytes(rgb, True, restart=3,
+                                                                 dac=((2, 4), 8))),
+            (f"arith_prog_grey_{i}.jpg", arith_jpeg_bytes(grey, True)),
+        ]
+        if i == 0:  # libjpeg-turbo converts no lossless YCbCr: PIL refuses it
+            cases.append(("refused_lossless_ycbcr.jpg",
+                          lossless_jpeg_bytes(rgb, 4, colour="ycbcr")))
+        for p in range(1, 8):
+            cases.append((f"lossless_rgb_p{p}_{i}.jpg", lossless_jpeg_bytes(
+                rgb, p, pt=p % 3 == 0, restart_rows=4 if p % 2 else 0)))
+        cases += [(f"lossless_grey_p7_{i}.jpg", lossless_jpeg_bytes(grey, 7, pt=2)),
+                  (f"lossless_rgb_scans_p6_{i}.jpg", lossless_jpeg_bytes(
+                      rgb, 6, restart_rows=3, interleaved=False))]
+    return cases
+
+
+def write_jpeg_coding():
+    """``jpeg_coding/``: :func:`jpeg_coding_cases`, and the digests of
+    PIL's pixels of each (none for a ``refused_`` file, which PIL cannot
+    decode)."""
+    from PIL import Image
+
+    os.makedirs(JPEG_CODING, exist_ok=True)
+    digests = {}
+    for name, data in jpeg_coding_cases():
+        path = os.path.join(JPEG_CODING, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        if not name.startswith("refused_"):
+            with Image.open(path) as img:
+                digests[name] = pixels_digest(np.asarray(img.convert("RGB")))
+    return digests
+
+
 def main():
     import pyarrow.parquet as pq
     from PIL import Image
@@ -1439,6 +2012,7 @@ def main():
     write_variants()
     write_codec_variants()
     write_refused_and_handmade()
+    write_temporal_and_brotli()
     write_snapshot_v2()
     digests = {"tables": {}, "images": {}}
     for root in (SNAPSHOT, SNAPSHOT_V2, VARIANTS):
@@ -1462,6 +2036,7 @@ def main():
         os.path.relpath(IMAGE_COLUMN, HERE): write_image_column(sorted(digests["codec_images"]))}
     digests["tokenizer"] = write_tokenizer()
     digests.update(write_webp(images))
+    digests["jpeg_coding"] = write_jpeg_coding()
     with open(DIGESTS, "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -117,3 +117,23 @@ def test_reference_matches_jax_reference_directly():
         *(torch.tensor(x) for x in (q, k, v)), torch.tensor(bias),
         num_heads=HEADS, sm_scale=SCALE).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("heads,hd", [(32, 12), (1, 384)])
+def test_plain_k2_matches_pallas_at_generic_geometries(heads, hd):
+    """Geometries the JAX gate admits that the card runs on the generic
+    kernel (csrc/attention_any.cu): 32 heads of 12 (the JAX kernel packs
+    32 heads into 384 lanes) and one head of 384, fp32 with right-padded
+    keys, 1e-5 abs/rel as above; on CPU tensors the port's wrapper is the
+    plain version."""
+    rng = np.random.default_rng(hd)
+    b, l = 2, 24
+    q, k, v = (rng.normal(size=(b, l, heads * hd)).astype(np.float32) for _ in range(3))
+    bias = np.zeros((b, l), np.float32)
+    bias[1, 17:] = -1e9
+    scale = hd ** -0.5
+    want = np.asarray(jfused(*(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(bias),
+                             num_heads=heads, sm_scale=scale, interpret=True))
+    got = fused_self_attention(*(torch.tensor(x) for x in (q, k, v)), torch.tensor(bias),
+                               num_heads=heads, sm_scale=scale).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)

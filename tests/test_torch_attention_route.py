@@ -88,16 +88,34 @@ def test_opt_never_fuses_on_the_cpu(monkeypatch):
     assert calls == []
 
 
-def test_admitted_geometries_outside_the_kernels_are_named():
-    """ViT-G's 16 x 104 and 2 x 256 pass the gate; the kernels take neither
-    and say so (on CPU tensors the plain version computes them)."""
-    for nh, hd in ((16, 104), (2, 256)):
-        assert attention_cuda.head_pack_feasible(nh, hd)
-        assert hd not in attention_cuda.KERNEL_HEAD_DIMS
-        with pytest.raises(NotImplementedError, match=f"head_dim {hd}"):
-            attention_cuda._check_kernel_head_dim(nh * hd, nh)
-    for hd in attention_cuda.KERNEL_HEAD_DIMS:
-        assert attention_cuda._check_kernel_head_dim(2 * hd, 2) == hd
+@pytest.mark.parametrize("fp32", [False, True])
+def test_every_admitted_geometry_maps_to_a_kernel(fp32):
+    """Every (heads <= 128, head_dim <= 512) the JAX gate admits runs a
+    hand-written kernel on the card: the per-width instance for a head_dim
+    in ``KERNEL_HEAD_DIMS``, the generic kernel for any other (ViT-G's
+    16 x 104, 32 x 12, 2 x 256, 1 x 384, ...); none raises."""
+    from reranking_multimodal_retrievers_tpu_torch.ops import _build
+
+    generic = 0
+    for nh in range(1, 129):
+        for hd in range(1, 513):
+            if not jax_gate(nh, hd):
+                continue
+            assert attention_cuda._head_dim(nh * hd, nh) == hd
+            lib = attention_cuda.kernel_library(hd, fp32)
+            assert lib in _build.SOURCES, (nh, hd)
+            if hd in attention_cuda.KERNEL_HEAD_DIMS:
+                kind = "attention_f32" if fp32 else "attention"
+                assert lib == attention_cuda._library(kind, hd), (nh, hd)
+                assert _build.SOURCES[lib] == kind + ".cu", (nh, hd)
+            else:
+                assert _build.SOURCES[lib] == "attention_any.cu", (nh, hd)
+                generic += 1
+    assert generic > 0
+    for nh, hd in ((16, 104), (32, 12), (2, 256), (1, 384), (16, 8)):
+        assert jax_gate(nh, hd) and attention_cuda.kernel_library(hd, fp32) == "attention_any"
+    with pytest.raises(ValueError, match="heads"):
+        attention_cuda._head_dim(100, 3)
 
 
 GEOMETRIES = [(4, 16), (4, 32), (2, 128)]

@@ -124,11 +124,21 @@ def test_k2_matches_plain(gen, B, L, H, masked, strided):
 
 def test_k2_rejects_other_head_dims_and_dtypes(gen):
     # head_dim 104 over 16 heads (ViT-G's) and 256: geometries the JAX gate
-    # admits but no instance of the kernels takes
+    # admits that the per-width kernels do not take run the generic kernel;
+    # a width that does not split into the heads and other dtypes raise
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_any)
+
     for heads, hd in ((16, 104), (2, 256)):
         x = torch.randn(1, 8, heads * hd, device="cuda", generator=gen).to(torch.bfloat16)
-        with pytest.raises(NotImplementedError, match=f"head_dim {hd}"):
-            fused_self_attention(x, x, x, num_heads=heads, sm_scale=0.1)
+        launches = fused_self_attention_any.launches
+        got = fused_self_attention(x, x, x, num_heads=heads, sm_scale=0.1)
+        assert fused_self_attention_any.launches == launches + 1
+        ref = fused_self_attention_reference(x, x, x, num_heads=heads, sm_scale=0.1)
+        torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+    x = torch.randn(1, 8, 100, device="cuda", generator=gen).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="heads"):
+        fused_self_attention(x, x, x, num_heads=3, sm_scale=0.1)
     y = torch.randn(1, 8, 128, device="cuda", generator=gen)
     with pytest.raises(TypeError):
         fused_self_attention(*(y.half(),) * 3, num_heads=2, sm_scale=0.125)  # fp16
@@ -584,11 +594,12 @@ def test_k2_f32_refuses_layouts_its_copies_cannot_read(gen):
             fused_self_attention(bad, x, x, num_heads=2, sm_scale=0.125)
     with pytest.raises(TypeError):
         fused_self_attention_f32(*(x.to(torch.bfloat16),) * 3, num_heads=2, sm_scale=0.125)
-    for heads, hd in ((16, 104), (2, 256)):  # admitted by the JAX gate, no instance
-        with pytest.raises(NotImplementedError, match=f"head_dim {hd}"):
-            fused_self_attention(
-                *(torch.randn(1, 8, heads * hd, device="cuda", generator=gen),) * 3,
-                num_heads=heads, sm_scale=0.1)
+    for heads, hd in ((16, 104), (2, 256)):  # admitted by the JAX gate: the generic kernel
+        y = torch.randn(1, 8, heads * hd, device="cuda", generator=gen)
+        torch.testing.assert_close(
+            fused_self_attention(y, y, y, num_heads=heads, sm_scale=0.1),
+            fused_self_attention_reference(y, y, y, num_heads=heads, sm_scale=0.1),
+            rtol=1e-4, atol=2e-5)
     launches = fused_self_attention_f32.launches
     fused_self_attention(x, x, x, num_heads=2, sm_scale=0.125)
     assert fused_self_attention_f32.launches == launches + 1
@@ -1365,3 +1376,91 @@ def test_kernels_launch_on_the_tensors_card(gen, kernel):
         tol = 3e-2 if kernel == "K2" else 1e-4
     assert got.device == dev and torch.cuda.current_device() == 0
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# the geometries the JAX gate admits outside the per-width kernels' widths
+# (C9 in ROADMAP.md): (heads, head_dim); each runs csrc/attention_any.cu
+C9_GEOMETRIES = [(16, 8), (16, 24), (16, 40), (16, 104), (32, 12), (2, 256), (2, 192), (1, 384),
+                 (16, 120), (4, 36)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads,hd", C9_GEOMETRIES)
+def test_k2_generic_kernel_matches_plain(gen, dtype, heads, hd):
+    """K2 at every head geometry the JAX gate admits and the per-width
+    kernels do not take: the generic kernel, with a key bias over ragged
+    rows (L = 130, three query and key tiles), against the plain version
+    (bf16 within 3e-2, fp32 within 1e-4 / 2e-5)."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_any, kernel_library)
+
+    assert kernel_library(hd, dtype == torch.float32) == "attention_any"
+    B, L = 3, 130
+    q, k, v = (torch.randn(B, L, heads * hd, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    lens = torch.randint(1, L + 1, (B,), device="cuda", generator=gen)
+    bias = torch.where(torch.arange(L, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
+    kw = dict(num_heads=heads, sm_scale=hd ** -0.5)
+    launches = fused_self_attention_any.launches
+    got = fused_self_attention(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert fused_self_attention_any.launches == launches + 1
+    ref = fused_self_attention_reference(q, k, v, bias, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads,hd,hb_dtype,causal,strided", [
+    (16, 24, torch.bfloat16, False, False),  # bf16 head bias with the key bias
+    (16, 24, torch.float32, False, True),    # fp32 head bias, fused-projection views
+    (16, 24, None, True, False),             # causal with the key bias
+    (2, 256, torch.float32, False, False),   # two output column blocks
+    (2, 256, None, True, True),
+    (1, 384, torch.bfloat16, True, False),   # head bias and causal together
+])
+def test_k2_generic_kernel_options_match_plain(gen, dtype, heads, hd, hb_dtype, causal,
+                                               strided):
+    """The generic kernel's head bias, causal mask and strided views (the
+    q/k/v thirds of one projection) against the plain version, with
+    right-padded keys."""
+    B, L = 2, 100
+    if strided:
+        qkv = torch.randn(B, L, 3 * heads * hd, device="cuda", generator=gen).to(dtype)
+        q, k, v = qkv.split(heads * hd, dim=-1)
+    else:
+        q, k, v = (torch.randn(B, L, heads * hd, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+    lens = torch.tensor([L, L // 2], device="cuda")
+    bias = torch.where(torch.arange(L, device="cuda")[None, :] < lens[:, None], 0.0, -1e9)
+    hb = None
+    if hb_dtype is not None:
+        hb = torch.randn(heads, L, L, device="cuda", generator=gen).to(hb_dtype)
+    kw = dict(num_heads=heads, sm_scale=hd ** -0.5, causal=causal)
+    got = fused_self_attention(q, k, v, bias, hb, **kw)
+    ref = fused_self_attention_reference(q, k, v, bias, hb, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2_generic_kernel_at_a_per_width_head_dim(gen, dtype):
+    """Called directly, the generic kernel takes the per-width kernels'
+    widths too (head_dim 64 and 16), and agrees with the plain version."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
+        fused_self_attention_any)
+
+    for heads, hd in ((12, 64), (8, 16)):
+        q, k, v = (torch.randn(2, 70, heads * hd, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+        kw = dict(num_heads=heads, sm_scale=hd ** -0.5)
+        got = fused_self_attention_any(q, k, v, **kw)
+        ref = fused_self_attention_reference(q, k, v, **kw)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-5)
+        else:
+            torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)

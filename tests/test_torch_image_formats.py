@@ -222,8 +222,8 @@ def test_committed_codec_images_equal_their_digests_and_pil(name):
 
 def test_decoders_run_without_pil_and_left_formats_raise_naming_them(tmp_path):
     """With PIL blocked: the committed GIF, BMP and TIFF files equal their
-    digests, a WebP decodes to PIL's pixels, and an arithmetic-coded JPEG
-    (a format still left to PIL) raises naming it."""
+    digests, a WebP decodes to PIL's pixels, and an arithmetic-coded
+    lossless JPEG (a format still left to PIL) raises naming it."""
     rng = np.random.default_rng(5)
     pixels = rng.integers(0, 256, (13, 17, 3)).astype(np.uint8)
     webp = io.BytesIO()
@@ -233,7 +233,7 @@ def test_decoders_run_without_pil_and_left_formats_raise_naming_them(tmp_path):
         want = fx.pixels_digest(np.asarray(img.convert("RGB")))
     jpeg = io.BytesIO()
     PIL_Image.fromarray(pixels).save(jpeg, "JPEG")
-    (tmp_path / "x.jpg").write_bytes(jpeg.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1))
+    (tmp_path / "x.jpg").write_bytes(jpeg.getvalue().replace(b"\xff\xc0", b"\xff\xcb", 1))
     code = (
         "import sys, json, os\nsys.modules['PIL'] = None\n"
         f"sys.path.insert(0, {str(ROOT / 'tests' / 'fixtures')!r})\n"
@@ -249,7 +249,7 @@ def test_decoders_run_without_pil_and_left_formats_raise_naming_them(tmp_path):
                          text=True, timeout=300)
     assert out.stdout.split("\n")[:2] == [f"decoded {len(DIGESTS['codec_images'])}", want], \
         out.stderr[-2000:]
-    assert "NotImplementedError" in out.stderr and "an arithmetic-coded JPEG" in out.stderr
+    assert "NotImplementedError" in out.stderr and "an arithmetic-coded lossless JPEG" in out.stderr
 
 
 # --------------------------------------------------- datasets Image columns

@@ -17,6 +17,7 @@ with ``jax``, ``flax`` and ``transformers`` blocked, the network tools with
 an injected fetcher and hub API."""
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -33,10 +34,11 @@ PORT = ROOT / "reranking_multimodal_retrievers_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "transformers", "tests",
              "reranking_multimodal_retrievers_tpu", "datasets", "pyarrow", "pandas", "PIL",
-             "safetensors", "tokenizers", "regex", "zstandard", "lz4"}
+             "safetensors", "tokenizers", "regex", "zstandard", "lz4", "google",
+             "sentencepiece", "brotli"}
 BLOCKED = ("jax", "flax", "optax", "orbax", "transformers", "datasets", "pyarrow", "pandas",
            "PIL", "safetensors", "reranking_multimodal_retrievers_tpu", "tokenizers", "regex",
-           "zstandard", "lz4")
+           "zstandard", "lz4", "google", "google.protobuf", "sentencepiece", "brotli")
 # imports allowed inside a function body (not at module level) of a file
 LAZY_ALLOWED = {PORT / "models" / "tokenization.py": {"transformers"},
                 PORT / "data" / "image_io.py": {"PIL"},
@@ -139,6 +141,67 @@ def test_real_data_path_runs_with_those_modules_blocked(tmp_path, monkeypatch):
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "ran 6"
     assert any(n.startswith("process__Distill-") for n in os.listdir(work / "cache"))
+
+
+def test_new_readers_run_with_those_modules_blocked(tmp_path):
+    """A tokenizer directory holding only ``spiece.model``, the BROTLI,
+    INT96 and temporal parquet fixtures and the arithmetic-coded and
+    lossless JPEG fixtures, read in a process where pyarrow, ``datasets``,
+    PIL, ``protobuf``, ``sentencepiece`` and ``tokenizers`` cannot be
+    imported: the ids ``transformers``' T5 converter gives (computed here),
+    the tables' and images' committed digests."""
+    import types
+
+    transformers = pytest.importorskip("transformers")
+    pytest.importorskip("google.protobuf")
+    from transformers.convert_slow_tokenizer import T5Converter, import_protobuf
+
+    from reranking_multimodal_retrievers_tpu_torch.models import spiece
+
+    fixtures = ROOT / "tests" / "fixtures"
+    spec = json.loads((fixtures / "unigram_tokenizer" / "tokenizer.json").read_text())
+    only = tmp_path / "spiece_only"
+    only.mkdir()
+    model = spiece.spiece_from_tokenizer_json(spec, str(only / "spiece.model"))
+    pb = import_protobuf().ModelProto()
+    pb.ParseFromString(Path(model).read_bytes())
+    ids = {p.piece: i for i, p in enumerate(pb.pieces)}
+    orig = types.SimpleNamespace(vocab_file=model, _extra_ids=100, add_prefix_space=True,
+                                 legacy=True, convert_tokens_to_ids=ids.get)
+    hf = transformers.T5TokenizerFast(tokenizer_object=T5Converter(orig).converted(),
+                                      extra_ids=100)
+    texts = ["a photo of", "the cat on the mat", "ａ ｐｈｏｔｏ  of\tthe　sun", "zz ẞ", ""]
+    want = [hf(t)["input_ids"] for t in texts]
+    code = (
+        "import sys, json, os\n"
+        f"for m in {BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n"
+        f"sys.path.insert(0, {str(fixtures)!r})\n"
+        "import make_m2kr_parquet as fx\n"
+        "from reranking_multimodal_retrievers_tpu_torch.data import image_io, parquet_io\n"
+        "from reranking_multimodal_retrievers_tpu_torch.data.ops.infoseek_ops import (\n"
+        "    load_caption_tokenizer)\n"
+        f"tok = load_caption_tokenizer({str(only)!r})\n"
+        f"assert [tok.encode(t) for t in {texts!r}] == {want!r}\n"
+        "d = json.load(open(fx.DIGESTS))\n"
+        "n = 0\n"
+        "for rel, h in d['tables'].items():\n"
+        "    if os.path.basename(rel).startswith(('brotli_', 'temporal_', 'int96_')):\n"
+        "        t = parquet_io.read_parquet(os.path.join(fx.HERE, rel))\n"
+        "        assert fx.rows_digest([t[i] for i in range(len(t))]) == h, rel\n"
+        "        n += 1\n"
+        "for name, h in d['jpeg_coding'].items():\n"
+        "    rgb = image_io.read_image(os.path.join(fx.JPEG_CODING, name))\n"
+        "    assert fx.pixels_digest(rgb) == h, name\n"
+        "    n += 1\n"
+        "print('read', n)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    digests = json.loads((fixtures / "digests.json").read_text())
+    n = sum(os.path.basename(r).startswith(("brotli_", "temporal_", "int96_"))
+            for r in digests["tables"]) + len(digests["jpeg_coding"])
+    assert out.stdout.strip() == f"read {n}" and n >= 50
 
 
 TOOLS_RUN = r"""

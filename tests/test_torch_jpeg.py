@@ -8,8 +8,9 @@ smoothing); on CMYK and YCCK files, sequential and progressive; on the
 committed fixtures against the pixels PIL gave for them
 (``tests/fixtures/baseline_420_rst.pil.npy``, ``tests/fixtures/digests.json``),
 so that the decoder is held where no PIL is installed. The module parser's
-images equal the JAX package's. An arithmetic-coded file goes to PIL by its
-header, and raises naming it without PIL."""
+images equal the JAX package's. An arithmetic-coded lossless file goes to PIL
+by its header, and raises naming it without PIL (arithmetic-coded DCT and
+lossless files are decoded here: ``tests/test_torch_jpeg_coding.py``)."""
 
 import io
 import json
@@ -115,8 +116,9 @@ def test_committed_fixture_equals_its_pil_pixels():
 def test_other_jpegs_go_to_pil_by_header(tmp_path, monkeypatch, kind):
     """Progressive and CMYK files, which went to PIL by their header, are
     decoded here bitwise as PIL, also where PIL cannot be imported; the
-    same file with an arithmetic-coding frame header (SOF9, SOF10) goes to
-    PIL, and raises naming that format where PIL is absent."""
+    same file with an arithmetic-coded lossless frame header (SOF11, which
+    this module leaves to PIL) goes to PIL, and raises naming that format
+    where PIL is absent."""
     img = _photo(20, 30, 5)
     data = (_encode(img, progressive=True) if kind == "progressive"
             else _encode(img, mode="CMYK"))
@@ -127,12 +129,12 @@ def test_other_jpegs_go_to_pil_by_header(tmp_path, monkeypatch, kind):
     want = np.asarray(PIL_Image.open(path).convert("RGB"))
     assert np.array_equal(image_io.read_image(path), want)
     sof = b"\xff\xc2" if kind == "progressive" else b"\xff\xc0"
-    arith = data.replace(sof, b"\xff\xca" if kind == "progressive" else b"\xff\xc9", 1)
+    arith = data.replace(sof, b"\xff\xcb", 1)
     arith_path = str(tmp_path / f"{kind}_arith.jpg")
     with open(arith_path, "wb") as f:
         f.write(arith)
     assert image_io._jpeg_frame(arith) is None
-    with pytest.raises(ValueError, match="arithmetic-coded"):
+    with pytest.raises(ValueError, match="arithmetic-coded lossless"):
         image_io.decode_jpeg(arith)
     opened = []
 
@@ -159,7 +161,7 @@ def test_other_jpegs_go_to_pil_by_header(tmp_path, monkeypatch, kind):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode != 0 and "NotImplementedError" in out.stderr
-    assert "arithmetic-coded" in out.stderr and "AssertionError" not in out.stderr
+    assert "arithmetic-coded lossless" in out.stderr and "AssertionError" not in out.stderr
 
 
 PROGRESSIVE_SIZES = [(1, 1), (17, 9), (3, 513), (513, 3), (37, 53), (16, 16), (61, 29)]

@@ -6,7 +6,7 @@ page v1 and v2, one or several row groups with small pages; strings, ints
 of each width, unsigned ints, floats, bools, nulls, binary, lists of
 strings with empty and null lists, a struct, a list of structs, a list of
 lists) and on random tables (a ``hypothesis`` property); it raises on a
-codec, encoding or feature it does not take. The YAML front-matter reader
+codec (LZO), encoding or feature it does not take. The YAML front-matter reader
 equals ``yaml.safe_load``. On the committed M2KR snapshot
 (``tests/fixtures/m2kr_snapshot``, written by
 ``tests/fixtures/make_m2kr_parquet.py``), ``_load_hf`` and the
@@ -261,12 +261,11 @@ def test_lz4_block_equals_pyarrow_and_hadoop_framing():
     assert parquet_io.lz4_hadoop(block, len(raw)) == raw
 
 
-@pytest.mark.parametrize("name,what", [("refused_brotli.parquet", "BROTLI"),
-                                       ("refused_lzo.parquet", "LZO"),
-                                       ("refused_int96.parquet", "INT96")])
+@pytest.mark.parametrize("name,what", [("refused_lzo.parquet", "LZO")])
 def test_refused_codecs_and_types_raise_naming_them(name, what):
-    """BROTLI and LZO (codecs) and INT96 (a physical type) raise
-    ``NotImplementedError`` naming what they are and the file."""
+    """LZO, a codec pyarrow cannot read either (``pa.Codec.is_available("lzo")``
+    raises), raises ``NotImplementedError`` naming it and the file (BROTLI
+    and INT96 are read: ``tests/test_torch_brotli_temporal.py``)."""
     path = os.path.join(FIXTURES, "parquet_variants", name)
     with pytest.raises(NotImplementedError, match=what) as e:
         parquet_io.read_parquet(path)
