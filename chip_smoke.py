@@ -9,9 +9,12 @@ Phases, each printing one JSON line with its elapsed seconds:
   0. the card (name and power limit as ``nvidia-smi`` gives them);
   1. build the CUDA kernels (``nvcc`` -> shared library -> ``ctypes``), and
      report each library's registers, static shared memory and spill bytes
-     from its ``-Xptxas -v`` log; K2's fp32 library must hold TF32 tensor-core
+     from its ``-Xptxas -v`` log (and each instance of K2's generic kernel on
+     a line of its own); K2's fp32 library must hold TF32 tensor-core
      instructions (``HMMA ... TF32`` in ``cuobjdump -sass``) and ``cp.async``
-     copies (``LDGSTS``);
+     copies (``LDGSTS``), its generic kernel's libraries bf16
+     (``attention_any``) and TF32 (``attention_any_f32``) ones and
+     ``LDGSTS``;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes (K1 and K2 in bf16, K3 on int8 codes, masked and
      unmasked, plus crafted codes that must match bitwise; K1 and K3 also at
@@ -31,7 +34,11 @@ Phases, each printing one JSON line with its elapsed seconds:
      bias and under the causal mask), each against its plain version with
      its bound and SDPA's time on the same mask, and with the main path's
      launches at its shape and at its head width, looked up in the
-     per-shape counts the main path's phases record;
+     per-shape counts the main path's phases record; the generic kernel
+     (``csrc/attention_any.cu``) at every ``K2_C9`` geometry the same way,
+     each dtype required to launch its own library, each row's line beside
+     the time of the FFMA kernel this one replaced (``K2_C9_EARLIER_MS``;
+     not in the ``kernels`` line, which holds only this run's numbers);
   3. retrieve: full-width FLMR (BERT-base, ViT-B/32, dim 128, 32-token
      prefix, 1-layer mapping network; random bf16 weights from a seed)
      encodes 1,024 docs into a TokenIndex padded with random unit vectors to
@@ -2547,19 +2554,33 @@ K2_C9 = [
     (16, 104, 100, 512, "key"), (32, 12, 100, 512, "key"), (2, 256, 16, 512, "key"),
     (2, 192, 16, 512, "key"), (1, 384, 8, 512, "key"),
     (16, 24, 10, 512, "head"), (16, 24, 5, 512, "causal"),
-    (2, 256, 16, 512, "head"), (2, 256, 16, 512, "causal")]
+    (2, 256, 16, 512, "head"), (2, 256, 16, 512, "causal"),
+    # an odd width (2-byte copies in bf16) and a width whose rows are summed
+    # in two chunks over two column blocks
+    (128, 3, 8, 512, "key"), (16, 136, 100, 512, "key")]
+# each K2_C9 row's ms on the FFMA kernel that attention_any.cu replaced, from
+# this script's phase 2 on an NVIDIA H100 80GB HBM3 at 700.00 W, bf16 then
+# fp32; the rows added since have none
+K2_C9_EARLIER_MS = {
+    (dtype, *geometry): ms
+    for dtype, times in (("bf16", (3.953, 4.818, 6.296, 25.88, 8.512, 0.903, 0.621, 0.479, 0.573,
+                                   0.256, 0.988, 0.894)),
+                         ("fp32", (4.013, 4.801, 6.290, 26.54, 8.444, 1.018, 0.820, 0.460, 0.636,
+                                   0.257, 1.105, 1.049)))
+    for geometry, ms in zip(K2_C9, times)}
 
 
 def k2_width_rows(gen, smi, tables=None, kernel_name="K2 fused_self_attention, head widths",
-                  profile=True):
+                  profile=True, earlier=None):
     """K2 bf16 and fp32 at the head widths the port took on beside 64 and
     80 (or at ``tables``' (bf16 rows, fp32 rows)), each against its plain
     version (bf16 within K2_TOL, fp32 within K2F32_RTOL/K2F32_ATOL), timed
     beside its plain version and ``scaled_dot_product_attention`` on the
     same mask, with its bound; key bias (right-padded keys), bf16 or fp32
     head bias with the key bias, and the causal mask with the key bias.
-    Their launches on the main path are filled in after it ran
-    (:func:`k2_width_launches`)."""
+    ``earlier``: an earlier kernel's ms by (dtype, heads, head_dim, batch,
+    L, variant), printed beside each row's. Their launches on the main path
+    are filled in after it ran (:func:`k2_width_launches`)."""
     from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import causal_bias
 
     rows = []
@@ -2592,7 +2613,11 @@ def k2_width_rows(gen, smi, tables=None, kernel_name="K2 fused_self_attention, h
                 row = k2_variant(name, q, k, v, bias, hb, heads=heads, scale=hd ** -0.5,
                                  causal=causal, sdpa_mask=mask, flops=flops)
             row.update(head_dim=hd, library=k2_library(hd, fp32), source=k2_source(hd, fp32))
-            emit({"phase": "kernel_check", "kernel": kernel_name, "card": smi, **row})
+            line = {"phase": "kernel_check", "kernel": kernel_name, "card": smi, **row}
+            if earlier is not None:  # this line only: the kernels line keeps this run's numbers
+                was = earlier.get((row["dtype"], heads, hd, B, L, variant))
+                line.update(earlier_ms=was, x_earlier=None if was is None else row["ms"] / was)
+            emit(line)
             rows.append(row)
             del q, k, v, hb, mask
     return rows
@@ -2660,7 +2685,8 @@ def device_ms(fn, reps=10):
 
 def sass_counts(name):
     """Instruction counts of the built library ``name`` from ``cuobjdump
-    -sass``: TF32 tensor-core products, cp.async copies, fp32 FFMA."""
+    -sass``: TF32 and bf16 tensor-core products, cp.async copies, fp32
+    FFMA."""
     import os
     import re
 
@@ -2675,6 +2701,7 @@ def sass_counts(name):
     ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", text, re.M)
     return {"instructions": len(ops),
             "HMMA_TF32": sum(op.startswith("HMMA") and "TF32" in op for op in ops),
+            "HMMA_BF16": sum(op.startswith("HMMA") and "BF16" in op for op in ops),
             "LDGSTS": sum(op.startswith("LDGSTS") for op in ops),
             "FFMA": sum(op.startswith("FFMA") for op in ops)}
 
@@ -6220,14 +6247,26 @@ def main() -> int:
     for hd in attention_cuda.KERNEL_HEAD_DIMS:
         attention_cuda._lib(hd)
         attention_cuda._lib_f32(hd)
-    attention_cuda._lib_any()
+    attention_cuda._lib_any(False)
+    attention_cuda._lib_any(True)
     maxsim_int8_cuda._lib()
     sass = sass_counts("attention_f32")
     check(sass["HMMA_TF32"] > 0 and sass["LDGSTS"] > 0,
           f"K2's fp32 library: no TF32 HMMA or no cp.async in its SASS: {sass}")
-    emit({"phase": "build", "nvcc_seconds": build_s,
-          "ptxas": {name: ptxas_report(name) for name in _build.SOURCES},
-          "attention_f32_sass": sass, "seconds": time.perf_counter() - t0})
+    # the generic kernel: both products on the tensor cores, bf16 and TF32
+    sass_any = {name: sass_counts(name) for name in _build.K2_ANY}
+    check(sass_any["attention_any"]["HMMA_BF16"] > 0
+          and sass_any["attention_any_f32"]["HMMA_TF32"] > 0
+          and all(c["LDGSTS"] > 0 for c in sass_any.values()),
+          f"K2's generic libraries: no bf16 or TF32 HMMA or no cp.async in their SASS: {sass_any}")
+    ptxas = {name: ptxas_report(name) for name in _build.SOURCES}
+    emit({"phase": "build", "nvcc_seconds": build_s, "ptxas": ptxas,
+          "attention_f32_sass": sass, "attention_any_sass": sass_any,
+          "seconds": time.perf_counter() - t0})
+    for name in _build.K2_ANY:
+        emit({"phase": "build", "library": name, "instances": [
+            {key: e[key] for key in ("entry", "registers", "static_smem_bytes", "spill_bytes")}
+            for e in ptxas[name]["entries"]]})
     if "--probe-t5-init" in sys.argv[1:]:
         emit(t5_init_probe(smi))
         return 0
@@ -6312,12 +6351,17 @@ def main() -> int:
     k2f32_extra = k2f32_variants(gen, smi)
     k2_widths = k2_width_rows(gen, smi)
     # the admitted geometries outside the per-width kernels: the generic kernel
-    launches_any = attention_cuda.fused_self_attention_any.launches
-    k2_c9 = k2_width_rows(gen, smi, (K2_C9, K2_C9), "K2 generic kernel (attention_any.cu)",
-                          profile=False)
-    check(attention_cuda.fused_self_attention_any.launches > launches_any
-          and all(r["library"] == "attention_any" for r in k2_c9),
-          "phase 2: the C9 geometries did not run the generic kernel")
+    # (each dtype's rows apart, so that each must launch it)
+    k2_c9 = []
+    for fp32, want in ((False, "attention_any"), (True, "attention_any_f32")):
+        launches_any = attention_cuda.fused_self_attention_any.launches
+        rows = k2_width_rows(gen, smi, ([], K2_C9) if fp32 else (K2_C9, []),
+                             "K2 generic kernel (attention_any.cu)", profile=False,
+                             earlier=K2_C9_EARLIER_MS)
+        check(attention_cuda.fused_self_attention_any.launches > launches_any
+              and all(r["library"] == want for r in rows),
+              f"phase 2: the {'fp32' if fp32 else 'bf16'} C9 geometries did not run {want}")
+        k2_c9 += rows
     # what the fp32 yardstick runs at the cross-encoder's launch shape (11d)
     q, k, v = (torch.randn(50, 12, 161, 64, device="cuda", generator=gen) for _ in range(3))
     amask = (torch.rand(50, 161, device="cuda", generator=gen) > 0.2)[:, None, None, :]

@@ -27,8 +27,9 @@
 // first, by mma.sync.m16n8k8.tf32 with fp32 sums, for Q K^T and for P V
 // alike: the error stays near fp32 round-off, as CUTLASS's
 // OpMultiplyAddFastF32 keeps it, where one TF32 product keeps about three
-// decimal digits. The tensor cores truncate each sum they keep, so Q K^T
-// sums its small terms apart from its large ones and P V sums each tile
+// decimal digits (the split and the products are in mma_sync.cuh, shared
+// with attention_any.cu). The tensor cores truncate each sum they keep, so
+// Q K^T sums its small terms apart from its large ones and P V sums each tile
 // from zero, adding to O in fp32 (at scores of std 8 that brings the
 // error against fp64 below the plain fp32 version's, see PERF.md). The
 // scores leave the tensor cores before any bias is added: -1e9 never meets
@@ -97,6 +98,8 @@
 
 #include <type_traits>
 #include <utility>
+
+#include "mma_sync.cuh"
 
 #if !defined(K2_HD_FIRST) || !defined(K2_HD_LAST)
 #error "define K2_HD_FIRST and K2_HD_LAST, the head widths this library instantiates"
@@ -172,68 +175,6 @@ __device__ __forceinline__ Item decode(const Params& p, int it) {
   const int key_end = p.causal ? min(p.L, (qb + 1) * kBM) : p.L;
   x.tiles = (key_end + kBN - 1) / kBN;
   return x;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes, or 16 zero bytes when !ok (src is then not read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero), in two integer operations: half of the dropped bits' weight is
-// added to the magnitude bits, then the 13 dropped bits are cleared
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, each rounded to TF32
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 3xTF32 with B = (b0, b1) split here: small += Al Bh + Ah Bl (the two
-// small terms first), big += Ah Bh. The tensor cores truncate each sum they
-// keep, so Q K^T keeps its small terms apart from its large ones, where a
-// long chain of small terms added to a large sum would lose what they carry
-__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
-                                     const uint32_t (&ah)[4], const uint32_t (&al)[4], float b0,
-                                     float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma(small, al, bh0, bh1);
-  mma(small, ah, bl0, bl1);
-  mma(big, ah, bh0, bh1);
-}
-
-// d += A B in 3xTF32, all three products in one sum
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float b0, float b1) {
-  mma3(d, d, ah, al, b0, b1);
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }

@@ -5,7 +5,7 @@ compiles in seconds into a shared library under ``build/torch_kernels/``
 at the repository root (listed in ``.gitignore``). K2's two per-width
 sources are each built into one library a group of head widths
 (``K2_GROUPS``); its generic kernel (``attention_any.cu``, every other
-head width) into one more. All libraries
+head width) into one a dtype. All libraries
 are compiled in parallel, one ``nvcc`` each. A library is rebuilt only when
 the hash of its source, the shared headers (every ``csrc/*.cuh``) and its
 flags changes. A failed build raises.
@@ -33,11 +33,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # split at its commas), so that the groups compile in parallel
 K2_GROUPS = {"": (64, 80), "_narrow": (16, 48), "_wide": (96, 128)}
 K2_SOURCES = ("attention", "attention_f32")  # bf16 and fp32
+# K2's generic kernel by dtype: bf16 and fp32 compile in parallel
+K2_ANY = {"attention_any": 0, "attention_any_f32": 1}
 SOURCES = {"maxsim": "maxsim.cu", "maxsim_int8": "maxsim_int8.cu",
-           "attention_any": "attention_any.cu",
+           **{name: "attention_any.cu" for name in K2_ANY},
            **{src + group: f"{src}.cu" for src in K2_SOURCES for group in K2_GROUPS}}
-DEFINES = {src + group: (f"-DK2_HD_FIRST={first}", f"-DK2_HD_LAST={last}")
-           for src in K2_SOURCES for group, (first, last) in K2_GROUPS.items()}
+DEFINES = {**{src + group: (f"-DK2_HD_FIRST={first}", f"-DK2_HD_LAST={last}")
+              for src in K2_SOURCES for group, (first, last) in K2_GROUPS.items()},
+           **{name: (f"-DK2_ANY_FP32={fp32}",) for name, fp32 in K2_ANY.items()}}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,9 +4,9 @@ Replaces ``reranking_multimodal_retrievers_tpu/ops/attention_pallas.py::
 fused_self_attention``. The CUDA kernels are ``csrc/attention.cu`` (bf16)
 and ``csrc/attention_f32.cu`` (fp32, 3xTF32 on the tensor cores), built for
 every head_dim in ``KERNEL_HEAD_DIMS`` (the multiples of 16 up to 128), and
-``csrc/attention_any.cu`` (bf16 and fp32, fp32 arithmetic) for every other
-head_dim; their headers say what bounds them on an H100 and how their
-designs answer that.
+``csrc/attention_any.cu`` (bf16 and fp32 on the tensor cores' ``mma.sync``,
+fp32 in 3xTF32) for every other head_dim; their headers say what bounds
+them on an H100 and how their designs answer that.
 
 :func:`fused_self_attention` takes the plain version for CPU tensors and
 launches the kernel for CUDA tensors (or raises: there is no fallback).
@@ -67,10 +67,11 @@ def kernel_library(head_dim: int, fp32: bool) -> str:
     """The library (``ops/_build.py::SOURCES``) whose kernel K2 launches on
     the card at ``head_dim`` in fp32 (else bf16): the per-width instance of
     ``csrc/attention_f32.cu`` or ``csrc/attention.cu`` for a head_dim in
-    ``KERNEL_HEAD_DIMS``, ``csrc/attention_any.cu`` for any other."""
+    ``KERNEL_HEAD_DIMS``, ``csrc/attention_any.cu``'s (one library a dtype)
+    for any other."""
     if head_dim in KERNEL_HEAD_DIMS:
         return _library("attention_f32" if fp32 else "attention", head_dim)
-    return "attention_any"
+    return "attention_any_f32" if fp32 else "attention_any"
 
 
 def causal_bias(L: int, device=None) -> torch.Tensor:
@@ -243,8 +244,11 @@ def fused_self_attention_any(q, k, v, mask_bias=None, head_bias=None, *, num_hea
                              sm_scale: float, causal: bool = False) -> torch.Tensor:
     """K2's generic kernel on CUDA (``csrc/attention_any.cu``): the same
     function as :func:`fused_self_attention` for bf16 or fp32 q/k/v at any
-    head_dim, in fp32 arithmetic on the CUDA cores, reading q/k/v through
-    any batch and row strides (unit stride in the last dim). Called by
+    head_dim, both products on the tensor cores (``mma.sync``: bf16 with
+    fp32 sums, fp32 in 3xTF32), reading q/k/v through any batch and row
+    strides (unit stride in the last dim; the kernel copies rows in the
+    widest of 16, 8, 4 or 2 bytes that the pointers, strides and head
+    width allow). Called by
     :func:`fused_self_attention` and :func:`fused_self_attention_f32` for
     a head_dim outside ``KERNEL_HEAD_DIMS``; it takes CUDA tensors only, at
     any head_dim (so the card's tests can also hold it at the per-width
@@ -283,8 +287,7 @@ def _launch_any(q, k, v, mask_bias, head_bias, num_heads, sm_scale, causal):
     out = torch.empty(B, L, HD, dtype=q.dtype, device=q.device)
     if B == 0 or L == 0:
         return out
-    lib = _lib_any()
-    fn = lib.attention_any_f32 if q.dtype == torch.float32 else lib.attention_any_bf16
+    fn = _lib_any(q.dtype == torch.float32)
     # the kernel launches on the current device: make it the tensors' own
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -354,14 +357,15 @@ def _lib(head_dim: int) -> ctypes.CDLL:
     return lib
 
 
-def _lib_any() -> ctypes.CDLL:
-    """The generic kernel's library (bf16 and fp32 entry points)."""
-    lib = _build.load("attention_any")
-    for fn in (lib.attention_any_bf16, lib.attention_any_f32):
-        if fn.argtypes is None:
-            fn.argtypes = _K2_ARGTYPES
-            fn.restype = ctypes.c_int
-    return lib
+def _lib_any(fp32: bool):
+    """The generic kernel's entry point in fp32 (else bf16), from its
+    dtype's library."""
+    lib = _build.load("attention_any_f32" if fp32 else "attention_any")
+    fn = lib.attention_any_f32 if fp32 else lib.attention_any_bf16
+    if fn.argtypes is None:
+        fn.argtypes = _K2_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _lib_f32(head_dim: int) -> ctypes.CDLL:

@@ -119,13 +119,15 @@ def test_reference_matches_jax_reference_directly():
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("heads,hd", [(32, 12), (1, 384)])
+@pytest.mark.parametrize("heads,hd", [(32, 12), (1, 384), (128, 3), (16, 136)])
 def test_plain_k2_matches_pallas_at_generic_geometries(heads, hd):
     """Geometries the JAX gate admits that the card runs on the generic
     kernel (csrc/attention_any.cu): 32 heads of 12 (the JAX kernel packs
-    32 heads into 384 lanes) and one head of 384, fp32 with right-padded
-    keys, 1e-5 abs/rel as above; on CPU tensors the port's wrapper is the
-    plain version."""
+    32 heads into 384 lanes), one head of 384, 128 heads of 3 (an odd
+    width: 2-byte copies in bf16 on the card) and 16 heads of 136 (rows
+    summed in chunks, two column blocks), fp32 with right-padded keys,
+    1e-5 abs/rel as above; on CPU tensors the port's wrapper is the plain
+    version."""
     rng = np.random.default_rng(hd)
     b, l = 2, 24
     q, k, v = (rng.normal(size=(b, l, heads * hd)).astype(np.float32) for _ in range(3))

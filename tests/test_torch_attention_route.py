@@ -113,7 +113,8 @@ def test_every_admitted_geometry_maps_to_a_kernel(fp32):
                 generic += 1
     assert generic > 0
     for nh, hd in ((16, 104), (32, 12), (2, 256), (1, 384), (16, 8)):
-        assert jax_gate(nh, hd) and attention_cuda.kernel_library(hd, fp32) == "attention_any"
+        assert jax_gate(nh, hd) and attention_cuda.kernel_library(hd, fp32) == (
+            "attention_any_f32" if fp32 else "attention_any")
     with pytest.raises(ValueError, match="heads"):
         attention_cuda._head_dim(100, 3)
 

@@ -23,7 +23,8 @@ def csrc(tmp_path, monkeypatch):
 def test_sources_and_headers_exist():
     for src in _build.SOURCES.values():
         assert (_build.CSRC / src).is_file()
-    assert {"hopper.cuh", "maxsim_hopper.cuh"} <= {p.name for p in _build.CSRC.glob("*.cuh")}
+    assert {"hopper.cuh", "maxsim_hopper.cuh", "mma_sync.cuh"} <= {
+        p.name for p in _build.CSRC.glob("*.cuh")}
 
 
 def test_target_is_stable(csrc):
@@ -32,7 +33,7 @@ def test_target_is_stable(csrc):
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))
-@pytest.mark.parametrize("header", ["hopper.cuh", "maxsim_hopper.cuh"])
+@pytest.mark.parametrize("header", ["hopper.cuh", "maxsim_hopper.cuh", "mma_sync.cuh"])
 def test_header_change_rebuilds_every_library(csrc, name, header):
     before = _build._target(name)
     with open(csrc / header, "a") as f:

@@ -1380,8 +1380,26 @@ def test_kernels_launch_on_the_tensors_card(gen, kernel):
 
 # the geometries the JAX gate admits outside the per-width kernels' widths
 # (C9 in ROADMAP.md): (heads, head_dim); each runs csrc/attention_any.cu
+# (128, 3): 6-byte rows, copied 2 bytes at a time in bf16; (64, 6), (32, 4),
+# (32, 20): 12, 8 and 40-byte rows; (16, 136) and (1, 512): Q K^T summed in
+# chunks of a row, two and four column blocks
 C9_GEOMETRIES = [(16, 8), (16, 24), (16, 40), (16, 104), (32, 12), (2, 256), (2, 192), (1, 384),
-                 (16, 120), (4, 36)]
+                 (16, 120), (4, 36), (128, 3), (64, 6), (32, 4), (32, 20), (16, 136), (1, 512)]
+
+# the tolerances of the generic kernel's card tests: bf16 outputs of order 1,
+# the kernel rounding unnormalised probabilities to bf16 where the plain
+# version rounds normalised ones and summing in another order (a few bf16
+# spacings, chip_smoke.py's K2_TOL); fp32 in 3xTF32 against the plain fp32
+# version, the JAX package's tolerance for the same comparison
+# (tests/test_maxsim_pallas.py)
+BF16_ATOL, F32_RTOL, F32_ATOL = 3e-2, 1e-4, 2e-5
+
+
+def _assert_k2_close(got, ref):
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=F32_RTOL, atol=F32_ATOL)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=BF16_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1394,7 +1412,8 @@ def test_k2_generic_kernel_matches_plain(gen, dtype, heads, hd):
     from reranking_multimodal_retrievers_tpu_torch.ops.attention_cuda import (
         fused_self_attention_any, kernel_library)
 
-    assert kernel_library(hd, dtype == torch.float32) == "attention_any"
+    fp32 = dtype == torch.float32
+    assert kernel_library(hd, fp32) == ("attention_any_f32" if fp32 else "attention_any")
     B, L = 3, 130
     q, k, v = (torch.randn(B, L, heads * hd, device="cuda", generator=gen).to(dtype)
                for _ in range(3))
@@ -1406,10 +1425,7 @@ def test_k2_generic_kernel_matches_plain(gen, dtype, heads, hd):
     torch.cuda.synchronize()
     assert fused_self_attention_any.launches == launches + 1
     ref = fused_self_attention_reference(q, k, v, bias, **kw)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-5)
-    else:
-        torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+    _assert_k2_close(got, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1420,6 +1436,9 @@ def test_k2_generic_kernel_matches_plain(gen, dtype, heads, hd):
     (2, 256, torch.float32, False, False),   # two output column blocks
     (2, 256, None, True, True),
     (1, 384, torch.bfloat16, True, False),   # head bias and causal together
+    # the thirds of one fused projection at 32 x 12: head offsets of 24 bytes
+    # in bf16 (8-byte copies), rows 2,304 bytes apart
+    (32, 12, None, False, True),
 ])
 def test_k2_generic_kernel_options_match_plain(gen, dtype, heads, hd, hb_dtype, causal,
                                                strided):
@@ -1441,10 +1460,7 @@ def test_k2_generic_kernel_options_match_plain(gen, dtype, heads, hd, hb_dtype, 
     kw = dict(num_heads=heads, sm_scale=hd ** -0.5, causal=causal)
     got = fused_self_attention(q, k, v, bias, hb, **kw)
     ref = fused_self_attention_reference(q, k, v, bias, hb, **kw)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-5)
-    else:
-        torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+    _assert_k2_close(got, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1460,7 +1476,43 @@ def test_k2_generic_kernel_at_a_per_width_head_dim(gen, dtype):
         kw = dict(num_heads=heads, sm_scale=hd ** -0.5)
         got = fused_self_attention_any(q, k, v, **kw)
         ref = fused_self_attention_reference(q, k, v, **kw)
-        if dtype == torch.float32:
-            torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-5)
-        else:
-            torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=0)
+        _assert_k2_close(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads,hd", [(16, 24), (2, 256), (128, 3)])
+def test_k2_generic_kernel_causal_with_left_padded_keys(gen, dtype, heads, hd):
+    """Under the causal mask, batch row 1's first 70 keys are padded: its
+    query rows 0..69 see only padded keys, so each of their visible keys and
+    each later unpadded key sits at the same -1e9 level, and the plain
+    version averages V over all of them (the kernel visits every key tile
+    for this); L = 100 spans two key tiles."""
+    B, L = 2, 100
+    q, k, v = (torch.randn(B, L, heads * hd, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    bias = torch.zeros(B, L, device="cuda")
+    bias[1, :70] = -1e9
+    kw = dict(num_heads=heads, sm_scale=hd ** -0.5, causal=True)
+    got = fused_self_attention(q, k, v, bias, **kw)
+    ref = fused_self_attention_reference(q, k, v, bias, **kw)
+    _assert_k2_close(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("L", [1, 17])
+@pytest.mark.parametrize("heads,hd", [(16, 24), (2, 192), (32, 12)])
+def test_k2_generic_kernel_short_rows(gen, dtype, L, heads, hd):
+    """L neither a multiple of 16 nor of 64 (one query block, one key tile,
+    rows past L zero-filled), with the key bias (L = 17, the last key
+    dropped) and without any bias (L = 1)."""
+    B = 3
+    q, k, v = (torch.randn(B, L, heads * hd, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    bias = None
+    if L > 1:
+        bias = torch.zeros(B, L, device="cuda")
+        bias[:, -1] = -1e9
+    kw = dict(num_heads=heads, sm_scale=hd ** -0.5)
+    got = fused_self_attention(q, k, v, bias, **kw)
+    ref = fused_self_attention_reference(q, k, v, bias, **kw)
+    _assert_k2_close(got, ref)
