@@ -192,8 +192,8 @@ Phases, each printing one JSON line with its elapsed seconds:
      11c. the same over an int8 index (K3), its top-100 overlap with 11b's;
      11d. ``configs/synth_rerank_full_context_fullsize.json`` ``--mode
      train``, 10 steps (no launch), then ``--mode test`` over 11b's dump
-     with ``use_pallas_attention`` in the cross-encoder (fp32 K2): 500
-     queries x 100 candidates, none missing its static retrieval, four
+     with ``use_pallas_attention`` in the cross-encoder (fp32 K2): 200
+     of the 500 queries x 100 candidates, none missing its static retrieval, four
      logits against the checkpoint's weights on the CPU in fp32,
      candidates/s and the reranked against the raw recall;
   12. the other reranker families and RAG from the CLI at full width, over
@@ -202,7 +202,7 @@ Phases, each printing one JSON line with its elapsed seconds:
      ``use_pallas_attention`` on in every encoder at test time and off in
      training (no launch): 12a. the interaction rerankers (MORES, then the
      CrossEncoder type; ModPreFLMR-BERT's 3 BERT-base layers, dim 128), 10
-     steps each, then 64 queries x 100 candidates (a cut of the 500 for
+     steps each, then 32 queries x 100 candidates (a cut of the 500 for
      time); 12b. the spliced reranker under PreFLMR attention fusion,
      warm-started from 11a (``reranker_backbone_path``), the same; 12c.
      monoBLIP2-Flan-T5-XL through the decoder branch (ViT-g, the Q-Former,
@@ -229,7 +229,7 @@ Phases, each printing one JSON line with its elapsed seconds:
      ``datasets`` ``save_to_disk`` layout and read back, every column
      equal; the JPEG decoded without PIL equal to its PIL pixels; 13b.
      ``cli.main --mode prepare_data`` over it: ``LoadPreprocessedData``
-     (128 train and 128 test rows) -> ``CaptionImageWithBLIP2v3`` (BLIP-2
+     (32 train and 32 test rows) -> ``CaptionImageWithBLIP2v3`` (BLIP-2
      Flan-T5-XL, 3.94 B, fp32, its HF-named checkpoint written first from
      the seed; a full-size synthetic Flan-T5 Unigram tokenizer of 32,100
      pieces with a charsmap, read by ``models/unigram.py``; the prompt
@@ -242,8 +242,9 @@ Phases, each printing one JSON line with its elapsed seconds:
      equal the Unigram decoding of the plain path's tokens; the prompt's
      ids equal the pieces' own), the tokenizer's encodes/s and decodes/s
      on the host, the first teacher batch against it (rtol 1e-4 / atol 2e-5), the first ViT rows
-     against the CPU in fp32; 13c. ``--mode train`` (20 steps) and
-     ``--mode test`` (K1, then K3 over an int8 index, both at L_d = 64)
+     against the CPU in fp32; 13c. ``--mode train`` (10 steps) and
+     ``--mode test`` over 128 of the 512 queries (K1, then K3 over an
+     int8 index, both at L_d = 64)
      with ``configs/evqa_flmr.json``'s pipeline over 13a's directories at
      ``synth_flmr_fullsize.json``'s widths; 13d. M2KR as it is published:
      the committed parquet snapshot ``tests/fixtures/m2kr_snapshot``
@@ -272,7 +273,7 @@ Phases, each printing one JSON line with its elapsed seconds:
      images at the WebP re-encodings (K1, K3 and fp32 K2 over the index of
      all 8,192 passages); 13e. ``cli.main`` with ``use_pallas_attention``
      over the same data at two head geometries, 8 train steps and a test
-     (64 queries) each: ``configs/evqa_flmr.json`` as published (4 heads x 16, which
+     (32 queries) each: ``configs/evqa_flmr.json`` as published (4 heads x 16, which
      the JAX package's gate refuses: K2 launches 0 times, in training
      too) and the same block with ``configs/synth_flmr.json``'s text tower
      (4 heads x 32: the test launches fp32 K2 at head_dim 32; training
@@ -280,7 +281,7 @@ Phases, each printing one JSON line with its elapsed seconds:
      removed after;
   14. the tools (``tools/``, ``ops/host_ops.py``), after phase 13, under
      ``build/chip_smoke_p14/``, removed after: 14a. a seeded BERT-base BEM
-     classifier (4 token types, fp32) written as an HF directory, 128
+     classifier (4 token types, fp32) written as an HF directory, 64
      synthetic (question, reference, candidate) triples scored one by one
      through ``tools/eval_evqa.py::BEMScorer`` at its default 512 tokens on
      the card (K2's fp32 path at [1, 512, 768], 12 launches a triple), each
@@ -324,12 +325,32 @@ Phases, each printing one JSON line with its elapsed seconds:
      that dump, one file of each kind written (rank 0's); on fewer cards
      the overask error. ``python3 chip_smoke.py --phase 15`` runs phases
      0, 1 and 15 alone, ``--phase 13d`` phases 0, 1, 13d and 13e;
-  7. after phase 15: the ``kernels`` line (K1 and K3 with their times at
+  16. PreFLMR-G as published, after phase 15 (``p16_phase``):
+     ``configs/evqa_flmr_G.json`` (BERT-base, ViT-G/14 48 x 1664 at 224,
+     dim 128, a 32-token prefix, the 1-layer mapping network; the vision
+     encoders frozen, the mapping group at its own lr, the clip at 1.0)
+     from ``cli.main`` in fp32 over ``tests/fixtures/m2kr_snapshot`` and its
+     images, only its paths, vocabulary and ``limit_train_batches`` (20)
+     changed: ``--mode train`` (20 steps at batch 4, validation as the
+     config has it; the first step's losses against the CPU in fp32 on the
+     same weights and batch, the third step's update of every trained
+     weight against AdamW's at its group's lr, every ``vision_encoder``
+     weight bitwise after the run; steps/s, peak memory, the checkpoint's
+     bytes and seconds, the host draw of the 1.97 B weights) and ``--mode
+     test`` from the checkpoint with ``use_pallas_attention`` in the text
+     encoder: 256 queries over all 8,192 passages (K1 at [4, 320, 128] x
+     [8192, 64, 128], fp32 K2 in the encoders, each against its plain
+     version at each launch shape), the first 8 queries' top-10 (the
+     dump's) and top-100 against the plain search, the dump's metrics
+     against a plain recomputation; under ``build/chip_smoke_p16/``,
+     removed after. ``python3 chip_smoke.py --phase 16`` runs phases 0, 1
+     and 16 alone;
+  7. after phase 16: the ``kernels`` line (K1 and K3 with their times at
      ``bench.py``'s batch and the 100k searches of phases 3 and 3b beside
-     the bound, K1 at stage 1's, the pooled index's, 3d's, 3e's and 11b's launch
+     the bound, K1 at stage 1's, the pooled index's, 3d's, 3e's, 11b's and 16's launch
      shapes, K3 at 11c's, K2 at each main-path variant's launch shape (3d's
      query encoder's, 3e's encoders', 4c's and 5b's and 6b's under W8A8 included),
-     and K2's fp32 path at each of phase 11's, 12's and 13's launch shapes
+     and K2's fp32 path at each of phase 11's, 12's, 13's and 16's launch shapes
      (K1 and K3 also at 13c's), at 14a's and at
      phase 2's head-bias and causal shapes, each with the bound of 3xTF32 products and the
      bound of fp32 FFMA beside it), then the result line.
@@ -342,9 +363,10 @@ bf16, and in fp32, as information.
 The launch counters are set to 0 just before each main-path phase (3, 3d,
 3e for each scale, 3b, 3c, 4, 4b, 4c, 5, 5b, 6, 6b, 8's training run, 9a,
 9b, 9c, 9d's timed steps, 10a, 10b, 10c, 10d, each CLI run of 11, 12 and
-13, 14a, and each of 15a-15f in every rank, whose counts the parent sums)
-and read just after it; phases 8, 15a, 9b, 9d, 10d, 11a, 11d's, every
-phase-12 training run and 13c's must launch none. Phase 3's index stays on
+13 and 16, 14a, and each of 15a-15f in every rank, whose counts the parent
+sums) and read just after it; phases 8, 15a, 9b, 9d, 10d, 11a, 11d's, every
+phase-12 training run and 13c's must launch none, 16's training run only
+its validation's K1. Phase 3's index stays on
 the card until phase 10b. Each of 3e's models, 4c's and each decoder family
 is built, run and freed before the next (about 8 GB a decoder family in
 bf16; 5b and 6b share 5's and 6's tensors).
@@ -1812,6 +1834,26 @@ def same_top_k(got_vals, got_ids, want_vals, want_ids, atol, rtol):
     return err
 
 
+def top_k_vs_plain(Q, index, served):
+    """The largest gap between the rankings ``served`` for queries ``Q``
+    (bf16; each a list of ``{"passage_id", "score"}``, best first) and the
+    plain search over ``index``: a doc may stand at a rank only with the
+    plain score of that rank (an order swap between near-ties), and its
+    served score must be its plain one."""
+    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import maxsim_scores_reference
+
+    ref_scores = maxsim_scores_reference(Q, index.embeddings, index.mask)
+    ref_vals, _ = torch.topk(ref_scores, len(served[0]), dim=1)
+    position = {d: i for i, d in enumerate(index.doc_ids)}
+    worst = 0.0
+    for i, top in enumerate(served):
+        got_idx = torch.as_tensor([position[p["passage_id"]] for p in top], device=Q.device)
+        swap = (ref_scores[i, got_idx] - ref_vals[i]).abs().max().item()
+        scores = torch.as_tensor([p["score"] for p in top], device=Q.device)
+        worst = max(worst, swap, (scores - ref_scores[i, got_idx]).abs().max().item())
+    return worst
+
+
 def k1_line(Q, D, M, name):
     """K1 against its plain version at a phase's launch shape, timed beside
     it, with the bound of the same work. Returns the line."""
@@ -2262,6 +2304,8 @@ FLMR_CONFIG, RERANK_CONFIG = "synth_flmr_fullsize.json", "synth_rerank_full_cont
 # 11a: one epoch cut to 20 steps; 11d: 10 steps; the first TIMED_FROM steps
 # of a run are warm-up for its steps/s
 CLI_FLMR_STEPS, CLI_RERANK_STEPS, TIMED_FROM = 20, 10, 5
+# 11d's test: 50 batches of 4, 200 of the 500 queries (a cut for time)
+CLI_RERANK_TEST_BATCHES = 50
 # K2's fp32 path against its plain version, both fp32 with TF32 off: the JAX
 # package's tolerance for the same comparison (tests/test_maxsim_pallas.py)
 K2F32_RTOL, K2F32_ATOL = 1e-4, 2e-5
@@ -2398,7 +2442,9 @@ def k2f32_check(name, q, k, v, bias, head_bias=None, *, heads, scale, causal=Fal
     library = lambda: sdpa(qh, kh, vh, attn_mask=sdpa_mask, scale=scale)  # noqa: E731
     times = k2_timed(kernel, library, flops, b_ms)
     if profile:  # the device's own times, beside the events' (costly: a trace each)
-        times.update(device_ms=device_ms(kernel), library_device_ms=device_ms(library))
+        (dev, dev_src), (lib, lib_src) = device_ms(kernel), device_ms(library)
+        times.update(device_ms=dev, device_ms_source=dev_src, library_device_ms=lib,
+                     library_device_ms_source=lib_src)
     return dict(variant=name, shape=[B, L, HD], heads=heads, head_dim=HD // heads,
                 dtype=_k2_dtype(q), mask=_k2_mask(bias, head_bias, causal),
                 max_abs_err=err, tol=[K2F32_RTOL, K2F32_ATOL],
@@ -2673,14 +2719,44 @@ def library_kernels(fn, reps=1):
 
 
 def device_ms(fn, reps=10):
-    """Device time of ``fn``'s kernels a call, from ``torch.profiler``: at
-    small shapes the time between launches (the host) sets ``cuda_ms``, this
-    the card's own. None unless the profiler saw each kernel ``reps`` times
-    (it can miss events)."""
+    """(device time of ``fn``'s kernels a call, its source): at small shapes
+    the time between launches (the host) sets ``cuda_ms``, this the card's
+    own. From ``torch.profiler`` when it saw each kernel ``reps`` times (it
+    can miss events), else from ``graph_ms`` (the kernels plus the gaps
+    between them); (None, None) if neither works."""
     kernels = library_kernels(fn, reps)
-    if not kernels or any(k["count"] != reps for k in kernels):
+    if kernels and all(k["count"] == reps for k in kernels):
+        return sum(k["us"] for k in kernels) / reps / 1e3, "profiler"
+    ms = graph_ms(fn, reps)
+    return ms, None if ms is None else "cuda_graph"
+
+
+def graph_ms(fn, reps=10):
+    """ms a call of ``fn`` from one CUDA graph of ``reps`` calls replayed
+    between two events, no host time between the launches; None if ``fn``
+    cannot be captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del graph
+        return start.elapsed_time(end) / reps
+    except RuntimeError:
+        torch.cuda.synchronize()
         return None
-    return sum(k["us"] for k in kernels) / reps / 1e3
 
 
 def sass_counts(name):
@@ -2794,7 +2870,6 @@ def cli_phases(smi):
     from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
     from reranking_multimodal_retrievers_tpu_torch.models.tokenization import (
         remove_instruction_prefix)
-    from reranking_multimodal_retrievers_tpu_torch.ops.maxsim_cuda import maxsim_scores_reference
 
     lines, parts = [], {}
     os.environ.pop("RMRT_PLATFORM", None)  # the CLI runs on the card
@@ -2889,17 +2964,8 @@ def cli_phases(smi):
         k1_row = k1_line(Qk1, Dk1, Mk1, "CLI test (11b)")
         # the first 8 queries' top-100 against the plain search over the index
         Q8 = q_log[0][1][:8].to(torch.bfloat16)
-        ref_scores = maxsim_scores_reference(Q8, index.embeddings, index.mask)
-        ref_vals, _ = torch.topk(ref_scores, 100, dim=1)
-        position = {d: i for i, d in enumerate(index.doc_ids)}
-        worst = 0.0
-        for i in range(8):
-            top = dump_b["predictions"][i]["top_ranking_passages"]
-            got_idx = torch.as_tensor([position[p["passage_id"]] for p in top], device="cuda")
-            swap = (ref_scores[i, got_idx] - ref_vals[i]).abs().max().item()
-            served = (torch.as_tensor([p["score"] for p in top], device="cuda")
-                      - ref_scores[i, got_idx]).abs().max().item()
-            worst = max(worst, swap, served)
+        worst = top_k_vs_plain(Q8, index, [p["top_ranking_passages"]
+                                           for p in dump_b["predictions"][:8]])
         check(worst <= K1_TOL, f"11b top-100 off the plain search by {worst}")
         k2_rows = {key: k2f32_line(entry, f"{'x'.join(map(str, key[0]))} (11b, 11c)")
                    for key, entry in k2_in.items()}
@@ -2909,7 +2975,7 @@ def cli_phases(smi):
                     seconds=time.perf_counter() - t0)
         lines.append(line)
         shutil.copy(flmr_dir / "test_predictions_rank_0.json", CLI_DIR / "flmr_dump.json")
-        del index, q_log, k1_in, Q8, ref_scores, Qk1, Dk1, Mk1, k1_entry
+        del index, q_log, k1_in, Q8, Qk1, Dk1, Mk1, k1_entry
 
         # -- 11c. the same test over an int8 index (K3)
         t0 = time.perf_counter()
@@ -2956,14 +3022,15 @@ def cli_phases(smi):
             rec.patch(RerankerExecutor, "evaluate", _clock(evals))
             rec.patch(bert_mod, "fused_self_attention", _first_inputs(k2_in, _k2_key))
             _cli(RERANK_CONFIG, "test", *rr_opts, f"meta.experiment_dir='{rr_dir}'",
-                 "model_config.cross_encoder.use_pallas_attention=true")
+                 "model_config.cross_encoder.use_pallas_attention=true",
+                 f"test.trainer_paras.limit_test_batches={CLI_RERANK_TEST_BATCHES}")
         torch.cuda.synchronize()
         parts["11d_test"] = read_counts()
         check(parts["11d_test"]["K2f32"] > 0 and parts["11d_test"]["K2"] == 0,
               f"11d test launches {parts['11d_test']}")
         dump = _dump(rr_dir)
         preds = dump["predictions"]
-        check(len(preds) == 500
+        check(len(preds) == 4 * CLI_RERANK_TEST_BATCHES
               and not any(p.get("static_retrieval_missing") for p in preds)
               and all(len(p["top_ranking_passages"]) == 100 for p in preds),
               "11d: the rerank dump")
@@ -3019,9 +3086,9 @@ def cli_phases(smi):
 # 11b's dump
 
 P12_DIR = CLI_DIR / "p12"
-# 12a, 12b: 10 training steps, then 64 test queries x 100 candidates (of
-# the 500 queries 11d reranks: a cut for time)
-P12_STEPS, P12_QUERIES, P12_TEST_BATCH = 10, 64, 8
+# 12a, 12b: 10 training steps, then 32 test queries x 100 candidates (of
+# the 500 test queries: a cut for time)
+P12_STEPS, P12_QUERIES, P12_TEST_BATCH = 10, 32, 8
 # 12c, 12d, 12e: 8 test queries (x 100 candidates, x 5 docs for RAG)
 P12_DEC_QUERIES, P12_DEC_STEPS, P12_RAG_STEPS = 8, 5, 3
 # greedy decoding: tokens are compared up to the first step whose top-2
@@ -3482,17 +3549,18 @@ FIXTURE_JPEG = Path(__file__).resolve().parent / "tests" / "fixtures" / "baselin
 # 13a: M2KR-shaped data: questions, the passage corpus (phase 11's size),
 # distinct images (PNGs of photograph-like sizes, plus the committed JPEG)
 P13_TRAIN, P13_TEST, P13_PASSAGES, P13_IMAGES, P13_WORDS = 2048, 512, 30_000, 256, 2000
-# 13b: rows of each split prepared (LoadPreprocessedData's num_data), the
-# teacher's negatives, the ViT rows held against the CPU (a cut of its first
-# batch of 16, for time)
-P13_NUM_DATA, P13_NEGATIVES, P13_VIT_CPU_ROWS = 128, 4, 4
+# 13b: rows of each split prepared (LoadPreprocessedData's num_data; a cut
+# for time), the teacher's negatives, the ViT rows held against the CPU (a
+# cut of its first batch of 16, for time)
+P13_NUM_DATA, P13_NEGATIVES, P13_VIT_CPU_ROWS = 32, 4, 4
 # 13b's models: the captioner (bench.py:260-390's BLIP-2 Flan-T5-XL), CLIP
 # ViT-L/14 at 224, and the teacher at configs/synth_flmr_fullsize.json's
 # widths (BERT-base, ViT-B/32, dim 128)
 P13_VIT = {"hidden_size": 1024, "intermediate_size": 4096, "num_hidden_layers": 24,
            "num_attention_heads": 16, "image_size": 224, "patch_size": 14}
-# 13c: configs/evqa_flmr.json's pipeline over 13a's directories
-P13_STEPS = 20
+# 13c: configs/evqa_flmr.json's pipeline over 13a's directories: 10 train
+# steps and 8 test batches of 16, 128 of the 512 queries (a cut for time)
+P13_STEPS, P13C_TEST_BATCHES = 10, 8
 
 
 def _p13_captioner_config():
@@ -3744,9 +3812,11 @@ def _p13_config(base, transforms):
 
 
 def _p13_cli(cfg, name, mode, *opts):
+    """``cli.main`` with ``cfg``, written beside its experiment folder."""
     from reranking_multimodal_retrievers_tpu_torch.cli.main import main as cli_main
 
-    path = P13_DIR / f"{name}.json"
+    path = Path(cfg["meta"]["EXPERIMENT_FOLDER"]).parent / f"{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
     with open(path, "w") as f:
         json.dump(cfg, f)
     rc = cli_main(["--config", str(path), "--mode", mode, "--opts", *opts])
@@ -4038,13 +4108,15 @@ def _p13_full_width(cfg):
 
 
 def p13_train_test(smi, cfg, part, n_train, n_test, corpus, steps=P13_STEPS, int8=True,
-                   want_k2=True, train_pallas=False, test_opts=()):
-    """13c, 13d and 13e: FLMR ``--mode train`` (``steps`` steps, with
-    ``use_pallas_attention`` as ``train_pallas`` says) and ``--mode test``
-    (K1 and, where ``want_k2``, K2's fp32 path; then, where ``int8``, K3
-    over an int8 index; ``test_opts`` on both) from ``cli.main`` with
-    ``cfg`` (``configs/evqa_flmr.json``'s pipeline over a part's data).
-    Returns (the lines, K1 row, K3 row or None, K2 rows, launch counts)."""
+                   want_k2=True, train_pallas=False, test_opts=(), validate=False, keep=None):
+    """13c, 13d, 13e and 16: FLMR ``--mode train`` (``steps`` steps, with
+    ``use_pallas_attention`` as ``train_pallas`` says; validation off unless
+    ``validate``, then as ``cfg`` has it) and ``--mode test`` (K1 and, where
+    ``want_k2``, K2's fp32 path; then, where ``int8``, K3 over an int8
+    index; ``test_opts`` on both) from ``cli.main`` with ``cfg`` (an EVQA
+    config's pipeline over a part's data). ``keep``, a dict, receives the
+    first test's index, its first 8 query matrices and its dump. Returns
+    (the lines, K1 row, K3 row or None, K2 rows, launch counts)."""
     from reranking_multimodal_retrievers_tpu_torch.engine import search as search_mod
     from reranking_multimodal_retrievers_tpu_torch.executors import FLMRExecutor
     from reranking_multimodal_retrievers_tpu_torch.models import bert as bert_mod
@@ -4058,28 +4130,34 @@ def p13_train_test(smi, cfg, part, n_train, n_test, corpus, steps=P13_STEPS, int
     t0 = time.perf_counter()
     n_steps = steps
     steps = []
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with _Recorder() as rec:
         rec.patch(FLMRExecutor, "training_step", _clock(steps))
         _p13_cli(cfg, run, "train", f"train.trainer_paras.limit_train_batches={n_steps}",
                  "train.trainer_paras.max_epochs=1", "train.trainer_paras.log_every_n_steps=1",
-                 "valid.trainer_paras.limit_val_batches=0", *([pallas] if train_pallas else []))
+                 *([] if validate else ["valid.trainer_paras.limit_val_batches=0"]),
+                 *([pallas] if train_pallas else []))
     trained = parts[f"{part}_train"] = read_counts()
-    check(sum(trained.values()) == 0, f"{part} training launched {trained}")
+    # training launches nothing; its validation, where it runs, searches by K1
+    check(sum(trained.values()) == trained["K1"] and (trained["K1"] > 0) == validate,
+          f"{part} training launched {trained}")
     check(len(steps) == n_steps, f"{part} took {len(steps)} steps")
     losses = [m["ib_loss"] for m in _metrics_lines(exp) if "ib_loss" in m]
     check(len(losses) > 0 and np.isfinite(losses).all(), f"{part} losses {losses}")
     batch = cfg["train"]["batch_size"]
     lines.append({"phase": f"{run}_train", "steps": len(steps), "batch": batch,
                   "cuts": {"steps": f"{n_steps} of an epoch's {n_train // batch}"},
-                  "use_pallas_attention": train_pallas,
+                  "use_pallas_attention": train_pallas, "validation": validate,
                   "steps_per_s": _steps_per_s(steps), "examples_per_s": batch * _steps_per_s(steps),
+                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                   "ib_losses": losses, "launches": trained, "card": smi,
                   "seconds": time.perf_counter() - t0})
 
     def test(name, *opts):
         t0 = time.perf_counter()
         idx_log, q_log, s_log, k1_in, k3_in, k2_in = [], [], [], {}, {}, {}
+        torch.cuda.reset_peak_memory_stats()
         reset_counts()
         with _Recorder() as rec:
             rec.patch(FLMRExecutor, "build_index", _clock(idx_log))
@@ -4094,18 +4172,22 @@ def p13_train_test(smi, cfg, part, n_train, n_test, corpus, steps=P13_STEPS, int
                      *opts)
         torch.cuda.synchronize()
         launches = read_counts()
-        preds = _dump(exp)["predictions"]
+        dump = _dump(exp)
+        preds = dump["predictions"]
         check(len(preds) == n_test and all(
             np.isfinite([d["score"] for d in p["top_ranking_passages"]]).all() for p in preds),
             f"{name}: the prediction dump")
         index = idx_log[0][1]
         index_s = sum(t for t, _ in idx_log)
         query_s = sum(t for t, _ in q_log) + sum(t for t, _ in s_log)
-        m = _dump(exp)["metrics"]
+        m = dump["metrics"]
+        if keep is not None and not keep:
+            keep.update(index=index, dump=dump, queries=torch.cat([q for _, q in q_log[:8]])[:8])
         line = {"phase": name, "docs": index.num_docs, "doc_tokens": list(index.mask.shape),
                 "queries": len(preds), "corpus_docs_per_s": index.num_docs / index_s,
                 "index_seconds": index_s, "queries_per_s": len(preds) / query_s,
                 **{k: v for k, v in m.items() if "recall_at_5" in k},
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "launches": launches, "card": smi, "seconds": time.perf_counter() - t0}
         return line, k1_in, k3_in, k2_in
 
@@ -4152,16 +4234,17 @@ P13D_IMAGES = FIXTURES / "m2kr_images"
 P13D_IMAGES_WEBP = FIXTURES / "m2kr_images_webp"
 P13D_WEBP = FIXTURES / "webp_images"
 P13E_STEPS = 8  # three past TIMED_FROM, for a steps/s
-P13E_TEST_BATCHES = 16  # 64 of the 256 test queries (each query's WebP image decoded on the host)
+# 32 of the 256 test queries (each query's WebP image decoded on the host)
+P13E_TEST_BATCHES = 8
 # 13d's loader depth (its rows' WebP images decode on the host): 10 train
-# steps and 128 of the 256 test queries, cut to keep the script's time
+# steps and 64 of the 256 test queries, cut to keep the script's time
 P13D_STEPS = 10
-P13D_TEST_BATCHES = 8
+P13D_TEST_BATCHES = 4  # 64 of the 256 queries
 P13E_CONFIGS = ("evqa_flmr.json", "synth_flmr.json")
 P13D_CODECS = FIXTURES / "codec_images"
 P13D_TOKENIZER = FIXTURES / "unigram_tokenizer"
 P13D_JPEG_CODING = FIXTURES / "jpeg_coding"
-P13D_PASSES = 3  # passes over the tables and the images; the best is kept
+P13D_PASSES = 2  # passes over the tables and the images; the best is kept
 
 
 def _rows_digest(rows):
@@ -4249,7 +4332,6 @@ def p13d_read(smi):
     counts of its README, parquet MB/s and images/s by format. Returns
     (the line, the splits' sizes, the snapshot's words)."""
     import hashlib
-    import re
 
     from reranking_multimodal_retrievers_tpu_torch.data import image_io, parquet_io
     from reranking_multimodal_retrievers_tpu_torch.data.ops.infoseek_ops import (
@@ -4362,31 +4444,40 @@ def p13d_read(smi):
             "digests_equal": True, "host_seconds_note": "host clock, best of "
             f"{P13D_PASSES} passes; the card is idle in these reads", "card": smi,
             "seconds": time.perf_counter() - t0}
-    text = [t for table in loaded.values() for col in ("question", "instruction",
+    return line, sizes, _table_words(loaded)
+
+
+def _table_words(tables):
+    """The sorted lower-case words of the tables' question, instruction and
+    passage columns: a test vocabulary's words for the snapshot."""
+    import re
+
+    text = [t for table in tables.values() for col in ("question", "instruction",
                                                         "passage_content")
             if col in table.column_names for t in table[col]]
-    words = sorted({w for t in text for w in re.findall(r"[a-z0-9]+", t.lower())})
-    return line, sizes, words
+    return sorted({w for t in text for w in re.findall(r"[a-z0-9]+", t.lower())})
 
 
-def _p13d_config(base, part="13d"):
-    """``configs/evqa_flmr.json`` with its M2KR node pointed at the
-    committed re-encoded snapshot through the ``///`` convention, the rows'
-    images at their WebP re-encodings, a part's paths and 13d's vocabulary
-    (13d then takes :func:`_p13_full_width`'s widths, 13e its own)."""
+def _p13d_config(base, part="13d", root=P13_DIR, snapshot=P13D_SNAPSHOT_V2,
+                 images=P13D_IMAGES_WEBP):
+    """An EVQA config (``configs/evqa_flmr.json`` for 13d and 13e,
+    ``evqa_flmr_G.json`` for 16) with its M2KR node pointed at a committed
+    snapshot through the ``///`` convention (13d's re-encoded copy by
+    default), the rows' images at ``images`` (their WebP re-encodings by
+    default), a part's paths under ``root`` and the vocabulary written
+    there (13d then takes :func:`_p13_full_width`'s widths, 13e its own)."""
     import copy
 
     cfg = copy.deepcopy(base)
-    cfg["meta"]["EXPERIMENT_FOLDER"] = str(P13_DIR / f"experiments_{part}")
+    cfg["meta"]["EXPERIMENT_FOLDER"] = str(root / f"experiments_{part}")
     dp = cfg["data_pipeline"]
-    dp["cache_dir"] = str(P13_DIR / f"cache_{part}")
+    dp["cache_dir"] = str(root / f"cache_{part}")
     dp["transforms"]["input:LoadM2KR"]["setup_kwargs"].update(
-        data_path=f"{P13D_SNAPSHOT_V2}///EVQA_data",
-        passage_path=f"{P13D_SNAPSHOT_V2}///EVQA_passages",
-        image_root_folder=str(P13D_IMAGES_WEBP))
+        data_path=f"{snapshot}///EVQA_data", passage_path=f"{snapshot}///EVQA_passages",
+        image_root_folder=str(images))
     out = dp["transforms"]["output:PrepareDataloaders"]["setup_kwargs"]
     for tok in out["tokenizer_config"].values():
-        tok["TokenizerModelVersion"] = str(P13_DIR / "vocab_13d")
+        tok["TokenizerModelVersion"] = str(root / "vocab_snapshot")
     return cfg
 
 
@@ -4398,7 +4489,7 @@ def p13d_phase(smi, base):
     t0 = time.perf_counter()
     line, sizes, words = p13d_read(smi)
     emit(line)
-    write_test_vocab(str(P13_DIR / "vocab_13d" / "vocab.txt"), words)
+    write_test_vocab(str(P13_DIR / "vocab_snapshot" / "vocab.txt"), words)
     cfg = _p13_full_width(_p13d_config(base))
     lines, k1_row, k3_row, rows, parts = p13_train_test(
         smi, cfg, "13d", sizes["train"], P13D_TEST_BATCHES * cfg["test"]["batch_size"],
@@ -4465,8 +4556,9 @@ def p13_phases(smi, only_13d=False):
         line, k2_rows, launches = p13_prepare(smi, words, base)
         emit(line)
         lines, k1_row, k3_row, rows, parts = p13_train_test(
-            smi, _p13_full_width(_p13_config(base, {})), "13c", P13_TRAIN, P13_TEST,
-            "13a's corpus")
+            smi, _p13_full_width(_p13_config(base, {})), "13c", P13_TRAIN,
+            16 * P13C_TEST_BATCHES, "13a's corpus",
+            test_opts=(f"test.trainer_paras.limit_test_batches={P13C_TEST_BATCHES}",))
         for line in lines:
             emit(line)
         k1_d, k3_d, rows_d, parts_d = p13d_phase(smi, base)
@@ -4498,8 +4590,8 @@ P3D_HOST_MEAN, P3D_HOST_MAX = 0.05, 0.75
 # differ by this much, and the ranks only between docs within it
 P3D_TOPK_ATOL = 0.1
 # 14a: BEM triples at BEMScorer's default 512 tokens, each score held
-# against the CPU's fp32 one
-P14_BEM_EXAMPLES, P14_BEM_TOL = 128, 1e-4
+# against the CPU's fp32 one (a cut for time)
+P14_BEM_EXAMPLES, P14_BEM_TOL = 64, 1e-4
 # 14b: the top-100 of this many 3d queries, packed token by token
 P14_HOST_QUERIES = 8
 P14_WORDS = ["what", "which", "who", "where", "animal", "city", "color", "river", "capital",
@@ -5796,6 +5888,244 @@ def p15_kernel_rows(rows, parts):
     return totals, per_shape
 
 
+# ---- phase 16: PreFLMR-G as published (configs/evqa_flmr_G.json) fine-tuned
+# ---- and tested from cli.main over the committed M2KR snapshot
+
+P16_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_p16"
+P16_CONFIG = "evqa_flmr_G.json"
+P16_STEPS = 20  # train.trainer_paras.limit_train_batches: 20 of the epoch's 256 steps
+# the update recomputed from AdamW's state: the third step, the first at
+# the full learning rates after the config's 2 warm-up steps
+P16_CHECKED_STEP = 2
+# the first step's losses on the card (fp32, TF32 off in cuBLAS and cuDNN)
+# against the CPU in fp32 on the same weights and batch: round-off through
+# ViT-G's 48 layers, BERT-base's 12 and the mapping network into scores that
+# sum 320 maxima of unit rows (up to ~320); a share of max(1, |loss|)
+P16_LOSS_TOL = 1e-4
+# the checked step's update against AdamW's formula at its group's own lr,
+# beyond one fp32 spacing of the weight, as a share of that lr: fp32
+# round-off in m / (sqrt(v) + eps) of order 1; the other group's lr (10x
+# apart) would miss by ~9 lr
+P16_UPDATE_TOL = 1e-3
+# the top-100 of the first 8 test queries, K1 at k = 100 over the test's
+# index against the plain search (the dump holds the config's top-10)
+P16_TOP_K = 100
+
+
+def _plain_dpr_metrics(preds, Ks):
+    """``compute_DPR_scores`` and ``compute_DPR_scores_with_pos_ids`` of a
+    prediction dump, written out here where the JAX package is not imported
+    (``tests/test_torch_preflmr_cli.py`` holds this function and the port's
+    processor against the JAX package's): pseudo-relevance recall and
+    precision by answer containment, and the same by positive passage ids,
+    at each K."""
+    out = {}
+    sums = {k: [0.0] * len(Ks) for k in ("precision", "recall", "gold_precision",
+                                         "gold_recall", "pos_item_ids_precision",
+                                         "pos_item_ids_recall")}
+    for p in preds:
+        top = p["top_ranking_passages"]
+        for i, K in enumerate(Ks):
+            texts = [d["content"].lower() for d in top[:K]]
+            found = sum(any(a.lower() in t for a in p["answers"]) for t in texts)
+            gold = p.get("gold_answer", "")
+            found_gold = sum(bool(gold) and gold.lower() in t for t in texts)
+            sums["recall"][i] += found > 0
+            sums["precision"][i] += found / K
+            sums["gold_recall"][i] += found_gold > 0
+            sums["gold_precision"][i] += found_gold / K
+    for p in preds:
+        hits = [d["passage_id"] in p["pos_item_ids"] for d in p["top_ranking_passages"]]
+        for i, K in enumerate(Ks):
+            sums["pos_item_ids_recall"][i] += sum(hits[:K]) > 0
+            sums["pos_item_ids_precision"][i] += sum(hits[:K]) / K
+    for name, vals in sums.items():
+        for i, K in enumerate(Ks):
+            out[f"{name}_at_{K}"] = float(vals[i] / len(preds))
+    return out
+
+
+def _p16_step_probe(store):
+    """A ``training_step`` wrapper: at the first call it keeps the executor,
+    the batch and the model's initial state on the host; at
+    P16_CHECKED_STEP it recomputes every trained parameter's update from
+    AdamW's state after the step at the lr its group should have (the
+    config's ``lr`` for ``main``, ``mapping_network_lr`` for ``mapping``)."""
+    import math
+
+    def make(orig):
+        def step(self, batch):
+            i = store.get("calls", 0)
+            store["calls"] = i + 1
+            if i == 0:
+                store.update(ex=self, batch=batch, init={
+                    k: v.detach().to("cpu", copy=True) for k, v in self.model.state_dict().items()})
+            if i != P16_CHECKED_STEP:
+                return orig(self, batch)
+            opt = self._train_state.optimizer
+            before = {id(p): p.detach().clone() for g in opt.param_groups for p in g["params"]}
+            lrs = {g["name"]: g["lr"] for g in opt.param_groups}  # this step's
+            out = orig(self, batch)
+            errs = {}
+            for g in opt.param_groups:
+                lr, (b1, b2) = lrs[g["name"]], g["betas"]
+                worst = 0.0
+                for p in g["params"]:
+                    st = opt.state[p]
+                    t = float(st["step"])
+                    denom = st["exp_avg_sq"].sqrt() / math.sqrt(1 - b2 ** t) + g["eps"]
+                    want = (before[id(p)] * (1 - lr * g["weight_decay"])
+                            - lr / (1 - b1 ** t) * st["exp_avg"] / denom)
+                    # beyond one fp32 spacing of the weight (LayerNorm's ~1)
+                    gap = (p.detach() - want).abs() - want.abs() * 2 ** -23
+                    worst = max(worst, gap.max().item())
+                errs[g["name"]] = worst / lr
+            names = {id(p): n for n, p in self.model.named_parameters()}
+            store["step_check"] = {
+                "step": i + 1, "lr": lrs, "update_err_over_lr": errs, "tol": P16_UPDATE_TOL,
+                "params": {g["name"]: len(g["params"]) for g in opt.param_groups},
+                "mapping_names": sorted({names[id(p)].split(".")[0] for g in opt.param_groups
+                                         if g["name"] == "mapping" for p in g["params"]})}
+            return out
+        return step
+    return make
+
+
+def p16_phase(smi):
+    """Phase 16: ``configs/evqa_flmr_G.json`` (PreFLMR-G: BERT-base,
+    ViT-G/14 48 x 1664 at 224, dim 128, a 32-token prefix, the 1-layer
+    mapping network cross-attending to 32 text rows; the vision encoders
+    frozen, the mapping group at its own lr, the clip at 1.0) from
+    ``cli.main`` in fp32 over ``tests/fixtures/m2kr_snapshot``. Changed
+    from the file: the M2KR node's paths (and its images), the tokenizers'
+    vocabulary (the snapshot's words), the experiment and cache dirs and
+    ``limit_train_batches`` (20). ``--mode train`` runs 20 steps at batch 4
+    with 1 negative and validation as the config has it (2 batches over
+    all 8,192 passages); its first step's losses are held against the CPU
+    in fp32 on the same weights and batch, the third step's update of
+    every trained parameter against AdamW's at its group's lr, and every
+    ``vision_encoder`` weight after the run bitwise against the start.
+    ``--mode test`` from the checkpoint with ``use_pallas_attention`` in
+    the text encoder: 256 queries over all 8,192 passages (K1 at [4, 320,
+    128] x [8192, 64, 128]; fp32 K2 at the doc and query encoders'
+    shapes), each kernel against its plain version on its first inputs
+    at each launch shape, the first 8 queries' top-10 (the dump's) and
+    top-100 against the plain search, the dump's metrics against
+    :func:`_plain_dpr_metrics`. Under ``build/chip_smoke_p16/``, removed
+    after. Returns (lines, K1 row, fp32 K2 rows, launch counts)."""
+    import os
+
+    from reranking_multimodal_retrievers_tpu_torch.data.ops.m2kr_ops import _load_hf
+    from reranking_multimodal_retrievers_tpu_torch.engine import Searcher
+    from reranking_multimodal_retrievers_tpu_torch.executors import FLMRExecutor
+    from reranking_multimodal_retrievers_tpu_torch.executors import flmr_executor
+    from reranking_multimodal_retrievers_tpu_torch.models import FLMRModelForRetrieval
+    from reranking_multimodal_retrievers_tpu_torch.models.tokenization import write_test_vocab
+
+    t0 = time.perf_counter()
+    os.environ.pop("RMRT_PLATFORM", None)  # the CLI runs on the card
+    if P16_DIR.exists():
+        shutil.rmtree(P16_DIR)
+    base = json.loads((CONFIGS / P16_CONFIG).read_text())
+    try:
+        tables = {**_load_hf(f"{P13D_SNAPSHOT}///EVQA_data"),
+                  **_load_hf(f"{P13D_SNAPSHOT}///EVQA_passages")}
+        sizes = {k: len(v) for k, v in tables.items()}
+        write_test_vocab(str(P16_DIR / "vocab_snapshot" / "vocab.txt"), _table_words(tables))
+        del tables
+        cfg = _p13d_config(base, "16", root=P16_DIR, snapshot=P13D_SNAPSHOT,
+                           images=P13D_IMAGES)
+        exp = Path(cfg["meta"]["EXPERIMENT_FOLDER"]) / cfg["meta"]["experiment_name"] / "version_0"
+        store, keep, draws, inits, saves, loads = {}, {}, [], [], [], []
+        with _Recorder() as rec:
+            rec.patch(FLMRExecutor, "training_step", _p16_step_probe(store))
+            rec.patch(flmr_executor, "FLMRModelForRetrieval", _clock(draws))
+            rec.patch(FLMRExecutor, "_init_model", _clock(inits))
+            rec.patch(FLMRExecutor, "save_checkpoint", _clock(saves))
+            rec.patch(FLMRExecutor, "load_checkpoint", _clock(loads))
+            lines, k1_row, _, k2_rows, parts = p13_train_test(
+                smi, cfg, "16", sizes["train"], sizes["test"],
+                "the parquet snapshot's 8,192 passages", steps=P16_STEPS, int8=False,
+                validate=True, keep=keep)
+        # validation searches by K1 at the test's launch shape: its launches join the row
+        k1_row.update(launches=k1_row["launches"] + parts["16_train"]["K1"],
+                      launches_in_validation=parts["16_train"]["K1"])
+        ex = store.pop("ex")
+        model = ex.model
+        n_params = sum(p.numel() for p in model.parameters())
+        tower = sum(p.numel() for n, p in model.named_parameters() if "vision_encoder" in n)
+
+        # the first step on the CPU in fp32: the same initial weights and batch
+        t1 = time.perf_counter()
+        card = [m for m in _metrics_lines(exp) if m.get("step") == 1 and "ib_loss" in m][0]
+        cpu = FLMRModelForRetrieval(ex.flmr_config, device="meta")
+        cpu.load_state_dict(store["init"], assign=True)
+        batch = {k: v.cpu() for k, v in ex.model_batch(store.pop("batch")).items()}
+        with torch.no_grad():
+            out = cpu.train()(**batch, num_negative_examples=ex.num_negative_samples)
+        want = {"loss": float(out.loss), "ib_loss": float(out.in_batch_negative_loss)}
+        del cpu, out, batch
+        cpu_s = time.perf_counter() - t1
+        loss_err = max(abs(card[k] - v) / max(1.0, abs(v)) for k, v in want.items())
+        check(loss_err <= P16_LOSS_TOL, f"16 first step: card {card} vs CPU fp32 {want}")
+        # the vision encoders bitwise as they started; the update of every
+        # trained parameter at its group's lr
+        init = store.pop("init")
+        frozen = [n for n, p in model.named_parameters() if "vision_encoder" in n]
+        moved = [n for n in frozen if not torch.equal(model.get_parameter(n).detach().cpu(),
+                                                      init[n])]
+        check(frozen and not moved, f"16: vision_encoder weights moved in training: {moved[:4]}")
+        check(all(model.get_parameter(n).requires_grad for n in frozen),
+              "16: a frozen weight lost requires_grad (its gradient would leave the clip's norm)")
+        step = store["step_check"]
+        opt_cfg = base["train"]["optimizer_config"]
+        check(step["lr"] == {"main": opt_cfg["optimizer_params"]["lr"],
+                             "mapping": opt_cfg["mapping_network_lr"]}
+              and max(step["update_err_over_lr"].values()) <= P16_UPDATE_TOL,
+              f"16: the groups' update at step {step['step']}: {step}")
+        del ex, model, init, store
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the test's rankings against the plain search, its metrics recomputed
+        index, dump, Q8 = keep["index"], keep["dump"], keep["queries"]
+        preds = dump["predictions"]
+        top10_err = top_k_vs_plain(Q8.to(torch.bfloat16), index,
+                                   [p["top_ranking_passages"] for p in preds[:8]])
+        ids, vals = Searcher(index, k=P16_TOP_K).search(Q8)
+        top100_err = top_k_vs_plain(Q8.to(torch.bfloat16), index, [
+            [{"passage_id": d, "score": float(v)} for d, v in zip(row, vrow)]
+            for row, vrow in zip(ids, vals)])
+        check(max(top10_err, top100_err) <= K1_TOL,
+              f"16 top-10 / top-100 off the plain search by {top10_err} / {top100_err}")
+        Ks = base["model_config"]["Ks"]
+        plain_m = _plain_dpr_metrics(preds, Ks)
+        check(dump["metrics"] == plain_m, f"16: the dump's metrics {dump['metrics']} against "
+              f"the plain recomputation {plain_m}")
+        del index, Q8, keep
+        train_line, test_line = lines
+        lines.append({
+            "phase": "p16_preflmr_g", "config": P16_CONFIG, "card": smi, "params": n_params,
+            "vision_tower_params": tower, "host_draw_seconds": [t for t, _ in draws],
+            "executor_init_seconds": [t for t, _ in inits],
+            "first_step_card": {k: card[k] for k in want}, "first_step_cpu_fp32": want,
+            "first_step_rel_err": loss_err, "tol": P16_LOSS_TOL, "cpu_check_seconds": cpu_s,
+            "vision_encoder_weights_bitwise": len(frozen), "step_check": step,
+            "checkpoint_bytes": _dir_bytes(exp / "ckpts"),
+            "checkpoint_write_seconds": [t for t, _ in saves],
+            "checkpoint_load_seconds": [t for t, _ in loads],
+            "test_top10_vs_plain_max_abs_err": top10_err,
+            f"test_top{P16_TOP_K}_vs_plain_max_abs_err": top100_err, "top_k_tol": K1_TOL,
+            "metrics_equal_plain_recomputation": True,
+            **{k: v for k, v in dump["metrics"].items() if "recall" in k},
+            "train_wall_seconds": train_line["seconds"], "test_wall_seconds": test_line["seconds"],
+            "seconds": time.perf_counter() - t0})
+    finally:
+        if P16_DIR.exists():
+            shutil.rmtree(P16_DIR)
+    return lines, k1_row, k2_rows, parts
+
+
 # ---- phases 3e, 4c, 5b and 6b: the published retrievers' larger scales,
 # monoPreFLMR-L, and the W8A8 decoder rerankers
 P3E_SCALES = ("L", "G")  # configs/okvqa_flmr_{L,G}.json
@@ -6287,6 +6617,23 @@ def main() -> int:
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                      "count": torch.cuda.device_count()}})
         return 0
+    if sys.argv[1:3] == ["--phase", "16"]:  # phases 0, 1 and 16 alone
+        lines, k1_p16, k2f32_p16, p16_parts = p16_phase(smi)
+        for line in lines:
+            emit(line)
+        emit({"kernels": [
+            dict(name=f"maxsim_scores {k1_p16['variant']}", route="cuda",
+                 source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
+                 replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:67",
+                 **k1_p16),
+            *(dict(name=f"fused_self_attention fp32 {r['variant']}", route="cuda",
+                   source=k2_source(r["head_dim"], True),
+                   replaces="reranking_multimodal_retrievers_tpu/ops/attention_pallas.py:95",
+                   **r) for r in k2f32_p16)],
+            "not_ported": [], "phases_run": [0, 1, 16], "launches": p16_parts})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if sys.argv[1:3] == ["--phase", "15"]:  # phases 0, 1 and 15 alone
         lines, p15_rows, p15_parts = p15_phases(smi)
         for line in lines:
@@ -6666,13 +7013,23 @@ def main() -> int:
         emit(line)
     emit({"phase": "ranks", "seconds": time.perf_counter() - t0})
 
+    # ---- 16. PreFLMR-G as published, fine-tuned and tested from the CLI
+    # over the committed M2KR snapshot (main path)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines, k1_p16, k2f32_p16, p16_parts = p16_phase(smi)
+    for line in lines:
+        emit(line)
+    emit({"phase": "preflmr_g_cli", "seconds": time.perf_counter() - t0})
+
     # ---- 7. the kernels line and the result
     torch.cuda.synchronize()
     phases = (retrieve_launches, p3d_launches, *p3e_launches, int8_launches, stream_launches,
               rerank_launches, w8a8_launches, p4c_launches, line_5b["launches"],
               line_6b["launches"], plaid_launches, pooled_launches, baleen_launches,
               triples_launches, *cli_parts.values(), *p12_parts.values(), *p13_parts.values(), p14_launches,
-              *p15_parts.values())
+              *p15_parts.values(), *p16_parts.values())
 
     def launches(name):
         return sum(p[name] for p in phases)
@@ -6739,14 +7096,14 @@ def main() -> int:
         *(dict(name=f"maxsim_scores {row['variant']}", route="cuda",
                source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim.cu",
                replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:67", **row)
-          for row in k1_p3d + k1_p3e + k1_p13),
+          for row in k1_p3d + k1_p3e + k1_p13 + [k1_p16]),
         *(dict(name=f"maxsim_scores_int8 {row['variant']}", route="cuda",
                source="reranking_multimodal_retrievers_tpu_torch/csrc/maxsim_int8.cu",
                replaces="reranking_multimodal_retrievers_tpu/ops/maxsim_pallas.py:183", **row)
           for row in k3_p13),
         *(dict(name=f"fused_self_attention fp32 {row['variant']}", route="cuda",
                source=k2_source(row["head_dim"], True), replaces=attention, **row)
-          for row in k2f32_rows + k2f32_p12 + k2f32_p13 + k2f32_p14 + k2f32_extra),
+          for row in k2f32_rows + k2f32_p12 + k2f32_p13 + k2f32_p14 + k2f32_p16 + k2f32_extra),
         *p15_kernel_rows(p15_rows, p15_parts)[1]]
     k2_width_launches(widths, kernels)
     for row in widths[len(k2_widths):]:  # the generic kernel's launches in the whole main path

@@ -39,7 +39,7 @@ J, T = "reranking_multimodal_retrievers_tpu", "reranking_multimodal_retrievers_t
 NEAR_TIE = 1e-4  # of the largest score
 
 
-def _executor(pkg, config, workdir, mode, *opts):
+def _executor(pkg, config, workdir, mode, *opts, dummy=True):
     cfgmod = __import__(f"{pkg}.utils.config_system", fromlist=["x"])
     __import__(f"{pkg}.data.ops")
     registry = __import__(f"{pkg}.executors", fromlist=["x"])
@@ -49,7 +49,7 @@ def _executor(pkg, config, workdir, mode, *opts):
     cfg.set_path("mode", mode)
     cls = getattr(registry, cfg.executor.ExecutorClass)
     kw = {"device": "cpu"} if pkg == T else {}
-    return cls(cfg, use_dummy_data=True, **kw)
+    return cls(cfg, use_dummy_data=dummy, **kw)
 
 
 def _carry_weights(jex, tex):
